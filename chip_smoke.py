@@ -129,65 +129,71 @@ def check_kernels(seed: int, reps: int, card: str):
     px = torch.as_tensor(_style_exemplar(seed), device=dev)
 
     # main-path inputs from one plain 512-px roundtrip (relu1/relu2 scales)
+    sc = fastcodec.pack_stage(enc, dec, 3, enc2[0])
+    enc_k, dec_k = sc.head, sc.tail
+    plain = codec.conv3x3_plain
     rgb = fastcodec.pixels_to_rgb(enc[0], px)
-    r11 = codec.rgb_to_relu1_plain(rgb, *enc[1])
-    r11p = codec.conv3x3_p2_plain(r11, *enc[2], relu=True, pool=True)
-    r2a = codec.conv3x3_full_plain(r11p, *enc[3], relu=True)
-    r2p = codec.conv3x3_full_plain(r2a, *enc[4], relu=True, pool=True)
-    feat3 = _run_stack(enc[5:], [(128, 256, 3, "", "relu")], r2p)
-    d128 = _run_stack(dec[:-4], arch.decoder_specs(3)[:-4], feat3)
-    up128 = codec.upconv_p2_plain(d128, *dec[-4])
-    d64 = codec.conv3x3_p2_plain(up128, *dec[-3], relu=True)
-    up64 = codec.upconv_p2_plain(d64, *dec[-2])
-    wf, bf = codec.fold_renorm(*dec[-1], *enc2[0])
+    r11 = plain(rgb, enc_k[0], relu=True)
+    r11p = plain(r11, enc_k[1], relu=True, pool=True)
+    r2a = plain(r11p, enc_k[2], relu=True)
+    feat3 = _run_stack(sc.enc_rest, [(128, 256, 3, "", "relu")],
+                       plain(r2a, enc_k[3], relu=True, pool=True))
+    d128 = _run_stack(sc.dec_rest, arch.decoder_specs(3)[:-4], feat3)
+    up128 = plain(d128, dec_k[0], relu=True, up=True)
+    d64 = plain(up128, dec_k[1], relu=True)
+    up64 = plain(d64, dec_k[2], relu=True, up=True)
 
-    def conv_call(x, w, b, up=False):
+    def conv_call(x, p, up=False):
         t = x.permute(0, 3, 1, 2)
         if up:
             t = F.interpolate(t, scale_factor=2, mode="nearest")
         t = F.pad(t, (1, 1, 1, 1), mode="reflect").contiguous(
             memory_format=torch.channels_last)
-        return lambda: F.conv2d(t, w, b)
+        return lambda: F.conv2d(t, p.w, p.b)
 
-    # (kernel, label, wrapper, plain version, (x, w, b), kwargs)
+    # (kernel, label, wrapper, x, packed weights, wrapper kwargs, plain kwargs)
+    relu, pool, up = dict(relu=True), dict(relu=True, pool=True), dict(relu=True, up=True)
     cases = [
-        ("rgb_to_relu1", "3->64 relu, 512^2", codec.rgb_to_relu1,
-         codec.rgb_to_relu1_plain, (rgb, *enc[1]), {}),
-        ("conv3x3_p2", "enc 64->64 relu+pool, 512^2", codec.conv3x3_p2,
-         codec.conv3x3_p2_plain, (r11, *enc[2]), dict(relu=True, pool=True)),
-        ("conv3x3_p2", "dec 128->64 relu, 256^2", codec.conv3x3_p2,
-         codec.conv3x3_p2_plain, (up128, *dec[-3]), dict(relu=True)),
-        ("conv3x3_full", "enc 64->128 relu, 256^2", codec.conv3x3_full,
-         codec.conv3x3_full_plain, (r11p, *enc[3]), dict(relu=True)),
+        ("rgb_to_relu1", "3->64 relu, 512^2", codec.rgb_to_relu1, rgb,
+         enc_k[0], {}, relu),
+        ("conv3x3_p2", "enc 64->64 relu+pool, 512^2", codec.conv3x3_p2, r11,
+         enc_k[1], pool, pool),
+        ("conv3x3_p2", "dec 128->64 relu, 256^2", codec.conv3x3_p2, up128,
+         dec_k[1], relu, relu),
+        ("conv3x3_full", "enc 64->128 relu, 256^2", codec.conv3x3_full, r11p,
+         enc_k[2], relu, relu),
         ("conv3x3_full", "enc 128->128 relu+pool, 256^2", codec.conv3x3_full,
-         codec.conv3x3_full_plain, (r2a, *enc[4]), dict(relu=True, pool=True)),
+         r2a, enc_k[3], pool, pool),
         ("upconv_p2", "dec up 128->128 relu, 128^2->256^2", codec.upconv_p2,
-         codec.upconv_p2_plain, (d128, *dec[-4]), {}),
+         d128, dec_k[0], {}, up),
         ("upconv_p2", "dec up 64->64 relu, 256^2->512^2", codec.upconv_p2,
-         codec.upconv_p2_plain, (d64, *dec[-2]), {}),
+         d64, dec_k[2], {}, up),
         ("final_to_rgb", "dec 64->3 + renorm, 512^2", codec.final_to_rgb,
-         codec.final_to_rgb_plain, (up64, wf, bf), {}),
+         up64, sc.final, {}, {}),
     ]
     rows = {}
-    for name, label, kern, plain, args, kw in cases:
-        x, w, b = args
-        got = kern(*args, **kw)
-        ref = plain(*args, **kw)
+    for name, label, kern, x, p, kw, plain_kw in cases:
+        got = kern(x, p, **kw)
+        ref = plain(x, p, **plain_kw)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         scale = float(ref.abs().max())
         if not (torch.isfinite(got).all() and err <= 2e-5 * max(scale, 1.0)):
             raise AssertionError(f"{name} [{label}]: max|kernel - plain| = "
                                  f"{err:.3e} over max|plain| = {scale:.3e}")
-        up = name == "upconv_p2"
-        hc, wc = (2 * x.shape[1], 2 * x.shape[2]) if up else x.shape[1:3]
-        cout, cin = w.shape[:2]
-        flops = 2.0 * x.shape[0] * hc * wc * cout * cin * 9
-        nbytes = 4.0 * (x.numel() + w.numel() + b.numel() + got.numel())
+        cout, cin = p.w.shape[:2]
+        if name == "upconv_p2":
+            # nearest-x2 then a 3x3 conv folds into 2x2 taps per output phase
+            # (as the TPU kernel computes it): 4 taps per fine pixel, not 9
+            taps, hc, wc = 4, 2 * x.shape[1], 2 * x.shape[2]
+        else:
+            taps, hc, wc = 9, x.shape[1], x.shape[2]
+        flops = 2.0 * x.shape[0] * hc * wc * cout * cin * taps
+        nbytes = 4.0 * (x.numel() + p.w.numel() + p.b.numel() + got.numel())
         t_flops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
-        ms = _time_ms(lambda: kern(*args, **kw), reps)
-        plain_ms = _time_ms(lambda: plain(*args, **kw), reps)
-        lib_ms = _time_ms(conv_call(x, w, b, up), reps)
+        ms = _time_ms(lambda: kern(x, p, **kw), reps)
+        plain_ms = _time_ms(lambda: plain(x, p, **plain_kw), reps)
+        lib_ms = _time_ms(conv_call(x, p, name == "upconv_p2"), reps)
         print(f"kernel {name:13s} {label:36s} err {err:.2e} (max|plain| "
               f"{scale:.3e})  {ms:.4f} ms  plain {plain_ms:.4f} ms  "
               f"F.conv2d {lib_ms:.4f} ms  bound {max(t_flops, t_bytes):.4f} ms "

@@ -45,7 +45,8 @@ class OptexConfig:
     cov_propagation: bool = True
     batch_chunk: int = 0
     # Route the relu1/relu2-scale codec convs of every stage roundtrip through
-    # the CUDA kernels of ops/codec.py (gate: models/fastcodec.eligible).
+    # the CUDA kernels of ops/codec.py. False (the F.conv2d codec) is a CPU
+    # reference and raises on a GPU (models/fastcodec.eligible).
     fast_codec: bool = True
     pca_bucket: int = 0
     pca_traced_k: bool = False

@@ -110,13 +110,14 @@ def _style_stats_pass(sfs, vs, *, ks):
 
 def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
                       iters, mode: str, pca_flags, resize_mats=None,
-                      fast_codec: bool = True, run_key: int = 0,
+                      stage_codecs=None, run_key: int = 0,
                       pass_idx: int = 0,
                       rotations: Optional[RotationSource] = None):
     """All of a pass's layer stages: the multires resize (``resize_mats``:
     the (wh, ww) weights, or None), then for each depth (deepest first)
     encode -> project -> OT -> unproject -> decode. Takes and returns f32
-    NHWC.
+    NHWC. ``stage_codecs`` (fastcodec.pack_stages) routes the roundtrips
+    through the codec kernels; None keeps the F.conv2d codec (CPU only).
 
     Stage i of pass p draws its rotations from a generator seeded by
     (run_key, p, i), or takes them from ``rotations(p, i, n_iters, C)``."""
@@ -140,15 +141,14 @@ def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
             feat = feat @ tgt.eigvecs.T
         return feat
 
-    if fast_codec:
+    if stage_codecs is not None:
         # relu1/relu2-scale codec on the CUDA kernels; the image lives as
         # post-renorm RGB between stages (models/fastcodec.py)
         rgb = fastcodec.pixels_to_rgb(enc_params[0][0], pastiche)
-        for i, d in enumerate(depths):
-            feat = ot_stage(i, fastcodec.encode_head(enc_params[i], d, rgb))
-            renorm = enc_params[i + 1][0] if i + 1 < len(depths) else None
-            rgb = fastcodec.decode_tail(dec_params[i], d, feat, renorm)
-        return fastcodec.rgb_to_pixels(rgb)
+        for i, sc in enumerate(stage_codecs):
+            rgb = fastcodec.decode_tail(
+                sc, ot_stage(i, fastcodec.encode_head(sc, rgb)))
+        return rgb
 
     for i, d in enumerate(depths):
         feat = ot_stage(i, encode(enc_params[i], d, pastiche))
@@ -158,7 +158,7 @@ def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
 
 def _run_stages_impl(enc_params, dec_params, pastiche, targets_all, run_key,
                      *, depths, plans, mode: str, pca_flags_all,
-                     resize_mats_all, fast_codec: bool,
+                     resize_mats_all, stage_codecs=None,
                      rotations: Optional[RotationSource] = None):
     """The whole run's pass chain. ``plans``: per pass (resize_to | None,
     iters tuple); ``resize_mats_all``: the matching (wh, ww) or None."""
@@ -166,7 +166,7 @@ def _run_stages_impl(enc_params, dec_params, pastiche, targets_all, run_key,
         pastiche = _pass_stages_impl(
             enc_params, dec_params, pastiche, targets_all[p], depths=depths,
             iters=iters, mode=mode, pca_flags=pca_flags_all[p],
-            resize_mats=resize_mats_all[p], fast_codec=fast_codec,
+            resize_mats=resize_mats_all[p], stage_codecs=stage_codecs,
             run_key=run_key, pass_idx=p, rotations=rotations)
     return pastiche
 
@@ -190,6 +190,11 @@ class Synthesizer:
             quirk=cfg.compat_schedule_quirk, num_layers=self.depth)
         # layer-loop position l uses depth D-l (deepest first)
         self.layer_depths = [self.depth - l for l in range(self.depth)]
+        self.stage_codecs = (fastcodec.pack_stages(
+            [self.bank.enc_params[d] for d in self.layer_depths],
+            [self.bank.dec_params[d] for d in self.layer_depths],
+            self.layer_depths)
+            if fastcodec.eligible(cfg.fast_codec, self.device) else None)
         self._run_counter = 0
         self._resample = {}
         self.reseed(cfg.seed)
@@ -330,15 +335,13 @@ class Synthesizer:
                 cur_hw = tuple(hw)
 
         # phase D: the pass chain
-        visit = [tuple(pastiche.shape[1:3])] + [tuple(rt) for (rt, _) in plans
-                                               if rt is not None]
-        fast = cfg.fast_codec and fastcodec.eligible(visit, "reflect")
         return _run_stages_impl(
             [self.bank.enc_params[d] for d in self.layer_depths],
             [self.bank.dec_params[d] for d in self.layer_depths],
             pastiche, targets_all, run_key, depths=tuple(self.layer_depths),
             plans=plans, mode=cfg.hist_mode, pca_flags_all=pca_flags_all,
-            resize_mats_all=mats_all, fast_codec=fast, rotations=rotations)
+            resize_mats_all=mats_all, stage_codecs=self.stage_codecs,
+            rotations=rotations)
 
 
 def synthesize(cfg: OptexConfig, styles, content=None, pastiche=None,

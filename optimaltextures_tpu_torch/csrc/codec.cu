@@ -4,7 +4,7 @@
 // All five compute the same operation: a 3x3 convolution with 1-px reflect
 // padding and a bias, on NHWC float32 tensors, with an optional nearest-x2
 // upsample in front (UP), and an optional ReLU and 2x2 max-pool (taken after
-// the ReLU) behind (RELU, POOL). One template serves them all:
+// the ReLU, ceil mode) behind (RELU, POOL). One template serves them all:
 //
 //   rgb_to_relu1  conv3x3_reflect<3,   64,  16, 64, 3, RELU>
 //   conv3x3_p2    conv3x3_reflect<64|128, 64,  16, 64, 8, RELU?, POOL?>
@@ -149,12 +149,18 @@ conv3x3_reflect(const float* __restrict__ x, const float* __restrict__ w,
   }
 
   if (POOL) {
-    const int PH = H / 2, PW = W / 2;
+    // ceil mode: at an odd H (W) the last window holds one row (column); the
+    // quad's pixels past the image stay out of the max
+    const int PH = (H + 1) / 2, PW = (W + 1) / 2;
     const int py = ty0 / 2 + qy, px = tx0 / 2 + qx;
     if (py >= PH || px >= PW) return;
+    const bool row1 = 2 * py + 1 < H, col1 = 2 * px + 1 < W;
 #pragma unroll
-    for (int k = 0; k < CPT; ++k)
-      acc[0][k] = fmaxf(fmaxf(acc[0][k], acc[1][k]), fmaxf(acc[2][k], acc[3][k]));
+    for (int k = 0; k < CPT; ++k) {
+      const float top = col1 ? fmaxf(acc[0][k], acc[1][k]) : acc[0][k];
+      const float bot = col1 ? fmaxf(acc[2][k], acc[3][k]) : acc[2][k];
+      acc[0][k] = row1 ? fmaxf(top, bot) : top;
+    }
     float* yp = y + ((static_cast<size_t>(n) * PH + py) * PW + px) * COUT + cbase;
     if (COUT % 4 == 0) {
 #pragma unroll
@@ -225,7 +231,7 @@ int optex_rgb_to_relu1(const float* x, const float* w, const float* b, float* y,
   return launch<3, 64, 16, 64, 3, true, false, false>(x, w, b, y, n, h, wd, stream);
 }
 
-// (N, H, W, cin) -> (N, H, W, 64), or (N, H/2, W/2, 64) when pooled
+// (N, H, W, cin) -> (N, H, W, 64), or (N, ceil(H/2), ceil(W/2), 64) when pooled
 int optex_conv3x3_p2(const float* x, const float* w, const float* b, float* y,
                      int n, int h, int wd, int cin, int relu, int pool,
                      void* stream) {
@@ -234,7 +240,7 @@ int optex_conv3x3_p2(const float* x, const float* w, const float* b, float* y,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// (N, H, W, cin) -> (N, H, W, 128), or (N, H/2, W/2, 128) when pooled
+// (N, H, W, cin) -> (N, H, W, 128), or (N, ceil(H/2), ceil(W/2), 128) when pooled
 int optex_conv3x3_full(const float* x, const float* w, const float* b, float* y,
                        int n, int h, int wd, int cin, int relu, int pool,
                        void* stream) {

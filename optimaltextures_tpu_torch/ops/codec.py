@@ -10,15 +10,17 @@ float32 at any batch, and one CUDA template serves all five
 
 Each wrapper below:
 
-* on a CPU tensor runs its plain PyTorch version (``*_plain``; the CPU tests
-  hold these against the JAX kernels in interpret mode);
+* on a CPU tensor runs its plain PyTorch version (:func:`conv3x3_plain`
+  with the wrapper's flags; the CPU tests hold it against the JAX kernels
+  in interpret mode);
 * on a CUDA tensor launches its kernel on the current stream, or raises —
   nothing falls back;
 * counts its launches in ``LAUNCHES[name]`` (plain versions do not count).
 
-Weights are OIHW (torch's layout, as the port's bank holds them); the
-wrappers hand the kernels an HWIO copy, whose [tap][ci][co] rows load into
-shared memory contiguously.
+Each conv's weights are packed once (:func:`pack`, :func:`pack_final`, as
+the JAX package's ``pack_*``): OIHW for the plain version, and an HWIO copy
+for the kernel, whose [tap][ci][co] rows load into shared memory
+contiguously.
 
 What bounds them on the H100 (f32, no tensor cores; 67 TFLOP/s FFMA and
 3.35 TB/s HBM on the SXM part): the 64/128-channel convs do 2*9*Cin FLOPs per
@@ -37,6 +39,7 @@ device memory.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,6 +54,32 @@ LAUNCHES = {"rgb_to_relu1": 0, "conv3x3_p2": 0, "conv3x3_full": 0,
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+class Packed(NamedTuple):
+    """One conv's weights: ``w`` (Cout, Cin, 3, 3) OIHW and ``b`` (Cout,) for
+    the plain version, ``w_hwio`` (3, 3, Cin, Cout) for the kernel."""
+    w: torch.Tensor
+    b: torch.Tensor
+    w_hwio: torch.Tensor
+
+
+def pack(w: torch.Tensor, b: torch.Tensor) -> Packed:
+    return Packed(w, b, w.permute(2, 3, 1, 0).contiguous())
+
+
+def pack_final(w_fin: torch.Tensor, b_fin: torch.Tensor,
+               renorm: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> Packed:
+    """The decoder-final conv (w_fin (3, 64, 3, 3), b_fin (3,)) with the next
+    stage's encoder 1x1 RGB renorm (w (3, 3, 1, 1), b (3,)) folded in: both
+    are linear with nothing between them in a stage roundtrip (the math of
+    the JAX package's ``pack_final_rgb``). ``None`` (the pass's last decode)
+    leaves the final conv as it is."""
+    if renorm is not None:
+        rn = renorm[0][:, :, 0, 0]                     # (out, in)
+        w_fin, b_fin = (torch.einsum("ok,kirc->oirc", rn, w_fin),
+                        renorm[1] + rn @ b_fin)
+    return pack(w_fin, b_fin)
 
 
 # ---------------------------------------------------------------------------
@@ -84,51 +113,14 @@ def build() -> None:
     _lib()
 
 
-def _launch(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-            y: torch.Tensor, *ints) -> torch.Tensor:
-    lib = _lib()
-    # HWIO: the kernel stages [tap][ci][co] weight rows contiguously
-    w_hwio = w.permute(2, 3, 1, 0).contiguous()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = getattr(lib, "optex_" + name)(
-        x.data_ptr(), w_hwio.data_ptr(), b.data_ptr(), y.data_ptr(),
-        *[int(i) for i in ints], stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {rc} "
-                           f"({lib.optex_error_string(rc).decode()})")
-    LAUNCHES[name] += 1
-    return y
-
-
-def _route(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, cins, cout: int,
-           name: str) -> bool:
-    """Validate the operands; True = launch the kernel, False = run the plain
-    version (CPU tensors only)."""
-    if x.dim() != 4 or x.shape[-1] not in cins:
-        raise ValueError(f"{name}: x must be NHWC with C in {cins}, got "
-                         f"{tuple(x.shape)}")
-    if tuple(w.shape) != (cout, x.shape[-1], 3, 3) or tuple(b.shape) != (cout,):
-        raise ValueError(f"{name}: weights must be ({cout}, {x.shape[-1]}, 3, "
-                         f"3) OIHW + ({cout},), got {tuple(w.shape)}, "
-                         f"{tuple(b.shape)}")
-    if x.shape[1] < 2 or x.shape[2] < 2:
-        raise ValueError(f"{name}: reflect padding needs H, W >= 2")
-    if not (x.device == w.device == b.device):
-        raise ValueError(f"{name}: operands on different devices")
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {x.device}")
-    if not (x.dtype == w.dtype == b.dtype == torch.float32):
-        raise TypeError(f"{name}: the kernel takes float32 only")
-    return True
-
-
-def _plain(x, w, b, relu: bool, pool: bool, up: bool) -> torch.Tensor:
+def conv3x3_plain(x: torch.Tensor, p: Packed, relu: bool = False,
+                  pool: bool = False, up: bool = False) -> torch.Tensor:
+    """The plain PyTorch version of every kernel here: NHWC x ->
+    [2x2 ceil max-pool] [relu] conv3x3_reflect([nearest_up_x2] x), NHWC."""
     t = to_nchw(x)
     if up:
         t = F.interpolate(t, scale_factor=2, mode="nearest")
-    t = F.conv2d(F.pad(t, (1, 1, 1, 1), mode="reflect"), w, b)
+    t = F.conv2d(F.pad(t, (1, 1, 1, 1), mode="reflect"), p.w, p.b)
     if relu:
         t = torch.relu(t)
     if pool:
@@ -136,9 +128,48 @@ def _plain(x, w, b, relu: bool, pool: bool, up: bool) -> torch.Tensor:
     return to_nhwc(t)
 
 
-def _out(x: torch.Tensor, h: int, w: int, c: int) -> torch.Tensor:
-    return torch.empty((x.shape[0], h, w, c), device=x.device,
-                       dtype=torch.float32)
+def _conv(name: str, x: torch.Tensor, p: Packed, cins, cout: int,
+          relu: bool = False, pool: bool = False, up: bool = False,
+          args=()) -> torch.Tensor:
+    """Validate the operands, then run the plain version on a CPU tensor or
+    launch the kernel ``optex_<name>(x, w, b, y, N, H, W, *args, stream)``
+    on a CUDA one (H, W: the input's)."""
+    if x.dim() != 4 or x.shape[-1] not in cins:
+        raise ValueError(f"{name}: x must be NHWC with C in {cins}, got "
+                         f"{tuple(x.shape)}")
+    if (tuple(p.w.shape) != (cout, x.shape[-1], 3, 3)
+            or tuple(p.b.shape) != (cout,)):
+        raise ValueError(f"{name}: weights must be ({cout}, {x.shape[-1]}, 3, "
+                         f"3) OIHW + ({cout},), got {tuple(p.w.shape)}, "
+                         f"{tuple(p.b.shape)}")
+    n, h, wd, _ = x.shape
+    if h < 2 or wd < 2:
+        raise ValueError(f"{name}: reflect padding needs H, W >= 2")
+    if not (x.device == p.w.device == p.b.device):
+        raise ValueError(f"{name}: operands on different devices")
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, p, relu, pool, up)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    if not (x.dtype == p.w_hwio.dtype == p.b.dtype == torch.float32):
+        raise TypeError(f"{name}: the kernel takes float32 only")
+    if up:
+        oh, ow = 2 * h, 2 * wd
+    elif pool:
+        oh, ow = (h + 1) // 2, (wd + 1) // 2
+    else:
+        oh, ow = h, wd
+    y = torch.empty((n, oh, ow, cout), device=x.device, dtype=torch.float32)
+    lib = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = getattr(lib, "optex_" + name)(
+        x.contiguous().data_ptr(), p.w_hwio.data_ptr(), p.b.data_ptr(),
+        y.data_ptr(), n, h, wd, *[int(a) for a in args], stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {rc} "
+                           f"({lib.optex_error_string(rc).decode()})")
+    LAUNCHES[name] += 1
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -146,21 +177,11 @@ def _out(x: torch.Tensor, h: int, w: int, c: int) -> torch.Tensor:
 #    _conv_p2_kernel :244): the encoder conv1_2 (+ pool) and the decoder
 #    128->64 conv. Operations-bound; see the module note.
 
-def conv3x3_p2_plain(x, w, b, relu: bool = True, pool: bool = False):
-    return _plain(x, w, b, relu, pool, False)
-
-
-def conv3x3_p2(x, w, b, relu: bool = True, pool: bool = False):
+def conv3x3_p2(x, p: Packed, relu: bool = True, pool: bool = False):
     """x (N, H, W, Cin), Cin in {64, 128} -> [relu] conv3x3_reflect (N, H, W,
-    64), or its 2x2 max-pool (N, H/2, W/2, 64) when ``pool``."""
-    if not _route(x, w, b, (64, 128), 64, "conv3x3_p2"):
-        return conv3x3_p2_plain(x, w, b, relu, pool)
-    n, h, wd, cin = x.shape
-    if pool and (h % 2 or wd % 2):
-        raise ValueError("conv3x3_p2: the fused pool needs even H, W")
-    y = _out(x, h // 2, wd // 2, 64) if pool else _out(x, h, wd, 64)
-    return _launch("conv3x3_p2", x.contiguous(), w, b, y, n, h, wd, cin,
-                   relu, pool)
+    64), or its 2x2 ceil-mode max-pool when ``pool``."""
+    return _conv("conv3x3_p2", x, p, (64, 128), 64, relu, pool,
+                 args=(x.shape[-1], relu, pool))
 
 
 # ---------------------------------------------------------------------------
@@ -168,21 +189,11 @@ def conv3x3_p2(x, w, b, relu: bool = True, pool: bool = False):
 #    _conv_full_kernel :340): the encoder 64->128 and 128->128 (+ pool)
 #    convs. Operations-bound; two 64-channel output tiles per pixel tile.
 
-def conv3x3_full_plain(x, w, b, relu: bool = True, pool: bool = False):
-    return _plain(x, w, b, relu, pool, False)
-
-
-def conv3x3_full(x, w, b, relu: bool = True, pool: bool = False):
+def conv3x3_full(x, p: Packed, relu: bool = True, pool: bool = False):
     """x (N, H, W, Cin), Cin in {64, 128} -> [relu] conv3x3_reflect (N, H, W,
-    128), or its 2x2 max-pool (N, H/2, W/2, 128) when ``pool``."""
-    if not _route(x, w, b, (64, 128), 128, "conv3x3_full"):
-        return conv3x3_full_plain(x, w, b, relu, pool)
-    n, h, wd, cin = x.shape
-    if pool and (h % 2 or wd % 2):
-        raise ValueError("conv3x3_full: the fused pool needs even H, W")
-    y = _out(x, h // 2, wd // 2, 128) if pool else _out(x, h, wd, 128)
-    return _launch("conv3x3_full", x.contiguous(), w, b, y, n, h, wd, cin,
-                   relu, pool)
+    128), or its 2x2 ceil-mode max-pool when ``pool``."""
+    return _conv("conv3x3_full", x, p, (64, 128), 128, relu, pool,
+                 args=(x.shape[-1], relu, pool))
 
 
 # ---------------------------------------------------------------------------
@@ -195,53 +206,25 @@ def conv3x3_full(x, w, b, relu: bool = True, pool: bool = False):
 #    (a fine reflection of a nearest-upsampled image is a coarse edge pad),
 #    so the 4x upsampled tensor is never written to device memory.
 
-def upconv_p2_plain(x, w, b):
-    return _plain(x, w, b, True, False, True)
-
-
-def upconv_p2(x, w, b):
+def upconv_p2(x, p: Packed):
     """coarse x (N, Hc, Wc, C), C in {64, 128} -> relu(conv3x3_reflect(
     nearest_up_x2(x))) (N, 2Hc, 2Wc, C)."""
-    if x.dim() == 4 and tuple(w.shape[:2]) != (x.shape[-1], x.shape[-1]):
-        raise ValueError(f"upconv_p2: weights must be C -> C, got "
-                         f"{tuple(w.shape)} for C={x.shape[-1]}")
-    if not _route(x, w, b, (64, 128), w.shape[0], "upconv_p2"):
-        return upconv_p2_plain(x, w, b)
-    n, hc, wc, c = x.shape
-    y = _out(x, 2 * hc, 2 * wc, c)
-    return _launch("upconv_p2", x.contiguous(), w, b, y, n, hc, wc, c)
+    c = x.shape[-1] if x.dim() == 4 else -1
+    return _conv("upconv_p2", x, p, (64, 128), c, relu=True, up=True,
+                 args=(c,))
 
 
 # ---------------------------------------------------------------------------
 # 4. final_to_rgb — replaces ops/pallas/codec.py:515 final_to_rgb (body
 #    _final_kernel :491): the decoder-final 64->3 conv, no ReLU, with the
-#    next stage's 1x1 RGB renorm folded into its weights (fold_renorm, the
+#    next stage's 1x1 RGB renorm folded into its weights (pack_final, the
 #    math of pack_final_rgb :121). Bytes-bound: 64 input channels read once
 #    per pixel, 3 written; 32x32-pixel tiles, one thread per 2x2 quad.
 
-def fold_renorm(w_fin, b_fin, w_renorm=None, b_renorm=None):
-    """Fold the encoder's 1x1 RGB renorm conv (w_renorm (3, 3, 1, 1) OIHW,
-    b_renorm (3,)) into the decoder-final conv (w_fin (3, 64, 3, 3), b_fin
-    (3,)): both are linear with nothing between them in a stage roundtrip.
-    ``None`` (the pass's last decode) leaves the final conv as it is."""
-    if w_renorm is None:
-        return w_fin, b_fin
-    rn = w_renorm[:, :, 0, 0]                          # (out, in)
-    return torch.einsum("ok,kirc->oirc", rn, w_fin), b_renorm + rn @ b_fin
-
-
-def final_to_rgb_plain(x, w, b):
-    return _plain(x, w, b, False, False, False)
-
-
-def final_to_rgb(x, w, b):
-    """x (N, H, W, 64) -> conv3x3_reflect (N, H, W, 3), no ReLU; ``w, b``
-    from :func:`fold_renorm`."""
-    if not _route(x, w, b, (64,), 3, "final_to_rgb"):
-        return final_to_rgb_plain(x, w, b)
-    n, h, wd, _ = x.shape
-    y = _out(x, h, wd, 3)
-    return _launch("final_to_rgb", x.contiguous(), w, b, y, n, h, wd)
+def final_to_rgb(x, p: Packed):
+    """x (N, H, W, 64) -> conv3x3_reflect (N, H, W, 3), no ReLU; ``p`` from
+    :func:`pack_final`."""
+    return _conv("final_to_rgb", x, p, (64,), 3)
 
 
 # ---------------------------------------------------------------------------
@@ -250,14 +233,6 @@ def final_to_rgb(x, w, b):
 #    post-renorm RGB image. Bytes-bound on its 64-channel output: written
 #    once, float4-wide; the 3-channel input is read once into shared memory.
 
-def rgb_to_relu1_plain(x, w, b):
-    return _plain(x, w, b, True, False, False)
-
-
-def rgb_to_relu1(x, w, b):
+def rgb_to_relu1(x, p: Packed):
     """x (N, H, W, 3) -> relu(conv3x3_reflect) (N, H, W, 64)."""
-    if not _route(x, w, b, (3,), 64, "rgb_to_relu1"):
-        return rgb_to_relu1_plain(x, w, b)
-    n, h, wd, _ = x.shape
-    y = _out(x, h, wd, 64)
-    return _launch("rgb_to_relu1", x.contiguous(), w, b, y, n, h, wd)
+    return _conv("rgb_to_relu1", x, p, (3,), 64, relu=True)

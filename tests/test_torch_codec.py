@@ -33,6 +33,10 @@ def _oihw(w_hwio):
     return _t(np.asarray(w_hwio).transpose(3, 2, 0, 1))
 
 
+def _pack(w_hwio, b):
+    return codec.pack(_oihw(w_hwio), _t(b))
+
+
 def _err(got, ref):
     return float(np.max(np.abs(np.asarray(got) - np.asarray(ref))))
 
@@ -59,7 +63,7 @@ def test_conv3x3_p2_vs_pallas(data):
     ref = jcodec.tcb_to_nhwc(jcodec.conv3x3_p2(
         jcodec.nhwc_to_tcb(jnp.asarray(data["x"])), wr, b2, relu=True,
         interpret=True))
-    got = codec.conv3x3_p2(_t(data["x"]), _oihw(data["w"]), _t(data["b"]),
+    got = codec.conv3x3_p2(_t(data["x"]), _pack(data["w"], data["b"]),
                            relu=True)
     assert _err(got, ref) < TOL
 
@@ -69,8 +73,8 @@ def test_conv3x3_full_vs_pallas(data):
     ref = jcodec.tcb_to_nhwc(jcodec.conv3x3_full(
         jcodec.nhwc_to_tcb(jnp.asarray(data["x"])), wr, bb, relu=True,
         pool=True, interpret=True))
-    got = codec.conv3x3_full(_t(data["x"]), _oihw(data["w128"]),
-                             _t(data["b128"]), relu=True, pool=True)
+    got = codec.conv3x3_full(_t(data["x"]), _pack(data["w128"], data["b128"]),
+                             relu=True, pool=True)
     assert got.shape == (B, H // 2, W // 2, 128)
     assert _err(got, ref) < TOL
 
@@ -80,7 +84,7 @@ def test_upconv_p2_vs_pallas(data):
     ref = jcodec.tcb_to_nhwc(jcodec.upconv_p2(
         jcodec.nhwc_to_tcb(jnp.asarray(data["xc"])), wa0, wa1, bu,
         interpret=True))
-    got = codec.upconv_p2(_t(data["xc"]), _oihw(data["w"]), _t(data["b"]))
+    got = codec.upconv_p2(_t(data["xc"]), _pack(data["w"], data["b"]))
     assert got.shape == (B, H, W, 64)
     assert _err(got, ref) < TOL
 
@@ -91,9 +95,9 @@ def test_final_to_rgb_vs_pallas(data):
     ref = jcodec.tcb_to_nhwc(jcodec.final_to_rgb(
         jcodec.nhwc_to_tcb(jnp.asarray(data["x"])), w3, b3,
         interpret=True))[..., :3]
-    w, b = codec.fold_renorm(_oihw(data["wf"]), _t(data["bf"]),
-                             _oihw(data["wrn"]), _t(data["brn"]))
-    got = codec.final_to_rgb(_t(data["x"]), w, b)
+    p = codec.pack_final(_oihw(data["wf"]), _t(data["bf"]),
+                         (_oihw(data["wrn"]), _t(data["brn"])))
+    got = codec.final_to_rgb(_t(data["x"]), p)
     assert got.shape == (B, H, W, 3)
     assert _err(got, ref) < TOL
 
@@ -104,7 +108,7 @@ def test_rgb_to_relu1_vs_pallas(data):
     ref = jcodec.tcb_to_nhwc(jcodec.rgb_to_relu1(
         jcodec.nhwc_to_tcb(rgb8), we, be, out_dtype=jnp.float32,
         interpret=True))
-    got = codec.rgb_to_relu1(_t(data["rgb"]), _oihw(data["we"]), _t(data["be"]))
+    got = codec.rgb_to_relu1(_t(data["rgb"]), _pack(data["we"], data["be"]))
     assert _err(got, ref) < TOL
 
 
@@ -132,8 +136,22 @@ def test_conv_variants_vs_xla(fn, cin, cout, relu, pool):
     x = rng.standard_normal((2, 24, 40, cin)).astype(np.float32)
     w = (rng.standard_normal((3, 3, cin, cout)) * 0.05).astype(np.float32)
     b = (rng.standard_normal(cout) * 0.1).astype(np.float32)
-    got = getattr(codec, fn)(_t(x), _oihw(w), _t(b), relu=relu, pool=pool)
+    got = getattr(codec, fn)(_t(x), _pack(w, b), relu=relu, pool=pool)
     assert _err(got, _xla_conv(x, w, b, relu, pool)) < TOL
+
+
+@pytest.mark.parametrize("fn,cin,cout", [("conv3x3_p2", 64, 64),
+                                         ("conv3x3_full", 128, 128)])
+def test_pooled_variants_at_odd_sizes_vs_xla(fn, cin, cout):
+    """The fused pool is ceil mode, as the VGG stack's: an odd H or W keeps
+    its last row or column as a window of its own."""
+    rng = np.random.default_rng(cin + cout)
+    x = rng.standard_normal((1, 13, 22, cin)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, cin, cout)) * 0.05).astype(np.float32)
+    b = (rng.standard_normal(cout) * 0.1).astype(np.float32)
+    got = getattr(codec, fn)(_t(x), _pack(w, b), relu=True, pool=True)
+    assert got.shape == (1, 7, 11, cout)
+    assert _err(got, _xla_conv(x, w, b, True, True)) < TOL
 
 
 @pytest.mark.parametrize("c", [64, 128])
@@ -142,7 +160,7 @@ def test_upconv_variants_vs_xla(c):
     x = rng.standard_normal((2, 12, 20, c)).astype(np.float32)
     w = (rng.standard_normal((3, 3, c, c)) * 0.05).astype(np.float32)
     b = (rng.standard_normal(c) * 0.1).astype(np.float32)
-    got = codec.upconv_p2(_t(x), _oihw(w), _t(b))
+    got = codec.upconv_p2(_t(x), _pack(w, b))
     assert got.shape == (2, 24, 40, c)
     assert _err(got, _xla_conv(x, w, b, True, False, up=True)) < TOL
 
@@ -152,27 +170,29 @@ def test_final_without_renorm_vs_xla():
     x = rng.standard_normal((2, 16, 16, 64)).astype(np.float32)
     w = (rng.standard_normal((3, 3, 64, 3)) * 0.1).astype(np.float32)
     b = (rng.standard_normal(3) * 0.1).astype(np.float32)
-    wf, bf = codec.fold_renorm(_oihw(w), _t(b))
-    got = codec.final_to_rgb(_t(x), wf, bf)
+    got = codec.final_to_rgb(_t(x), codec.pack_final(_oihw(w), _t(b)))
     assert _err(got, _xla_conv(x, w, b, False, False)) < TOL
 
 
 def test_wrappers_reject_bad_operands():
     x = torch.zeros(1, 8, 8, 32)
     with pytest.raises(ValueError):
-        codec.conv3x3_p2(x, torch.zeros(64, 32, 3, 3), torch.zeros(64))
+        codec.conv3x3_p2(x, codec.pack(torch.zeros(64, 32, 3, 3), torch.zeros(64)))
     with pytest.raises(ValueError):
-        codec.final_to_rgb(torch.zeros(1, 8, 8, 64), torch.zeros(4, 64, 3, 3),
-                           torch.zeros(4))
+        codec.final_to_rgb(torch.zeros(1, 8, 8, 64),
+                           codec.pack(torch.zeros(4, 64, 3, 3), torch.zeros(4)))
     with pytest.raises(ValueError):
-        codec.rgb_to_relu1(torch.zeros(1, 1, 8, 3), torch.zeros(64, 3, 3, 3),
-                           torch.zeros(64))
+        codec.rgb_to_relu1(torch.zeros(1, 1, 8, 3),
+                           codec.pack(torch.zeros(64, 3, 3, 3), torch.zeros(64)))
+    with pytest.raises(ValueError):
+        codec.upconv_p2(torch.zeros(1, 8, 8, 64),
+                        codec.pack(torch.zeros(128, 64, 3, 3), torch.zeros(128)))
 
 
 def test_plain_versions_do_not_count_launches():
     codec.reset_launches()
     x = torch.rand(1, 8, 8, 3)
-    codec.rgb_to_relu1(x, torch.rand(64, 3, 3, 3), torch.rand(64))
+    codec.rgb_to_relu1(x, codec.pack(torch.rand(64, 3, 3, 3), torch.rand(64)))
     assert all(v == 0 for v in codec.LAUNCHES.values())
 
 
@@ -211,30 +231,46 @@ def test_encode_head_decode_tail_vs_jax(banks, pixels, depth):
     jb, tb = banks
     enc_j, dec_j = jb.enc_params[depth], jb.dec_params[depth]
     ref_feat = np.asarray(jvgg.encode(enc_j, depth, jnp.asarray(pixels)))
+    sc = tfast.pack_stage(tb.enc_params[depth], tb.dec_params[depth], depth)
     rgb = tfast.pixels_to_rgb(tb.enc_params[depth][0], _t(pixels))
-    feat = tfast.encode_head(tb.enc_params[depth], depth, rgb).numpy()
+    feat = tfast.encode_head(sc, rgb).numpy()
     scale = max(1.0, float(np.abs(ref_feat).max()))
     assert _err(feat, ref_feat) < 2e-4 * scale
 
     ref_px = np.asarray(jvgg.decode(dec_j, depth, jnp.asarray(ref_feat)))
-    got_px = tfast.rgb_to_pixels(tfast.decode_tail(
-        tb.dec_params[depth], depth, _t(ref_feat), None)).numpy()
+    got_px = tfast.decode_tail(sc, _t(ref_feat)).numpy()
     assert _err(got_px, ref_px) < 2e-4
 
     # the next stage's renorm folded into the final conv (the JAX path
     # folds it the same way: fastcodec.decode_tail + pack_final_rgb)
     rn = jb.enc_params[max(depth - 1, 1)][0]
     ref_rn = np.asarray(conv2d_nhwc(jnp.asarray(ref_px), *rn))
-    got_rn = tfast.decode_tail(tb.dec_params[depth], depth, _t(ref_feat),
-                               tb.enc_params[max(depth - 1, 1)][0]).numpy()
+    sc_rn = tfast.pack_stage(tb.enc_params[depth], tb.dec_params[depth], depth,
+                             tb.enc_params[max(depth - 1, 1)][0])
+    got_rn = tfast.decode_tail(sc_rn, _t(ref_feat)).numpy()
     assert _err(got_rn, ref_rn) < 2e-4 * max(1.0, float(np.abs(ref_rn).max()))
 
 
 def test_eligibility_gate():
-    assert tfast.eligible([(512, 512), (256, 256)], "reflect")
-    assert tfast.eligible([(64, 96)], "reflect")        # any batch, f32
-    assert not tfast.eligible([(512, 512)], "wrap")
-    assert not tfast.eligible([(512, 520)], "reflect")
-    assert not tfast.eligible([(16, 512)], "reflect")
-    # the JAX gate refuses batch != 128; the port's has no batch condition
+    """The port's gate has no batch, dtype or size condition: the codec
+    runs unless fast_codec is off, which only the CPU allows."""
+    assert tfast.eligible(True, "cpu")
+    assert tfast.eligible(True, torch.device("cuda"))
+    assert not tfast.eligible(False, "cpu")
+    with pytest.raises(ValueError):
+        tfast.eligible(False, torch.device("cuda"))
+    # the JAX gate refuses batch != 128 and sizes off the 32 grid
     assert not jfast.eligible(1, [(512, 512)], "reflect", jnp.bfloat16)
+    assert not jfast.eligible(128, [(500, 500)], "reflect", jnp.bfloat16)
+    # ... which the port's codec takes (odd sizes at the pooled levels)
+    sc = tfast.pack_stages(*_tiny_bank(3), [3, 2, 1])[0]
+    feat = tfast.encode_head(sc, torch.rand(1, 50, 46, 3))
+    assert feat.shape == (1, 13, 12, 256)
+    assert tfast.decode_tail(sc, feat).shape == (1, 52, 48, 3)
+
+
+def _tiny_bank(depth):
+    bank = tvgg.synthetic_bank(depth)
+    order = range(depth, 0, -1)
+    return ([bank.enc_params[d] for d in order],
+            [bank.dec_params[d] for d in order])
