@@ -1,6 +1,6 @@
 """High-level library API (the counterpart of ``optimaltextures_tpu/api.py``):
-texture synthesis from files in one call. Style transfer, mixing and color
-transfer are ROADMAP items and raise NotImplementedError."""
+texture synthesis, style transfer and color transfer from files in one call
+each. Mixing is a ROADMAP item and raises NotImplementedError."""
 
 from __future__ import annotations
 
@@ -16,11 +16,13 @@ from .utils import imageio
 
 def run_files(cfg: OptexConfig, verbose: bool = False, device=None
               ) -> Tuple[np.ndarray, float, List[str]]:
-    """Load the style per cfg, synthesize, save PNG(s). Returns (output
-    array NHWC, seconds, written paths). ``device`` None = the GPU."""
+    """Load the style (and content) per cfg, run, save PNG(s). Returns
+    (output array NHWC, seconds, written paths). ``device`` None = the GPU."""
     cfg = require_ported(cfg.validate())
     styles = imageio.load_styles(cfg.style, cfg.size, cfg.style_scale)
-    out, seconds = core.synthesize(cfg, styles, verbose=verbose, device=device)
+    content = imageio.maybe_load_content(cfg.content, cfg.size)
+    out, seconds = core.synthesize(cfg, styles, content, verbose=verbose,
+                                   device=device)
     out_np = out.cpu().numpy()
     return out_np, seconds, imageio.save_images(out_np, cfg)
 
@@ -30,6 +32,25 @@ def synthesize_texture(style: str, size: int = 512, device=None,
     """Texture synthesis from noise matched to one style exemplar."""
     out, _, _ = run_files(OptexConfig(style=[style], size=size, **overrides),
                           device=device)
+    return out
+
+
+def transfer_style(style: str, content: str, size: int = 512,
+                   content_strength: float = 0.2, device=None,
+                   **overrides) -> np.ndarray:
+    """Style transfer: synthesis pulled toward a content image's structure."""
+    out, _, _ = run_files(OptexConfig(style=[style], content=content, size=size,
+                                      content_strength=content_strength,
+                                      **overrides), device=device)
+    return out
+
+
+def transfer_color(style: str, content: str, mode: str = "opt",
+                   size: int = 512, device=None, **overrides) -> np.ndarray:
+    """Style transfer that keeps the content image's colors (lum | opt)."""
+    out, _, _ = run_files(OptexConfig(style=[style], content=content,
+                                      color_transfer=mode, size=size,
+                                      **overrides), device=device)
     return out
 
 

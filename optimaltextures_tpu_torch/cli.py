@@ -1,5 +1,6 @@
-"""Command line for texture synthesis on the GPU (the counterpart of
-``optimaltextures_tpu/cli.py``, synthesis flags only).
+"""Command line for texture synthesis, style transfer and color transfer on
+the GPU (the counterpart of ``optimaltextures_tpu/cli.py``; mixing and the
+multi-device flags are not ported yet).
 
 Run: python -m optimaltextures_tpu_torch.cli --style style.jpg --size 512
 """
@@ -21,6 +22,8 @@ def build_parser() -> argparse.ArgumentParser:
                    version=f"optex-torch {__version__}")
     p.add_argument("-s", "--style", type=str, nargs="+", required=True,
                    help="style exemplar image")
+    p.add_argument("-c", "--content", type=str, default=None,
+                   help="content image for style transfer")
     p.add_argument("--size", type=int, default=512, help="output size")
     p.add_argument("--passes", type=int, default=5,
                    help="loops over the VGG layer stack")
@@ -28,7 +31,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="total sliced-OT iteration budget")
     p.add_argument("--hist_mode", type=str, default="chol",
                    choices=["sym", "pca", "chol", "cdf", "sort"],
-                   help="histogram matching strategy (cdf/sort: not ported)")
+                   help="histogram matching strategy (sort = exact 1-D OT)")
+    p.add_argument("--color_transfer", type=str, default=None,
+                   choices=["lum", "opt"],
+                   help="keep the content image's colors")
+    p.add_argument("--content_strength", type=float, default=0.01)
     p.add_argument("--style_scale", type=float, default=1.0,
                    help="style detail scale relative to the output")
     p.add_argument("--no_pca", action="store_true",
@@ -40,8 +47,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_dir", type=str, default="output/")
     p.add_argument("--depth", type=int, default=None,
                    help="max VGG depth (default: deepest available weights)")
+    p.add_argument("--content_anchor", type=str, default="index",
+                   choices=["index", "depth"],
+                   help="depth<5 content-matching rule: 'index' = the "
+                        "reference's literal l<=2 positions, 'depth' = "
+                        "anchor at VGG depths >= 3 (identical at depth 5)")
     p.add_argument("--no_schedule_quirk", action="store_true",
                    help="fix the reference's [l-1] schedule indexing quirk")
+    p.add_argument("--no_pallas", action="store_true",
+                   help="run the cdf kernels' plain PyTorch versions (a CPU "
+                        "reference: refused on a GPU)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; cpu runs the kernels' "
                         "plain PyTorch versions)")
@@ -56,6 +71,7 @@ def main(argv=None) -> int:
 
     cfg = api.config_from_args(args)
     cfg.compat_schedule_quirk = not args.no_schedule_quirk
+    cfg.use_pallas = not args.no_pallas
     _, seconds, paths = api.run_files(cfg, verbose=args.verbose,
                                       device=args.device)
     print("Took:", seconds)

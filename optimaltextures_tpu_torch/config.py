@@ -41,7 +41,10 @@ class OptexConfig:
     conv_dtype: str = "float32"       # float32 | bfloat16
     num_devices: int = 1
     spatial_devices: int = 1
-    use_pallas: bool = True           # cdf-mode kernels (not ported yet)
+    # Route the cdf steps (hist_mode="cdf" and color_transfer="opt") through
+    # the CUDA histogram and PWL-remap kernels of ops/cdf.py. False (their
+    # plain versions) is a CPU reference and raises on a GPU (core.Synthesizer).
+    use_pallas: bool = True
     cov_propagation: bool = True
     batch_chunk: int = 0
     # Route the relu1/relu2-scale codec convs of every stage roundtrip through
@@ -98,9 +101,6 @@ class OptexConfig:
 
 # (condition, feature, ROADMAP.md queue-1 item that ports it)
 _NOT_PORTED = [
-    (lambda c: c.hist_mode in ("cdf", "sort"), "hist_mode cdf/sort", 10),
-    (lambda c: c.content is not None, "content / style transfer", 11),
-    (lambda c: c.color_transfer is not None, "color transfer", 11),
     (lambda c: len(c.style) > 1, "texture mixing", 12),
     (lambda c: c.conv_dtype != "float32", "conv_dtype bfloat16", 13),
     (lambda c: c.tileable, "tileable output", 13),

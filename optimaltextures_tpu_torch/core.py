@@ -8,9 +8,14 @@ and runs one stage per VGG layer, deepest first:
 
 The style side of every pass (multi-tap encode, PCA spectrum, the host's
 k-decision, projected moments) is prepared for ALL passes before the first
-stage runs, with one host fetch of every pass's eigenvalues. On the CUDA
-path the relu1/relu2-scale convs of every stage roundtrip run on the codec
-kernels (models/fastcodec.py); the rest is plain PyTorch.
+stage runs, with one host fetch of every pass's eigenvalues; a content
+image is encoded per pass, projected into the style's PC space and pulled
+toward at the three deepest stage positions. After the last pass an
+optional color-transfer tail keeps the content's colors (lum: a lightness
+swap; opt: three pixel-space cdf OT steps). On the CUDA path the
+relu1/relu2-scale convs of every stage roundtrip run on the codec kernels
+(models/fastcodec.py) and the cdf steps on the histogram and remap kernels
+(ops/cdf.py); the rest is plain PyTorch.
 
 Precision: the f32 path runs matmuls and convs in full f32 —
 :func:`full_f32_precision` turns TF32 off for cuBLAS and cuDNN, the
@@ -29,13 +34,17 @@ from . import transport
 from .config import OptexConfig, require_ported
 from .models import fastcodec
 from .models.vgg import VGGBank, decode, encode, encode_taps
-from .ops import histmatch
+from .ops import colors, histmatch
 from .ops.resize import apply_resample, resample_pair
 from .ops.rotation import derive_seed, generator
 from .utils import schedule
 
 # (pass index, stage index, n_iters, C) -> (n_iters, C, C) rotation stack
 RotationSource = Callable[[int, int, int, int], object]
+
+# the color tail's generator key part: step i draws from (run_key, COLOR_KEY, i)
+COLOR_KEY = 0xC0102
+COLOR_STEPS = 3
 
 
 def full_f32_precision() -> None:
@@ -60,8 +69,9 @@ def resolve_device(device=None) -> torch.device:
 
 class LayerTargets(NamedTuple):
     """Per-(pass, layer) transport targets."""
-    stats: transport.StyleStats
+    stats: transport.StyleStats          # style moments (+ samples for cdf/sort)
     eigvecs: Optional[torch.Tensor]      # (C, k) PCA basis or None
+    content: Optional[torch.Tensor] = None   # projected, re-centred content
 
 
 # ---------------------------------------------------------------------------
@@ -84,10 +94,10 @@ def _style_spectra_pass(enc_params, style_tens, *, depth: int, use_pca: bool):
     return out
 
 
-def _style_stats_pass(sfs, vs, *, ks):
+def _style_stats_pass(sfs, vs, *, ks, need_samples: bool = False):
     """Project every depth onto its first k PCs (k chosen on the host; 0 =
-    no PCA) and compute the transport statistics.
-    Returns [(sf_projected, eigvecs, stats, scalar mean)]."""
+    no PCA) and compute the transport statistics (with the sample cloud
+    for cdf/sort). Returns [(sf_projected, eigvecs, stats, scalar mean)]."""
     out = []
     for sf, v, k in zip(sfs, vs, ks):
         eigvecs = None
@@ -99,8 +109,23 @@ def _style_stats_pass(sfs, vs, *, ks):
                 vtv = eigvecs.T @ eigvecs
                 eigvecs = 1.5 * eigvecs - 0.5 * (eigvecs @ vtv)
             sf = sf @ eigvecs
-        mu, cov = histmatch.moment_stats(sf)
-        out.append((sf, eigvecs, transport.StyleStats(mu, cov), sf.mean()))
+        out.append((sf, eigvecs, transport.style_stats(sf, need_samples),
+                    sf.mean()))
+    return out
+
+
+def _content_prep_pass(enc_params, cont, eigvecs_list, style_means, *,
+                       depth: int, use_pca: bool):
+    """Multi-tap content encode, each depth projected into the style's PC
+    space and re-centred at the style's scalar mean: ``cf - mean(cf) +
+    mean(style)``, scalar means (deepest first)."""
+    taps = encode_taps(enc_params, depth, cont)
+    out = []
+    for i, d in enumerate(range(depth, 0, -1)):
+        cf = taps[d - 1]
+        if use_pca:
+            cf = cf @ eigvecs_list[i]
+        out.append(cf - cf.mean() + style_means[i])
     return out
 
 
@@ -109,15 +134,16 @@ def _style_stats_pass(sfs, vs, *, ks):
 
 
 def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
-                      iters, mode: str, pca_flags, resize_mats=None,
-                      stage_codecs=None, run_key: int = 0,
-                      pass_idx: int = 0,
+                      iters, mode: str, strengths, pca_flags,
+                      resize_mats=None, stage_codecs=None, run_key: int = 0,
+                      pass_idx: int = 0, use_pallas: bool = True,
                       rotations: Optional[RotationSource] = None):
     """All of a pass's layer stages: the multires resize (``resize_mats``:
     the (wh, ww) weights, or None), then for each depth (deepest first)
-    encode -> project -> OT -> unproject -> decode. Takes and returns f32
-    NHWC. ``stage_codecs`` (fastcodec.pack_stages) routes the roundtrips
-    through the codec kernels; None keeps the F.conv2d codec (CPU only).
+    encode -> project -> OT (pulled toward ``targets[i].content`` at
+    ``strengths[i]``) -> unproject -> decode. Takes and returns f32 NHWC.
+    ``stage_codecs`` (fastcodec.pack_stages) routes the roundtrips through
+    the codec kernels; None keeps the F.conv2d codec (CPU only).
 
     Stage i of pass p draws its rotations from a generator seeded by
     (run_key, p, i), or takes them from ``rotations(p, i, n_iters, C)``."""
@@ -135,8 +161,10 @@ def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
                                              np.float32))
         elif iters[i]:
             gen = generator(feat.device, run_key, pass_idx, i)
-        feat = transport.transport_loop(gen, feat, tgt.stats, iters[i], mode,
-                                        rotations=rot)
+        feat = transport.transport_loop(
+            gen, feat, tgt.stats, iters[i], mode, content_feature=tgt.content,
+            content_strength=strengths[i], rotations=rot,
+            use_pallas=use_pallas)
         if pca_flags[i]:
             feat = feat @ tgt.eigvecs.T
         return feat
@@ -157,17 +185,42 @@ def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
 
 
 def _run_stages_impl(enc_params, dec_params, pastiche, targets_all, run_key,
-                     *, depths, plans, mode: str, pca_flags_all,
+                     *, depths, plans, mode: str, strengths_all, pca_flags_all,
                      resize_mats_all, stage_codecs=None,
-                     rotations: Optional[RotationSource] = None):
-    """The whole run's pass chain. ``plans``: per pass (resize_to | None,
-    iters tuple); ``resize_mats_all``: the matching (wh, ww) or None."""
+                     use_pallas: bool = True, content_px=None,
+                     color_mode: Optional[str] = None,
+                     rotations: Optional[RotationSource] = None,
+                     color_rotations=None):
+    """The whole run's pass chain, then the color-transfer tail.
+    ``plans``: per pass (resize_to | None, iters tuple); ``resize_mats_all``:
+    the matching (wh, ww) or None.
+
+    ``color_mode`` ("lum" | "opt", with ``content_px`` the content pixels)
+    swaps the pastiche's lightness into the content's colors; "opt" then
+    matches the pastiche to that target by COLOR_STEPS pixel-space cdf
+    steps, step i rotated by a 3x3 QR rotation drawn from (run_key,
+    COLOR_KEY, i), or by ``color_rotations[i]`` when given (tests)."""
     for p, (_, iters) in enumerate(plans):
         pastiche = _pass_stages_impl(
             enc_params, dec_params, pastiche, targets_all[p], depths=depths,
-            iters=iters, mode=mode, pca_flags=pca_flags_all[p],
-            resize_mats=resize_mats_all[p], stage_codecs=stage_codecs,
-            run_key=run_key, pass_idx=p, rotations=rotations)
+            iters=iters, mode=mode, strengths=strengths_all[p],
+            pca_flags=pca_flags_all[p], resize_mats=resize_mats_all[p],
+            stage_codecs=stage_codecs, run_key=run_key, pass_idx=p,
+            use_pallas=use_pallas, rotations=rotations)
+    if color_mode is None:
+        return pastiche
+    target = colors.swap_lightness(content_px, pastiche)
+    if color_mode == "lum":
+        return target
+    samples = target.reshape(-1, target.shape[-1])
+    for i in range(COLOR_STEPS):
+        rot = gen = None
+        if color_rotations is not None:
+            rot = torch.as_tensor(np.asarray(color_rotations[i], np.float32))
+        else:
+            gen = generator(pastiche.device, run_key, COLOR_KEY, i)
+        pastiche = transport.ot_step_cdf(gen, pastiche, samples, use_pallas,
+                                         rotation=rot)
     return pastiche
 
 
@@ -182,6 +235,10 @@ class Synthesizer:
                  device=None):
         self.cfg = require_ported(cfg.validate())
         self.device = resolve_device(device)
+        if not cfg.use_pallas and self.device.type != "cpu":
+            raise ValueError("use_pallas=False runs the cdf kernels' plain "
+                             "versions, a CPU reference; on a GPU the cdf "
+                             "steps run on the CUDA kernels")
         self.bank = (bank.to(self.device) if bank is not None
                      else VGGBank(cfg.depth, device=self.device))
         self.depth = self.bank.max_depth
@@ -221,14 +278,21 @@ class Synthesizer:
         self._run_counter += 1
         return k
 
-    def _plan_passes(self, pastiche_hw):
+    def _plan_passes(self, pastiche_hw, content_hw=None):
         """Per-pass [(size, resize?, target hw)]: the reference's gate skips a
-        pass's resize when EITHER pastiche dim already equals its size."""
+        pass's resize when EITHER pastiche dim already equals its size. With
+        a content image the target follows the content's aspect
+        (``get_size(..., oversize=True)``)."""
         plan, cur = [], tuple(pastiche_hw)
         for size in self.sizes:
             if cur[0] != size and cur[1] != size:
-                plan.append((size, True, (size, size)))
-                cur = (size, size)
+                if content_hw is not None:
+                    target = schedule.get_size(size, 1.0, content_hw[0],
+                                               content_hw[1], oversize=True)
+                else:
+                    target = (size, size)
+                plan.append((size, True, target))
+                cur = target
             else:
                 plan.append((size, False, None))
         return plan
@@ -265,31 +329,65 @@ class Synthesizer:
     def _finish_style_prep(self, spectra, ks):
         """After the k-decisions: projected statistics. Returns
         [(eigvecs, stats, scalar style mean)] per depth (deepest first)."""
-        prepared = _style_stats_pass([sf for (sf, _, _) in spectra],
-                                     [v for (_, _, v) in spectra], ks=ks)
+        prepared = _style_stats_pass(
+            [sf for (sf, _, _) in spectra], [v for (_, _, v) in spectra],
+            ks=ks, need_samples=self.cfg.hist_mode in ("cdf", "sort"))
         return [(eigvecs, stats, mean) for (_, eigvecs, stats, mean) in prepared]
 
-    def _assemble_targets(self, slim):
-        return [LayerTargets(stats=stats, eigvecs=eigvecs)
-                for (eigvecs, stats, _) in slim]
+    def _assemble_targets(self, slim, cont=None):
+        """Finished style targets + this pass's content prep (``cont``: the
+        pass's content pixels, or None)."""
+        content_feats = [None] * len(slim)
+        if cont is not None:
+            content_feats = _content_prep_pass(
+                self.bank.enc_params[self.depth], cont,
+                [s[0] for s in slim], [s[2] for s in slim],
+                depth=self.depth, use_pca=not self.cfg.no_pca)
+        return [LayerTargets(stats=stats, eigvecs=eigvecs, content=cf)
+                for (eigvecs, stats, _), cf in zip(slim, content_feats)]
+
+    def _stage_strengths(self, targets):
+        """The reference's content rule: a pull only at the three deepest
+        layer-loop positions (l <= 2), at content_strength / 16, / 8, / 4
+        ("index"; "depth" anchors at VGG depths >= 3, strength / 2^(d-1) —
+        the two coincide at depth 5). A zero strength drops the content
+        target, so the stage takes the plain composed loop."""
+        cfg = self.cfg
+        adj, strengths = [], []
+        for l, tgt in enumerate(targets):
+            d = self.layer_depths[l]
+            if cfg.content_anchor == "depth":
+                has_content = tgt.content is not None and d >= 3
+                strength = cfg.content_strength / 2 ** (d - 1)
+            else:
+                has_content = tgt.content is not None and l <= 2
+                strength = cfg.content_strength / 2 ** (4 - l)
+            has_content = has_content and strength != 0.0
+            adj.append(tgt if has_content else tgt._replace(content=None))
+            strengths.append(float(strength) if has_content else 0.0)
+        return adj, tuple(strengths)
 
     def run(self, pastiche, styles, content=None, verbose: bool = False,
             key: Optional[int] = None,
-            rotations: Optional[RotationSource] = None) -> torch.Tensor:
-        """Synthesis. ``pastiche`` (1, H, W, 3) and ``styles`` [(1, h, w, 3)]
-        are NHWC float32 arrays or tensors; returns the (1, H, W, 3) float32
-        result on this synthesizer's device.
+            rotations: Optional[RotationSource] = None,
+            color_rotations=None) -> torch.Tensor:
+        """Synthesis, or style transfer when ``content`` (1, Hc, Wc, 3) is
+        given. ``pastiche`` (1, H, W, 3) and ``styles`` [(1, h, w, 3)] are
+        NHWC float32 arrays or tensors; returns the float32 result on this
+        synthesizer's device.
 
         ``key`` overrides the run key (default :meth:`next_run_key`);
-        ``rotations`` injects every stage's rotation stack (tests)."""
-        if content is not None:
-            raise NotImplementedError("content / style transfer is not "
-                                      "ported yet (ROADMAP.md, queue 1 item 11)")
+        ``rotations`` injects every stage's rotation stack and
+        ``color_rotations`` (COLOR_STEPS, 3, 3) the color tail's (tests)."""
         cfg = self.cfg
         dev = self.device
         run_key = key if key is not None else self.next_run_key()
         pastiche = torch.as_tensor(pastiche, dtype=torch.float32).to(dev, copy=True)
         styles = [torch.as_tensor(s, dtype=torch.float32).to(dev) for s in styles]
+        if content is not None:
+            content = torch.as_tensor(content, dtype=torch.float32).to(dev)
+        elif cfg.color_transfer is not None:
+            raise ValueError("Color transfer requires content image")
         if len(styles) != 1:
             raise NotImplementedError("texture mixing is not ported yet "
                                       "(ROADMAP.md, queue 1 item 12)")
@@ -298,7 +396,9 @@ class Synthesizer:
                                       "(ROADMAP.md, queue 1 item 13)")
 
         # phase A: every distinct pass's style prep, ahead of the stages
-        plan = self._plan_passes(pastiche.shape[1:3])
+        plan = self._plan_passes(
+            pastiche.shape[1:3],
+            tuple(content.shape[1:3]) if content is not None else None)
         preps = {}
         for (size, rs, _) in plan:
             ck = size if rs else None
@@ -318,15 +418,29 @@ class Synthesizer:
         # phase C: projected statistics per distinct prep
         slims = {ck: self._finish_style_prep(preps[ck], widths[ck]) for ck in order}
 
-        targets_all, pca_flags_all, plans, mats_all = [], [], [], []
+        # per-pass content, resized from the ORIGINAL (as the reference does)
+        conts, resized = [], {}
+        for (_, rs, hw) in plan:
+            if content is None or not rs or tuple(content.shape[1:3]) == hw:
+                conts.append(content)
+                continue
+            if hw not in resized:
+                resized[hw] = apply_resample(
+                    content, *self._resample_mats(content.shape[1:3], hw))
+            conts.append(resized[hw])
+
+        targets_all, strengths_all, pca_flags_all = [], [], []
+        plans, mats_all = [], []
         cur_hw = tuple(pastiche.shape[1:3])
         for p, (size, rs, hw) in enumerate(plan):
             if verbose:
                 print(f"Pass {p}, size {size}", flush=True)
                 for d in self.layer_depths:
                     print(f"Layer: relu{d}_1", flush=True)
-            targets = self._assemble_targets(slims[size if rs else None])
+            targets, strengths = self._stage_strengths(
+                self._assemble_targets(slims[size if rs else None], conts[p]))
             targets_all.append(targets)
+            strengths_all.append(strengths)
             pca_flags_all.append(tuple(t.eigvecs is not None for t in targets))
             plans.append((hw if rs else None,
                           tuple(int(i) for i in self.iters_table[p])))
@@ -339,19 +453,23 @@ class Synthesizer:
             [self.bank.enc_params[d] for d in self.layer_depths],
             [self.bank.dec_params[d] for d in self.layer_depths],
             pastiche, targets_all, run_key, depths=tuple(self.layer_depths),
-            plans=plans, mode=cfg.hist_mode, pca_flags_all=pca_flags_all,
-            resize_mats_all=mats_all, stage_codecs=self.stage_codecs,
-            rotations=rotations)
+            plans=plans, mode=cfg.hist_mode, strengths_all=strengths_all,
+            pca_flags_all=pca_flags_all, resize_mats_all=mats_all,
+            stage_codecs=self.stage_codecs, use_pallas=cfg.use_pallas,
+            content_px=content, color_mode=cfg.color_transfer,
+            rotations=rotations, color_rotations=color_rotations)
 
 
 def synthesize(cfg: OptexConfig, styles, content=None, pastiche=None,
                verbose: bool = False, device=None):
-    """One-call API: build the synthesizer, draw the noise pastiche, run.
+    """One-call API: build the synthesizer, draw the noise pastiche (the
+    content's shape when a content image is given), run.
     Returns (output NHWC float32 tensor, wall seconds)."""
     synth = Synthesizer(cfg, device=device)
     run_key = synth.next_run_key()
     if pastiche is None:
-        shape = (cfg.batch, cfg.size, cfg.out_width or cfg.size, 3)
+        shape = (tuple(content.shape) if content is not None else
+                 (cfg.batch, cfg.size, cfg.out_width or cfg.size, 3))
         pastiche = torch.rand(shape, generator=generator(synth.device, run_key, 999),
                               device=synth.device, dtype=torch.float32)
     t0 = time.time()

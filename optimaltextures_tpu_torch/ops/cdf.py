@@ -1,0 +1,207 @@
+"""The cdf-matching kernels: the port of ``optimaltextures_tpu/ops/pallas/
+histogram.py`` and ``optimaltextures_tpu/ops/pallas/pwl_remap.py``.
+
+Every cdf-mode OT iteration (and each of the three pixel-space steps of
+``color_transfer="opt"``) bins the rotated target and style clouds into
+256-bin shared-range histograms (:func:`batched_histogram`, two launches)
+and maps every target sample through the piecewise-linear remap built from
+them (:func:`pwl_remap`, one launch). Both take (C, N) rows, one channel per
+row, as the JAX functions do.
+
+Each wrapper below:
+
+* on a CPU tensor runs its plain PyTorch version (:func:`histogram_plain`,
+  :func:`pwl_remap_plain`; the CPU tests hold them against the Pallas
+  kernels in interpret mode and against the JAX package's XLA twins);
+* on a CUDA tensor launches its kernel (``csrc/cdf.cu``) on the current
+  stream, or raises — nothing falls back;
+* counts its launches in ``LAUNCHES[name]`` (plain versions do not count).
+
+What bounds them on the H100: both are bytes-bound (a few dozen operations
+per 4-byte sample against 3.35 TB/s). The TPU kernels turn the bin lookups
+into one-hot contractions on the MXU (nibble one-hots, 8-channel blocks,
+pad-with-lo then subtract); none of that carries over. Here the histogram
+counts with shared-memory atomics into per-warp sub-histograms and flushes
+each block's counts with float atomics (exact: counts stay below 2^24),
+and the remap reads its channel's 256-entry table from shared memory, one
+thread per sample. Each reads its samples once and writes its result once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import cuda_build
+
+BINS = 256
+
+LAUNCHES = {"batched_histogram": 0, "pwl_remap": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the arithmetic the kernels repeat, op for op)
+
+
+def histogram_plain(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                    bins: int = BINS) -> torch.Tensor:
+    """(C, N) samples + (C,) ranges -> (C, bins) float32 counts, torch.histc
+    binning: ``trunc((x - lo) * bins / safe)`` clipped to [0, bins - 1],
+    ``safe`` = the width, or 1 where the width is <= 0."""
+    c = x.shape[0]
+    width = hi - lo
+    safe = torch.where(width > 0, width, torch.ones_like(width))
+    idx = ((x - lo[:, None]) * bins / safe[:, None]).to(torch.int32)
+    idx = idx.clamp(0, bins - 1).to(torch.int64)
+    idx = idx + bins * torch.arange(c, device=x.device)[:, None]
+    return torch.bincount(idx.reshape(-1), minlength=c * bins
+                          ).reshape(c, bins).to(torch.float32)
+
+
+def pwl_step(lo: torch.Tensor, hi: torch.Tensor, bins: int = BINS) -> torch.Tensor:
+    """The uniform bin step ``(hi - lo) / bins`` the kernel and the plain
+    version both bin with (one f32 value per channel)."""
+    return (hi - lo) / bins
+
+
+def pwl_bin_index(t: torch.Tensor, lo: torch.Tensor, step_safe: torch.Tensor,
+                  bins: int = BINS) -> torch.Tensor:
+    """Arithmetic searchsorted(edges, t, 'left') for the uniform right
+    edges lo + (j+1)*step: ``clip(ceil((t - lo) / step_safe) - 1, 0,
+    bins - 1)``."""
+    u = (t - lo[:, None]) / step_safe[:, None]
+    return (torch.ceil(u).to(torch.int32) - 1).clamp(0, bins - 1)
+
+
+def pwl_remap_plain(t: torch.Tensor, remapped: torch.Tensor, lo: torch.Tensor,
+                    hi: torch.Tensor) -> torch.Tensor:
+    """(C, N) samples -> ``interp_ref(t; right edges lo + (j+1)*step,
+    remapped)`` per channel, with the segment index of
+    :func:`pwl_bin_index` (the JAX package's ``_pwl_apply_rows``). The last
+    segment maps to ``remapped[:, -1]``; a width <= 0 maps to
+    ``remapped[:, 0]``."""
+    bins = remapped.shape[1]
+    width = hi - lo
+    step = pwl_step(lo, hi, bins)
+    step_safe = torch.where(step > 0, step, torch.ones_like(step))
+    j = pwl_bin_index(t, lo, step_safe, bins).to(torch.int64)
+    rnext = torch.cat([remapped[:, 1:], remapped[:, -1:]], dim=1)
+    fp_i = torch.gather(remapped, 1, j)
+    fp_n = torch.gather(rnext, 1, j)
+    jf = (j + 1).to(t.dtype)
+    xp_i = lo[:, None] + jf * step[:, None]
+    xp_n = lo[:, None] + torch.clamp(jf + 1.0, max=float(bins)) * step[:, None]
+    slope = (fp_n - fp_i) / (xp_n - xp_i)
+    f = slope * (t - xp_i) + fp_i
+    # j == bins-1: xp_n == xp_i -> the reference's non-finite fallback
+    # chain lands on fp_i (the whole last bin maps to remapped[-1])
+    f = torch.where(j >= bins - 1, fp_i, f)
+    return torch.where((width > 0)[:, None], f, remapped[:, :1])
+
+
+# ---------------------------------------------------------------------------
+# the library
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = {
+    "optex_batched_histogram": [_P, _P, _P, _P, _I, _I, _P],
+    "optex_pwl_remap": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load("cdf")
+    if not getattr(lib, "_optex_typed", False):
+        for fn, argtypes in _ARGTYPES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _I
+        lib.optex_cdf_error_string.argtypes = [_I]
+        lib.optex_cdf_error_string.restype = ctypes.c_char_p
+        lib._optex_typed = True
+    return lib
+
+
+def build() -> None:
+    """Build and load the kernels now (they otherwise build at first use)."""
+    _lib()
+
+
+def _check(name: str, rows: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+           *others: torch.Tensor) -> bool:
+    """Validate the operands; True when they lie on the CPU (plain version),
+    False for CUDA (kernel). Anything else raises."""
+    if rows.dim() != 2 or rows.shape[0] < 1 or rows.shape[1] < 1:
+        raise ValueError(f"{name}: samples must be (C, N), got {tuple(rows.shape)}")
+    c = rows.shape[0]
+    if tuple(lo.shape) != (c,) or tuple(hi.shape) != (c,):
+        raise ValueError(f"{name}: lo/hi must be ({c},), got {tuple(lo.shape)}, "
+                         f"{tuple(hi.shape)}")
+    if any(o.device != rows.device for o in (lo, hi, *others)):
+        raise ValueError(f"{name}: operands on different devices")
+    if rows.device.type == "cpu":
+        return True
+    if rows.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {rows.device}")
+    if any(o.dtype != torch.float32 for o in (rows, lo, hi, *others)):
+        raise TypeError(f"{name}: the kernel takes float32 only")
+    if c > 65535:
+        raise ValueError(f"{name}: at most 65535 channels, got {c}")
+    return False
+
+
+def _launch(name: str, device, *args) -> None:
+    lib = _lib()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(lib, "optex_" + name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {rc} "
+                           f"({lib.optex_cdf_error_string(rc).decode()})")
+    LAUNCHES[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# 6. batched_histogram — replaces ops/pallas/histogram.py:98
+#    batched_histogram (body _hist_kernel :55). Bytes-bound.
+
+def batched_histogram(x: torch.Tensor, lo: torch.Tensor,
+                      hi: torch.Tensor) -> torch.Tensor:
+    """(C, N) samples + (C,) lo/hi -> (C, 256) float32 counts (torch.histc
+    binning on the shared range [lo, hi])."""
+    if _check("batched_histogram", x, lo, hi):
+        return histogram_plain(x, lo, hi)
+    c, n = x.shape
+    x, lo, hi = x.contiguous(), lo.contiguous(), hi.contiguous()
+    out = torch.zeros((c, BINS), device=x.device, dtype=torch.float32)
+    _launch("batched_histogram", x.device, x.data_ptr(), lo.data_ptr(),
+            hi.data_ptr(), out.data_ptr(), c, n)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 7. pwl_remap — replaces ops/pallas/pwl_remap.py:74 pwl_remap (body
+#    _pwl_kernel :43). Bytes-bound.
+
+def pwl_remap(t: torch.Tensor, remapped: torch.Tensor, lo: torch.Tensor,
+              hi: torch.Tensor) -> torch.Tensor:
+    """(C, N) samples + (C, 256) remap tables + (C,) shared range -> the
+    matched (C, N) samples (see :func:`pwl_remap_plain`)."""
+    if tuple(remapped.shape) != (t.shape[0] if t.dim() == 2 else -1, BINS):
+        raise ValueError(f"pwl_remap: remapped must be (C, {BINS}), got "
+                         f"{tuple(remapped.shape)}")
+    if _check("pwl_remap", t, lo, hi, remapped):
+        return pwl_remap_plain(t, remapped, lo, hi)
+    c, n = t.shape
+    t, remapped = t.contiguous(), remapped.contiguous()
+    lo, hi = lo.contiguous(), hi.contiguous()
+    step = pwl_step(lo, hi)
+    out = torch.empty_like(t)
+    _launch("pwl_remap", t.device, t.data_ptr(), remapped.data_ptr(),
+            lo.data_ptr(), hi.data_ptr(), step.data_ptr(), out.data_ptr(), c, n)
+    return out

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for sm_90a into a shared
 library with a plain C interface, loaded with ``ctypes`` (no PyTorch headers,
 so a build takes seconds). Libraries go to ``<repo>/build/torch_kernels/``,
 named by a hash of the source and flags, and are built at first use in the
-process that needs them. A failed build raises; nothing falls back.
+process that needs them (or all at once, in parallel, by :func:`build`). A
+failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+from typing import List
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -45,31 +47,43 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its library exists; return its path.
+def build(*names: str) -> List[str]:
+    """Compile each ``csrc/<name>.cu`` whose library does not exist yet, one
+    nvcc process per source, all started together; return the libraries'
+    paths. A failed compile raises after every process has ended.
 
     The compiler's output (``-Xptxas -v``: registers, shared memory, spills
-    per kernel) is kept beside the library as ``<library>.log``."""
-    out = library_path(name)
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           os.path.join(CSRC_DIR, name + ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu (exit "
-                           f"{proc.returncode}):\n{proc.stderr}{proc.stdout}")
-    with open(out + ".log", "w") as f:
-        f.write(proc.stderr + proc.stdout)
-    os.replace(tmp, out)
-    return out
+    per kernel) is kept beside each library as ``<library>.log``."""
+    outs = [library_path(n) for n in names]
+    todo = [(n, o) for n, o in zip(names, outs) if not os.path.exists(o)]
+    if todo:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        nvcc = nvcc_path()
+        procs = []
+        for name, out in todo:
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+                   os.path.join(CSRC_DIR, name + ".cu")]
+            procs.append((name, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for name, out, tmp, proc in procs:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on csrc/{name}.cu (exit "
+                              f"{proc.returncode}):\n{stderr}{stdout}")
+                continue
+            with open(out + ".log", "w") as f:
+                f.write(stderr + stdout)
+            os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     with _LOCK:
         if name not in _LIBS:
-            _LIBS[name] = ctypes.CDLL(build(name))
+            _LIBS[name] = ctypes.CDLL(build(name)[0])
         return _LIBS[name]

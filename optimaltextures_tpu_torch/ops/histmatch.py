@@ -1,11 +1,16 @@
-"""Moment matching (chol / pca / sym) — the moment half of
+"""Histogram matching — the counterpart of
 ``optimaltextures_tpu/ops/histmatch.py``.
 
-First/second-moment matching through the C x C channel covariance with the
-reference's eps=1 ridge. Everything stays (..., C) sample-major so the big
-contractions are (N, C) GEMMs. Centering is per (batch element, channel);
-the covariance pools all samples. The cdf/sort half is not ported yet
-(ROADMAP.md, queue 1 item 10).
+Moment matching (chol / pca / sym): first/second-moment matching through the
+C x C channel covariance with the reference's eps=1 ridge. Everything stays
+(..., C) sample-major so the big contractions are (N, C) GEMMs. Centering is
+per (batch element, channel); the covariance pools all samples.
+
+CDF matching (cdf): exact 1-D OT on 256 shared-range bins per channel, on
+(C, N) rows. The two per-sample passes run on the CUDA kernels of
+:mod:`.cdf` (histograms, PWL remap); the (C, 256, 256) remap-table work
+stays plain PyTorch, as the JAX package leaves it to XLA. Sort matching
+(sort): exact per-channel 1-D OT by order statistics.
 
 Matmuls run in full float32: the port turns TF32 off on its f32 path
 (``core.full_f32_precision``), the counterpart of the JAX package's
@@ -16,7 +21,10 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
+
+from . import cdf
 
 
 def moment_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -117,3 +125,226 @@ def moment_transform_pre(cov_t: torch.Tensor, style_factor: torch.Tensor,
         return qt_inv @ msqrt @ qt_inv
     raise ValueError(f"unknown moment mode {mode!r}")
 
+
+
+def moment_match(target: torch.Tensor, source: torch.Tensor, mode: str,
+                 eps: float = 1.0) -> torch.Tensor:
+    """Full moment matching, NHWC -> NHWC."""
+    mu_t, cov_t = moment_stats(target)
+    mu_s, cov_s = moment_stats(source)
+    a = moment_transform(cov_t, cov_s, mode, eps)
+    c = target.shape[-1]
+    matched = ((target - mu_t).reshape(-1, c) @ a.T).reshape(target.shape)
+    return matched + mu_s
+
+
+# ----------------------------------------------------------------------------
+# CDF matching (exact 1-D OT on 256 shared-range bins)
+
+BINS = cdf.BINS
+
+
+def interp_ref(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """The reference's custom 1-D interp: idx = the first position with
+    xp[idx] >= x (searchsorted, left), a linear map on [idx, idx+1], falling
+    back to anchoring at xp[idx+1] and then to fp[idx] where non-finite
+    (duplicate xp nodes)."""
+    n = xp.shape[0]
+    idxs = torch.searchsorted(xp, x.contiguous()).clamp(0, n - 1)
+    idxs_next = (idxs + 1).clamp(0, n - 1)
+    xp_i, xp_n = xp[idxs], xp[idxs_next]
+    fp_i, fp_n = fp[idxs], fp[idxs_next]
+    slopes = (fp_n - fp_i) / (xp_n - xp_i)
+    f0 = slopes * (x - xp_i) + fp_i
+    f1 = slopes * (x - xp_n) + fp_n
+    return torch.where(torch.isfinite(f0), f0,
+                       torch.where(torch.isfinite(f1), f1, fp_i))
+
+
+def _edges_rows(lo: torch.Tensor, hi: torch.Tensor, bins: int) -> torch.Tensor:
+    """(...,) ranges -> (..., bins) right bin edges with jnp.linspace's
+    arithmetic as XLA evaluates it in f32: ``fma(hi, s, lo * (1 - s))`` with
+    s = i / bins (the fused multiply-add taken exactly in f64), the last
+    edge exactly hi."""
+    s = torch.arange(1, bins + 1, dtype=lo.dtype, device=lo.device) / bins
+    low = lo[..., None] * (1 - s)
+    edges = (low.double() + hi[..., None].double() * s.double()).to(lo.dtype)
+    edges[..., -1] = hi
+    return edges
+
+
+def _histc(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+           bins: int) -> torch.Tensor:
+    """torch.histc semantics on one channel (the legacy oracle)."""
+    return cdf.histogram_plain(x[None], lo[None], hi[None], bins)[0]
+
+
+def _cdf_apply_channel(t, t_hist, s_hist, lo, hi, bins):
+    """Apply CDF matching to one channel given its histograms (legacy)."""
+    edges = _edges_rows(lo, hi, bins)
+    t_cdf = torch.cumsum(t_hist, 0)
+    t_cdf = t_cdf / t_cdf[-1]
+    s_cdf = torch.cumsum(s_hist, 0)
+    s_cdf = s_cdf / s_cdf[-1]
+    remapped = interp_ref(t_cdf, s_cdf, edges)
+    return interp_ref(t, edges, remapped)
+
+
+def _cdf_match_channel(t: torch.Tensor, s: torch.Tensor, bins: int) -> torch.Tensor:
+    """One channel: shared-range histograms -> CDFs -> double remap (the
+    legacy searchsorted path, the oracle for ``bins != 256``)."""
+    lo = torch.minimum(t.min(), s.min())
+    hi = torch.maximum(t.max(), s.max())
+    return _cdf_apply_channel(t, _histc(t, lo, hi, bins), _histc(s, lo, hi, bins),
+                              lo, hi, bins)
+
+
+def _remap_table_rows(t_cdf: torch.Tensor, s_cdf: torch.Tensor,
+                      edges: torch.Tensor) -> torch.Tensor:
+    """remapped[c] = interp_ref(t_cdf[c]; xp=s_cdf[c], fp=edges[c]) for every
+    channel at once: a batched searchsorted (s_cdf rows are non-decreasing,
+    so the left insertion index is the JAX package's compare-count
+    #(s_cdf < t_cdf), without its (C, B, B) compare) and gathers of the
+    selected table entries."""
+    bins = t_cdf.shape[1]
+    idx = torch.searchsorted(s_cdf.contiguous(),
+                             t_cdf.contiguous()).clamp(max=bins - 1)
+    nxt = (idx + 1).clamp(max=bins - 1)
+    xp_i, xp_n = torch.gather(s_cdf, 1, idx), torch.gather(s_cdf, 1, nxt)
+    fp_i, fp_n = torch.gather(edges, 1, idx), torch.gather(edges, 1, nxt)
+    slope = (fp_n - fp_i) / (xp_n - xp_i)
+    f0 = slope * (t_cdf - xp_i) + fp_i
+    f1 = slope * (t_cdf - xp_n) + fp_n
+    return torch.where(torch.isfinite(f0), f0,
+                       torch.where(torch.isfinite(f1), f1, fp_i))
+
+
+def cdf_cdfs_rows(t_hist: torch.Tensor, s_hist: torch.Tensor):
+    """Histogram counts -> normalized CDFs (reference op order)."""
+    t_cdf = torch.cumsum(t_hist, dim=1)
+    t_cdf = t_cdf / t_cdf[:, -1:]
+    s_cdf = torch.cumsum(s_hist, dim=1)
+    s_cdf = s_cdf / s_cdf[:, -1:]
+    return t_cdf, s_cdf
+
+
+def _on_kernels(use_pallas: bool, bins: int, device) -> bool:
+    """Whether a cdf call goes through the wrappers of :mod:`.cdf`.
+    ``use_pallas=False`` (or ``bins != 256``) selects the plain
+    formulation, a CPU reference: on a GPU it raises, so a CUDA tensor
+    never runs a plain version silently."""
+    on_cpu = torch.device(device).type == "cpu"
+    if use_pallas and bins == BINS:
+        return True
+    if not on_cpu:
+        raise ValueError("the cdf path on a GPU runs on the CUDA kernels "
+                         "(use_pallas=True, 256 bins); use_pallas=False and "
+                         "other bin counts are CPU references")
+    return False
+
+
+def histogram_rows(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                   bins: int = BINS, use_pallas: bool = True) -> torch.Tensor:
+    """(C, N) samples + per-channel ranges -> (C, bins) float32 counts with
+    torch.histc binning (the batched_histogram kernel on a GPU)."""
+    if _on_kernels(use_pallas, bins, x.device):
+        return cdf.batched_histogram(x, lo, hi)
+    return cdf.histogram_plain(x, lo, hi, bins)
+
+
+def cdf_apply_rows(t: torch.Tensor, t_hist: torch.Tensor, s_hist: torch.Tensor,
+                   lo: torch.Tensor, hi: torch.Tensor,
+                   use_pallas: bool = True) -> torch.Tensor:
+    """Apply cdf matching to (C, N) target rows given per-channel histograms
+    on the shared range: the table work (cdfs, cdf -> cdf remap) in plain
+    PyTorch, the per-sample PWL map on the pwl_remap kernel on a GPU."""
+    bins = t_hist.shape[1]
+    t_cdf, s_cdf = cdf_cdfs_rows(t_hist, s_hist)
+    remapped = _remap_table_rows(t_cdf, s_cdf, _edges_rows(lo, hi, bins))
+    if _on_kernels(use_pallas, bins, t.device):
+        return cdf.pwl_remap(t, remapped, lo, hi)
+    return cdf.pwl_remap_plain(t, remapped, lo, hi)
+
+
+def cdf_match_rows(t: torch.Tensor, s: torch.Tensor, bins: int = BINS,
+                   use_pallas: bool = True) -> torch.Tensor:
+    """Row-major cdf matching core: t (C, Nt) matched to s (C, Ns)."""
+    t_lo, t_hi = torch.aminmax(t, dim=1)
+    s_lo, s_hi = torch.aminmax(s, dim=1)
+    lo, hi = torch.minimum(t_lo, s_lo), torch.maximum(t_hi, s_hi)
+    t_hist = histogram_rows(t, lo, hi, bins, use_pallas)
+    s_hist = histogram_rows(s, lo, hi, bins, use_pallas)
+    return cdf_apply_rows(t, t_hist, s_hist, lo, hi, use_pallas)
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """NHWC -> contiguous (C, N) rows (the kernels' layout; one copy)."""
+    return x.reshape(-1, x.shape[-1]).T.contiguous()
+
+
+def cdf_match(target: torch.Tensor, source: torch.Tensor, bins: int = BINS,
+              use_pallas: bool = True) -> torch.Tensor:
+    """CDF matching, NHWC -> NHWC, all channels at once. ``bins != 256``
+    runs the legacy per-channel searchsorted path (the oracle)."""
+    t, s = _rows(target), _rows(source)
+    if bins != BINS:
+        matched = torch.stack([_cdf_match_channel(tc, sc, bins)
+                               for tc, sc in zip(t, s)])
+    else:
+        matched = cdf_match_rows(t, s, bins, use_pallas)
+    return matched.T.reshape(target.shape)
+
+
+# ----------------------------------------------------------------------------
+# Sort matching: exact sliced 1-D optimal transport
+
+
+def sort_match(target: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
+    """Exact per-channel 1-D OT via order statistics, NHWC -> NHWC: the
+    r-th smallest target sample takes the source's (r + 0.5)/Nt quantile."""
+    return sort_match_rows(_rows(target), _rows(source)).T.reshape(target.shape)
+
+
+# Above this many elements in the larger of the two (C, N) clouds the
+# per-channel sorts run in channel blocks, bounding the live sort buffers
+# (the JAX package's default threshold; tests may pin another value)
+_SORT_BLOCK_ELEMS = 192 * 1024 * 1024
+
+
+def sort_match_rows(t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Row-major core of :func:`sort_match`: t (C, Nt) matched to s (C, Ns)
+    per row, in t's original sample order. Clouds past the block threshold
+    process blocks of ``cap // max(Nt, Ns)`` channels in turn (rows are
+    independent, so the result is the same)."""
+    c, nt = t.shape
+    m = max(nt, s.shape[1], 1)
+    if c > 1 and c * m > _SORT_BLOCK_ELEMS:
+        rows = max(1, _SORT_BLOCK_ELEMS // m)
+        return torch.cat([_sort_match_rows_impl(t[i:i + rows], s[i:i + rows])
+                          for i in range(0, c, rows)])
+    return _sort_match_rows_impl(t, s)
+
+
+def _sort_match_rows_impl(t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    nt, ns = t.shape[1], s.shape[1]
+    s_sorted = torch.sort(s, dim=1).values
+    order = torch.sort(t, dim=1, stable=True).indices
+    src_idx = np.clip(((np.arange(nt) + 0.5) * (ns / nt)).astype(np.int64),
+                      0, ns - 1)
+    matched_sorted = s_sorted[:, torch.from_numpy(src_idx).to(s.device)]
+    # the inverse permutation: the r-th smallest goes back to its position
+    return torch.empty_like(t).scatter_(1, order, matched_sorted)
+
+
+# ----------------------------------------------------------------------------
+# Unified entry, reference signature
+
+
+def hist_match(target: torch.Tensor, source: torch.Tensor, mode: str = "chol",
+               eps: float = 1.0, use_pallas: bool = True) -> torch.Tensor:
+    """NHWC target matched to NHWC source's per-channel statistics."""
+    if mode == "cdf":
+        return cdf_match(target, source, use_pallas=use_pallas)
+    if mode == "sort":
+        return sort_match(target, source)
+    return moment_match(target, source, mode, eps)

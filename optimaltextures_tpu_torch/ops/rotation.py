@@ -1,9 +1,11 @@
-"""Haar-random SO(n) sampling by Newton-Schulz polar iteration (the
-counterpart of ``optimaltextures_tpu/ops/rotation.py``).
+"""Haar-random SO(n) sampling (the counterpart of
+``optimaltextures_tpu/ops/rotation.py``).
 
-The orthogonal polar factor of a Ginibre (iid normal) matrix is Haar on O(n);
+Stages draw their rotation stacks by Newton-Schulz polar iteration: the
+orthogonal polar factor of a Ginibre (iid normal) matrix is Haar on O(n);
 X <- 1.5 X - 0.5 X X^T X converges to it with batched matmuls only, and
-flipping the last column where det(G) < 0 lands on SO(n).
+flipping the last column where det(G) < 0 lands on SO(n). The pixel-space
+color steps draw single 3x3 rotations by QR (:func:`random_rotation`).
 
 Random streams: the JAX package draws its Gaussians from threefry keys, the
 port from ``torch.Generator``s, so the two never draw the same numbers. The
@@ -31,6 +33,19 @@ def polar_rotations(g: torch.Tensor) -> torch.Tensor:
     x = x.clone()
     x[:, :, -1] *= sign[:, None]
     return x
+
+
+def random_rotation(gen: torch.Generator, n: int, device="cpu") -> torch.Tensor:
+    """One Haar-random (n, n) SO(n) matrix drawn from ``gen`` (QR path: QR
+    of a Gaussian, the R-diagonal sign fix, then the last column flipped
+    where det = -1). The pixel-space color steps draw from it."""
+    g = torch.randn((n, n), generator=gen, device=device, dtype=torch.float32)
+    q, r = torch.linalg.qr(g)
+    q = q * torch.where(torch.diagonal(r) >= 0, 1.0, -1.0)[None, :]
+    sign, _ = torch.linalg.slogdet(q)
+    q = q.clone()
+    q[:, -1] *= sign
+    return q
 
 
 def random_rotations_polar(gen: torch.Generator, n_rot: int, n: int,

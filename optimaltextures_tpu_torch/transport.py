@@ -1,13 +1,19 @@
-"""Sliced optimal transport for the moment modes, plus PCA fitting (the
-counterpart of ``optimaltextures_tpu/transport.py``).
+"""Sliced optimal transport, plus PCA fitting (the counterpart of
+``optimaltextures_tpu/transport.py``).
 
-Every moment-mode iteration is affine in the samples, ``f -> (f - mu_i) @
-m_i + mu_s``, and ``m_i`` depends on the current cloud only through its mean
-and covariance, which propagate in closed form. So a whole stage's
+Moment modes (chol / pca / sym): every iteration is affine in the samples,
+``f -> (f - mu_i) @ m_i + mu_s``, and ``m_i`` depends on the current cloud
+only through its mean and covariance, which propagate in closed form (as
+does the content pull ``f -> f + s*(cf - f)``). So a whole stage's
 iterations compose into ONE affine map built by a C x C loop
 (:func:`compose_moment_chain`), and the (B*H*W, C) features are touched by a
-single GEMM. This port has that composed branch only (cov_propagation on,
-no content pull); the iterative and content branches are ROADMAP items.
+single GEMM (two with a content pull). The iterative
+``cov_propagation=False`` loop is not ported yet (ROADMAP.md, queue 1 item
+13).
+
+Sampled modes (cdf / sort): each iteration rotates the pastiche and style
+clouds, matches every rotated coordinate (cdf on the CUDA kernels of
+``ops/cdf.py``), rotates back and applies the content pull.
 """
 
 from __future__ import annotations
@@ -18,20 +24,75 @@ import numpy as np
 import torch
 
 from .ops import histmatch
-from .ops.rotation import stage_rotations
+from .ops.rotation import random_rotation, stage_rotations
 
 
 class StyleStats(NamedTuple):
-    """Per-(pass, layer) style statistics for the moment modes: ``mu``
-    (1, 1, 1, C) and the raw covariance ``cov_raw`` (C, C, no ridge)."""
+    """Per-(pass, layer) style statistics: ``mu`` (1, 1, 1, C) and the raw
+    covariance ``cov_raw`` (C, C, no ridge) for the moment modes; the
+    sample cloud ``samples`` (Ns, C) for cdf/sort (None otherwise)."""
     mu: torch.Tensor
     cov_raw: torch.Tensor
+    samples: Optional[torch.Tensor] = None
 
 
-def style_stats(style_feature: torch.Tensor) -> StyleStats:
+def style_stats(style_feature: torch.Tensor,
+                need_samples: bool = False) -> StyleStats:
     """NHWC style features -> transport statistics."""
     mu, cov = histmatch.moment_stats(style_feature)
-    return StyleStats(mu=mu, cov_raw=cov)
+    samples = (style_feature.reshape(-1, style_feature.shape[-1])
+               if need_samples else None)
+    return StyleStats(mu=mu, cov_raw=cov, samples=samples)
+
+
+def _sampled_step_with_rot(rot: torch.Tensor, feature: torch.Tensor,
+                           style_samples: torch.Tensor, mode: str,
+                           use_pallas: bool = True) -> torch.Tensor:
+    """One cdf/sort sliced-OT step with a supplied rotation. The rotated
+    clouds come out of their GEMMs directly as the (C, N) rows the matchers
+    take (``R^T X^T``), and the matched rows go back through one more GEMM,
+    so no transposed copy of the samples is made."""
+    c = feature.shape[-1]
+    rf = rot.T @ feature.reshape(-1, c).T          # (C, N) rows
+    rs = rot.T @ style_samples.T
+    if mode == "sort":
+        matched = histmatch.sort_match_rows(rf, rs)
+    else:
+        matched = histmatch.cdf_match_rows(rf, rs, use_pallas=use_pallas)
+    return (matched.T @ rot.T).reshape(feature.shape)
+
+
+def ot_step_sampled(gen: Optional[torch.Generator], feature: torch.Tensor,
+                    style_samples: torch.Tensor, mode: str,
+                    use_pallas: bool = True,
+                    rotation: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One sliced-OT iteration on raw sample clouds: cdf (256-bin, reference
+    semantics) or sort (exact 1-D OT). The rotation is drawn from ``gen``
+    (QR) unless ``rotation`` is given."""
+    if rotation is None:
+        rotation = random_rotation(gen, feature.shape[-1], feature.device)
+    return _sampled_step_with_rot(rotation.to(feature), feature, style_samples,
+                                  mode, use_pallas)
+
+
+def ot_step_cdf(gen, feature, style_samples, use_pallas: bool = True,
+                rotation: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One cdf sliced-OT iteration (the color tail's pixel-space step)."""
+    return ot_step_sampled(gen, feature, style_samples, "cdf", use_pallas,
+                           rotation)
+
+
+def ot_step_reference(gen: Optional[torch.Generator], feature: torch.Tensor,
+                      style_feature: torch.Tensor, mode: str, eps: float = 1.0,
+                      use_pallas: bool = True,
+                      rotation: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Faithful rotate/match/unrotate on raw NHWC features, any mode."""
+    if rotation is None:
+        rotation = random_rotation(gen, feature.shape[-1], feature.device)
+    rot = rotation.to(feature)
+    matched = histmatch.hist_match(feature @ rot, style_feature @ rot, mode,
+                                   eps, use_pallas)
+    return matched @ rot.T
 
 
 def pca_spectrum(features: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -59,19 +120,35 @@ def choose_k(singular_values) -> int:
 
 def compose_moment_chain(rotations: torch.Tensor, sfactors: torch.Tensor,
                          mu0: torch.Tensor, cov0: torch.Tensor,
-                         mu_s: torch.Tensor, mode: str, eps: float):
-    """Fold a stage's moment-mode OT iterations into ``out = feat0 @ A +
-    bias``: per iteration i, with the propagated moments (mu, cov),
+                         mu_s: torch.Tensor, mode: str, eps: float,
+                         content_strength: float = 0.0,
+                         cross0: Optional[torch.Tensor] = None,
+                         content_cov: Optional[torch.Tensor] = None,
+                         content_mu: Optional[torch.Tensor] = None):
+    """Fold a stage's moment-mode OT iterations (+ the optional content pull)
+    into ``out = feat0 @ A (+ content @ Bc) + bias``: per iteration i, with
+    the propagated moments (mu, cov) and the cross-covariance X = Cov(f, cf),
 
         m_i  = R_i A_i^T R_i^T,  A_i = moment_transform_pre(R_i^T cov R_i)
-        A   <- A m_i,  bias <- bias m_i + mu_s - mu m_i,
-        mu  <- mu_s,   cov  <- m_i^T cov m_i.
+        A   <- A m_i,  Bc <- Bc m_i,  bias <- bias m_i + mu_s - mu m_i,
+        mu  <- mu_s,   cov  <- m_i^T cov m_i,  X <- m_i^T X,
 
-    Returns (A (C, C), bias (B, 1, 1, C))."""
+    then the pull f -> (1-s) f + s cf:
+
+        A <- (1-s) A,  Bc <- (1-s) Bc + s I,  bias <- (1-s) bias,
+        mu <- (1-s) mu + s mu_cf,  X <- (1-s) X + s cov_cf,
+        cov <- (1-s)^2 cov + (1-s) s (X' + X'^T) + s^2 cov_cf  (X' before
+        the pull).
+
+    Returns (A (C, C), Bc (C, C) or None without content, bias (B, 1, 1, C))."""
     c = cov0.shape[-1]
-    A = torch.eye(c, dtype=cov0.dtype, device=cov0.device)
+    s = float(content_strength)
+    has_content = cross0 is not None and s != 0.0
+    eye = torch.eye(c, dtype=cov0.dtype, device=cov0.device)
+    A = eye
+    Bc = torch.zeros_like(cov0) if has_content else None
     bias = torch.zeros_like(mu0)
-    mu, cov = mu0, cov0
+    mu, cov, X = mu0, cov0, cross0
     for rot, sfac in zip(rotations, sfactors):
         a = histmatch.moment_transform_pre(rot.T @ (cov @ rot), sfac, mode, eps)
         m = rot @ (a.T @ rot.T)
@@ -79,7 +156,18 @@ def compose_moment_chain(rotations: torch.Tensor, sfactors: torch.Tensor,
         bias = bias @ m + (mu_s - mu @ m)
         mu = torch.zeros_like(mu0) + mu_s
         cov = m.T @ (cov @ m)
-    return A, bias
+        if not has_content:
+            continue
+        X = m.T @ X
+        Bc = Bc @ m
+        A = (1.0 - s) * A
+        Bc = (1.0 - s) * Bc + s * eye
+        bias = (1.0 - s) * bias
+        mu = (1.0 - s) * mu + s * content_mu
+        cov = ((1.0 - s) ** 2 * cov + (1.0 - s) * s * (X + X.T)
+               + s ** 2 * content_cov)
+        X = (1.0 - s) * X + s * content_cov
+    return A, Bc, bias
 
 
 def stage_affine_map(rotations: torch.Tensor, mu0: torch.Tensor,
@@ -88,24 +176,29 @@ def stage_affine_map(rotations: torch.Tensor, mu0: torch.Tensor,
     """The stage's composed affine map from the initial feature moments."""
     cov_s_rots = histmatch.style_congruence_batch(rotations, stats.cov_raw)
     sfactors = histmatch.style_factor_batch(cov_s_rots, mode, eps)
-    return compose_moment_chain(rotations, sfactors, mu0, cov0, stats.mu,
-                                mode, eps)
+    A, _, bias = compose_moment_chain(rotations, sfactors, mu0, cov0, stats.mu,
+                                      mode, eps)
+    return A, bias
 
 
 def transport_loop(gen: Optional[torch.Generator], feature: torch.Tensor,
                    stats: StyleStats, n_iters: int, mode: str,
-                   eps: float = 1.0,
-                   rotations: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``n_iters`` sliced-OT steps on NHWC ``feature``, composed.
+                   content_feature: Optional[torch.Tensor] = None,
+                   content_strength: float = 0.0, eps: float = 1.0,
+                   rotations: Optional[torch.Tensor] = None,
+                   use_pallas: bool = True) -> torch.Tensor:
+    """``n_iters`` sliced-OT steps on NHWC ``feature``, each followed by the
+    reference's content pull ``feat += s * (content - feat)`` when a
+    content feature is given.
 
-    Rotations come from ``stage_rotations(gen, ...)`` unless ``rotations``
-    (n_iters, C, C) is given — the injection hook the parity tests use to
-    feed the JAX package's rotation stacks."""
+    Moment modes compose the stage into one affine map (with or without
+    the pull); cdf/sort iterate. Rotations come from ``stage_rotations(gen,
+    ...)`` unless ``rotations`` (n_iters, C, C) is given — the injection hook
+    the parity tests use to feed the JAX package's rotation stacks."""
     if n_iters == 0:
         return feature
-    if mode not in ("chol", "pca", "sym"):
-        raise NotImplementedError(f"hist_mode {mode!r} is not ported yet "
-                                  "(ROADMAP.md, queue 1 item 10)")
+    if mode not in ("chol", "pca", "sym", "cdf", "sort"):
+        raise ValueError(f"unknown hist_mode {mode!r}")
     c = feature.shape[-1]
     if rotations is None:
         rotations = stage_rotations(gen, n_iters, c, feature.device)
@@ -113,7 +206,30 @@ def transport_loop(gen: Optional[torch.Generator], feature: torch.Tensor,
         raise ValueError(f"rotations {tuple(rotations.shape)} != "
                          f"{(n_iters, c, c)}")
     rotations = rotations.to(device=feature.device, dtype=torch.float32)
+
+    if mode in ("cdf", "sort"):
+        for rot in rotations:
+            feature = _sampled_step_with_rot(rot, feature, stats.samples, mode,
+                                             use_pallas)
+            if content_feature is not None:
+                feature = feature + content_strength * (content_feature - feature)
+        return feature
+
     mu0, cov0 = histmatch.moment_stats(feature)
-    A, bias = stage_affine_map(rotations, mu0, cov0, stats, mode, eps)
-    out = (feature.reshape(-1, c) @ A).reshape(feature.shape)
-    return out + bias
+    if content_feature is None or content_strength == 0.0:
+        A, bias = stage_affine_map(rotations, mu0, cov0, stats, mode, eps)
+        out = (feature.reshape(-1, c) @ A).reshape(feature.shape)
+        return out + bias
+    # composed with the content pull
+    cov_s_rots = histmatch.style_congruence_batch(rotations, stats.cov_raw)
+    sfactors = histmatch.style_factor_batch(cov_s_rots, mode, eps)
+    mu_cf, cov_cf = histmatch.moment_stats(content_feature)
+    content_feature = content_feature.expand(feature.shape)
+    fc = (feature - mu0).reshape(-1, c)
+    cc = (content_feature - mu_cf).reshape(-1, c)
+    cross0 = (fc.T @ cc) / fc.shape[0]
+    A, Bc, bias = compose_moment_chain(rotations, sfactors, mu0, cov0, stats.mu,
+                                       mode, eps, content_strength, cross0,
+                                       cov_cf, mu_cf)
+    out = feature.reshape(-1, c) @ A + content_feature.reshape(-1, c) @ Bc
+    return out.reshape(feature.shape) + bias

@@ -1,6 +1,7 @@
 """The torch port's jax-free foundations against the JAX package: schedule,
 config, weights, resize, image naming; plus the port's import isolation and
-its device and slice contracts. CPU only."""
+its device and slice contracts (the ported settings run, the others raise).
+CPU only."""
 
 import dataclasses
 import os
@@ -107,7 +108,9 @@ def test_output_name_matches_jax():
                dict(style=["a/lava-small.png"], hist_mode="pca", size=256,
                     no_pca=True, style_scale=0.5),
                dict(style=["x.jpg"], no_multires=True, tileable=True),
-               dict(style=["x.jpg", "y.jpg"], mixing_alpha=0.3)):
+               dict(style=["x.jpg", "y.jpg"], mixing_alpha=0.3),
+               dict(style=["x.jpg"], content="d/c.png", content_strength=0.2,
+                    color_transfer="opt", hist_mode="cdf")):
         assert timageio.output_name(tconfig.OptexConfig(**kw)) == \
             jimageio.output_name(jconfig.OptexConfig(**kw))
 
@@ -128,6 +131,8 @@ def test_package_imports_without_jax():
                   "optimaltextures_tpu_torch.api", "optimaltextures_tpu_torch.cli",
                   "optimaltextures_tpu_torch.models.fastcodec",
                   "optimaltextures_tpu_torch.ops.codec",
+                  "optimaltextures_tpu_torch.ops.cdf",
+                  "optimaltextures_tpu_torch.ops.colors",
                   "optimaltextures_tpu_torch.utils.imageio"):
             importlib.import_module(m)
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
@@ -157,8 +162,24 @@ def test_default_device_is_the_gpu():
 
 
 @pytest.mark.parametrize("override", [
-    dict(content="c.png"), dict(color_transfer="lum"), dict(hist_mode="cdf"),
-    dict(hist_mode="sort"), dict(style=["a.png", "b.png"]),
+    dict(content="c.png"), dict(content="c.png", color_transfer="lum"),
+    dict(hist_mode="cdf"), dict(hist_mode="sort")])
+def test_ported_settings_run(override):
+    """The settings this slice ports build and run on the CPU."""
+    kw = dict(size=32, passes=1, iters=6, no_multires=True, depth=2, seed=3,
+              style=["x.png"])
+    kw.update(override)
+    rng = np.random.default_rng(0)
+    style = rng.uniform(size=(1, 32, 32, 3)).astype(np.float32)
+    content = (rng.uniform(size=(1, 32, 32, 3)).astype(np.float32)
+               if "content" in override else None)
+    out, _ = tcore.synthesize(tconfig.OptexConfig(**kw), [style], content,
+                              device="cpu")
+    assert out.shape == (1, 32, 32, 3) and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("override", [
+    dict(style=["a.png", "b.png"]),
     dict(conv_dtype="bfloat16"), dict(tileable=True), dict(batch=2),
     dict(out_width=64), dict(init="i.png"), dict(pca_bucket=8),
     dict(pca_traced_k=True), dict(batch_chunk=1), dict(cov_propagation=False),

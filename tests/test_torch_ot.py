@@ -147,5 +147,9 @@ def test_transport_loop_zero_iters_and_bad_rotations():
     with pytest.raises(ValueError):
         ttransport.transport_loop(None, x, st, 2, "chol",
                                   rotations=torch.eye(3).expand(3, 3, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttransport.transport_loop(None, x, st, 2, "cdf")
+    with pytest.raises(ValueError, match="hist_mode"):
+        ttransport.transport_loop(None, x, st, 2, "median")
+    # cdf is ported: it runs on the style's sample cloud
+    st = ttransport.style_stats(torch.randn(1, 4, 4, 3), need_samples=True)
+    out = ttransport.transport_loop(trot.generator("cpu", 1), x, st, 2, "cdf")
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
