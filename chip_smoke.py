@@ -13,13 +13,20 @@ Phases (each raises on failure; none catches its own):
      against its plain PyTorch version (|kernel - plain| <= 2e-5 *
      max|plain|: f32 sums of up to 1152 products in another order), and
      timed beside its plain version and one F.conv2d call (TF32 off);
-  4. both cdf kernels at their main-path shapes: the rotated relu1 clouds
-     of the 512-px pass at the C the PCA rule picks, and the rotated
+  4. the three cdf kernels at their main-path shapes: the rotated relu1
+     clouds of the 512-px pass at the C the PCA rule picks, and the rotated
      512x512 pixel cloud of the color tail (C = 3). The histogram must
-     equal its plain version exactly, the remap be within 1e-5 *
+     equal its plain version exactly, the remap and the legacy fused apply
+     (cdf_remap, on histograms from the histogram kernel) be within 1e-5 *
      max|plain|; timed beside the plain versions and, for the histogram,
      torch.histc called once per channel;
-  5. the paths, each once cold and once warm (lum once), every launch
+  5. the conv64 prototype kernel against its plain version at the tool's
+     check shape (64 px, B = 128) and a ragged one (37 x 45, B = 5), within
+     2^-7 * max|plain| (one bf16 rounding), and again at the tool's
+     512 px x 128, whose tensors pass 2^31 elements; timed there beside its
+     plain version, its bound and one cuDNN bf16 F.conv2d + ReLU in
+     channels-last;
+  6. the paths, each once cold and once warm (lum once), every launch
      count set to 0 just before a run and checked just after it:
        main path: core.synthesize at 512 px, defaults otherwise (chol), the
          real depth-3 weights, a style exemplar made from --seed;
@@ -27,16 +34,23 @@ Phases (each raises on failure; none catches its own):
        path B: style transfer at 512 px, a content exemplar made from
          --seed, content_strength 0.2, chol, color_transfer "opt" (and
          "lum" once, with no cdf launch);
-  6. 64-px runs on the GPU against the same runs on the CPU (the kernels'
-     plain versions), with the same inputs and injected rotations: the
-     main path (max |gpu - cpu| <= 1e-3), cdf synthesis (by distribution:
-     cdf mode is chaotic at pass granularity) and transfer + opt (mean
-     <= 3e-3, max <= 5e-2);
-  7. the CLI on a style file from docs/samples/ (needs Pillow).
+       path C: two-style texture mixing at 512 px, alpha 0.5, two exemplars
+         made from --seed, chol (no cdf launch), then once warm with
+         hist_mode="cdf", whose histogram and remap counts are path A's
+         plus the mixing's own cross-matching;
+  7. 64-px runs on the GPU against the same runs on the CPU (the kernels'
+     plain versions), with the same inputs, injected rotations and mixing
+     masks: the main path and chol mixing (max |gpu - cpu| <= 1e-3), cdf
+     synthesis and cdf mixing (by distribution: cdf mode is chaotic at
+     pass granularity) and transfer + opt (mean <= 3e-3, max <= 5e-2);
+  8. the CLI on a style file from docs/samples/, and mixing two (needs
+     Pillow).
 
-The last two lines of standard output are the {"kernels": [...]} line and
-{"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
-GPU is present or the package is missing.
+The last two lines of standard output are the {"kernels": [...]} line (all
+nine kernels; conv64 and cdf_remap are on no path of the program, so their
+launches are those of their own check phase, which the "phase" field
+names) and {"ok": true, "device": {...}}. Exits non-zero, printing no
+result, when no GPU is present or the package is missing.
 """
 
 from __future__ import annotations
@@ -53,6 +67,8 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SAMPLE_STYLE = os.path.join(REPO, "docs", "samples", "graffiti_cholhist_256.png")
+SAMPLE_STYLE_B = os.path.join(REPO, "docs", "samples",
+                              "zebra_pattern_lava_mix3_256.png")
 
 # per kernel: its TPU original (file:line of the pallas_call wrapper)
 REPLACES = {
@@ -63,19 +79,27 @@ REPLACES = {
     "final_to_rgb": "optimaltextures_tpu/ops/pallas/codec.py:515",
     "batched_histogram": "optimaltextures_tpu/ops/pallas/histogram.py:98",
     "pwl_remap": "optimaltextures_tpu/ops/pallas/pwl_remap.py:74",
+    "cdf_remap": "optimaltextures_tpu/ops/pallas/cdf_remap.py:97",
+    "conv64": "tools/pallas_conv_proto.py:109",
 }
-SOURCES = {"batched_histogram": "cdf", "pwl_remap": "cdf"}   # else codec
+SOURCES = {"batched_histogram": "cdf", "pwl_remap": "cdf", "cdf_remap": "cdf",
+           "conv64": "conv64"}   # else codec
 
-# f32 (non-tensor-core) peak and HBM rate by card variant (NVIDIA data sheets)
-_PEAKS = [("H100 PCIe", 51.2e12, 2.0e12), ("H100 NVL", 60.0e12, 3.9e12),
-          ("H100", 66.9e12, 3.35e12), ("H200", 66.9e12, 4.8e12)]
+# f32 (non-tensor-core) peak, dense bf16 tensor-core peak and HBM rate by
+# card variant (NVIDIA data sheets)
+_PEAKS = [("H100 PCIe", 51.2e12, 756e12, 2.0e12),
+          ("H100 NVL", 60.0e12, 835e12, 3.9e12),
+          ("H100", 66.9e12, 989e12, 3.35e12),
+          ("H200", 66.9e12, 989e12, 4.8e12)]
 
 
-def _peaks(name: str):
-    for key, flops, bw in _PEAKS:
+def _peaks(name: str, bf16: bool = False):
+    """(peak FLOP/s, HBM bytes/s) of the card: f32 on the FP32 cores, or
+    dense bf16 on the tensor cores."""
+    for key, f32, tc_bf16, bw in _PEAKS:
         if key in name:
-            return flops, bw
-    raise RuntimeError(f"no f32/HBM peak on record for {name!r}")
+            return (tc_bf16 if bf16 else f32), bw
+    raise RuntimeError(f"no peak on record for {name!r}")
 
 
 def _smi() -> str:
@@ -273,14 +297,16 @@ def cdf_clouds(seed: int):
 
 
 def check_cdf_kernels(seed: int, reps: int, card: str):
-    """Phase 4: both cdf kernels at their main-path shapes vs their plain
-    versions, with times and bounds. Returns (rows, relu1 k)."""
+    """Phase 4: the three cdf kernels at their main-path shapes vs their
+    plain versions, with times and bounds. Returns (rows, relu1 k); the
+    cdf_remap row carries the launches of this phase."""
     import torch
 
     from optimaltextures_tpu_torch.ops import cdf, histmatch
 
     peak_flops, peak_bw = _peaks(card)
     clouds, k = cdf_clouds(seed)
+    cdf.reset_launches()
     rows = {}
     for label, t, s in clouds:
         c, n = t.shape
@@ -344,41 +370,156 @@ def check_cdf_kernels(seed: int, reps: int, card: str):
               f"call: none  bound {max(t_flops, t_bytes):.4f} ms "
               f"({'operations' if t_flops >= t_bytes else 'bytes'})", flush=True)
         _add_row(rows, "pwl_remap", err, ms, plain_ms, None, t_flops, t_bytes)
+
+        # cdf_remap, the legacy fused apply, on the histogram kernel's counts
+        t_hist = cdf.batched_histogram(t, lo, hi)
+        s_hist = cdf.batched_histogram(s, lo, hi)
+        got = cdf.cdf_remap(t, t_hist, s_hist, lo, hi)
+        ref = cdf.cdf_remap_plain(t, t_hist, s_hist, lo, hi)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        if not (torch.isfinite(got).all() and err <= 1e-5 * scale):
+            raise AssertionError(f"cdf_remap [{label}]: max|kernel - plain| = "
+                                 f"{err:.3e} over max|plain| = {scale:.3e}")
+        ms = _time_ms(lambda: cdf.cdf_remap(t, t_hist, s_hist, lo, hi), reps)
+        plain_ms = _time_ms(
+            lambda: cdf.cdf_remap_plain(t, t_hist, s_hist, lo, hi), reps)
+        # bytes: samples in and out, both histograms and the ranges once;
+        # operations: ~20 f32 operations per sample (8 compares of the
+        # binary search, the lerp and its checks)
+        t_bytes = 4.0 * (2 * c * n + 2 * c * 256 + 2 * c) / peak_bw * 1e3
+        t_flops = 20.0 * c * n / peak_flops * 1e3
+        print(f"kernel cdf_remap {label:22s} err {err:.2e} (max|plain| "
+              f"{scale:.3e})  {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
+              f"call: none  bound {max(t_flops, t_bytes):.4f} ms "
+              f"({'operations' if t_flops >= t_bytes else 'bytes'})", flush=True)
+        _add_row(rows, "cdf_remap", err, ms, plain_ms, None, t_flops, t_bytes)
+    rows["cdf_remap"]["launches"] = cdf.LAUNCHES["cdf_remap"]
     print(f"relu1 C at the 512-px pass (PCA 90% rule): {k}", flush=True)
     return rows, k
 
 
-def _counts():
-    from optimaltextures_tpu_torch.ops import cdf, codec
+def check_conv64(reps: int, card: str):
+    """Phase 5: the conv64 prototype kernel vs its plain version at the
+    tool's check shape, a ragged one and the tool's 512 px x 128 (more than
+    2^31 elements per tensor, so every 64-bit offset of the kernel is
+    exercised); timed at 512 px x 128 beside its plain version, its bound
+    and one cuDNN bf16 conv + ReLU (channels-last, the layout change made
+    before the clock). Returns its row, with the launches of this phase."""
+    import torch
+    import torch.nn.functional as F
 
-    return {**codec.LAUNCHES, **cdf.LAUNCHES}
+    from optimaltextures_tpu_torch.ops import conv64
+    from optimaltextures_tpu_torch.tools import conv_proto
+
+    def check(xpad, label):
+        got = conv64.conv64(xpad, wrow)
+        ref = conv64.conv64_plain(xpad, wrow)
+        # compared in row bands: f32 copies of the whole 512-px pair would
+        # take another 17 GB
+        err = scale = 0.0
+        finite = True
+        for r0 in range(0, got.shape[0], 64):
+            g, p = got[r0:r0 + 64].float(), ref[r0:r0 + 64].float()
+            finite = finite and bool(torch.isfinite(g).all())
+            err = max(err, float((g - p).abs().max()))
+            scale = max(scale, float(p.abs().max()))
+        if not (finite and err <= 2.0 ** -7 * scale):
+            raise AssertionError(f"conv64 [{label}]: max|kernel - plain| = "
+                                 f"{err:.3e} over max|plain| = {scale:.3e}")
+        print(f"kernel conv64 {label}: err {err:.3e} (max|plain| {scale:.3e}, "
+              f"bound 2^-7 x max|plain|)", flush=True)
+        return err
+
+    conv64.reset_launches()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w = (torch.randn((3, 3, 64, 64), generator=gen, device="cuda") * 0.1
+         ).to(torch.bfloat16)
+    wrow = conv64.pack_wrow(w)
+    errs = []
+    for h, wd, b in ((64, 64, 128), (37, 45, 5)):
+        xpad = torch.randn((h + 2, wd + 2, 64, b), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+        errs.append(check(xpad, f"{h}x{wd} B={b}"))
+    del xpad
+
+    size, b = 512, 128
+    xpad = torch.randn((size + 2, size + 2, 64, b), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    errs.append(check(xpad, f"{size}x{size} B={b}"))
+    torch.cuda.empty_cache()
+    ms = _time_ms(lambda: conv64.conv64(xpad, wrow), reps)
+    plain_ms = _time_ms(lambda: conv64.conv64_plain(xpad, wrow), reps)
+    torch.cuda.empty_cache()
+    xcl = xpad.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    del xpad
+    wcl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    lib_ms = _time_ms(lambda: torch.relu_(F.conv2d(xcl, wcl)), reps)
+    del xcl
+    flops, nbytes = conv_proto.work(size, b)
+    peak_flops, peak_bw = _peaks(card, bf16=True)
+    t_flops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+    print(f"kernel conv64 {size}x{size} B={b}: {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TF/s)  plain {plain_ms:.4f} ms  cuDNN bf16 "
+          f"conv+ReLU {lib_ms:.4f} ms  bound {max(t_flops, t_bytes):.4f} ms "
+          f"({'operations' if t_flops >= t_bytes else 'bytes'})", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    row = {}
+    _add_row(row, "conv64", max(errs), ms, plain_ms, lib_ms, t_flops, t_bytes)
+    row["conv64"]["launches"] = conv64.LAUNCHES["conv64"]
+    return row
+
+
+def _counts():
+    from optimaltextures_tpu_torch.ops import cdf, codec, conv64
+
+    return {**codec.LAUNCHES, **cdf.LAUNCHES, **conv64.LAUNCHES}
 
 
 def _reset_counts():
-    from optimaltextures_tpu_torch.ops import cdf, codec
+    from optimaltextures_tpu_torch.ops import cdf, codec, conv64
 
     codec.reset_launches()
     cdf.reset_launches()
+    conv64.reset_launches()
+
+
+def mixing_matches(cfg) -> int:
+    """The hist_match calls of one run's mixing: every pass cross-matches
+    each ordered pair of its N styles (N (N - 1)) at every depth."""
+    from optimaltextures_tpu_torch.utils import schedule
+
+    n = len(cfg.style)
+    table, _ = schedule.iters_and_sizes(cfg.size, cfg.iters, cfg.passes,
+                                        not cfg.no_multires, num_layers=3)
+    return n * (n - 1) * len(table[0]) * len(table) if n > 1 else 0
 
 
 def expected_counts(cfg) -> dict:
     """Every kernel's launches in one run of ``cfg``: the codec's per stage
     roundtrip, two histograms and one remap per cdf step (each sliced-OT
-    iteration of hist_mode "cdf", and each step of the opt color tail)."""
+    iteration of hist_mode "cdf", each step of the opt color tail, and each
+    cross-matching of cdf-mode mixing); cdf_remap and conv64 are on no
+    path."""
     from optimaltextures_tpu_torch import core
     from optimaltextures_tpu_torch.utils import schedule
 
     depths = [3 - l for l in range(3)]
     table, _ = schedule.iters_and_sizes(cfg.size, cfg.iters, cfg.passes,
                                         not cfg.no_multires, num_layers=3)
-    steps = sum(map(sum, table)) if cfg.hist_mode == "cdf" else 0
+    steps = 0
+    if cfg.hist_mode == "cdf":
+        steps = sum(map(sum, table)) + mixing_matches(cfg)
     if cfg.color_transfer == "opt":
         steps += core.COLOR_STEPS
     return {**_expected_launches(depths, cfg.passes),
-            "batched_histogram": 2 * steps, "pwl_remap": steps}
+            "batched_histogram": 2 * steps, "pwl_remap": steps,
+            "cdf_remap": 0, "conv64": 0}
 
 
-def drive_path(name: str, cfg, style, content=None, labels=("cold", "warm")):
+def drive_path(name: str, cfg, styles, content=None, labels=("cold", "warm")):
     """Run ``cfg`` through core.synthesize once per label, each run's launch
     counts set to 0 just before it and checked just after. Returns the
     last run's counts and the walls."""
@@ -391,7 +532,7 @@ def drive_path(name: str, cfg, style, content=None, labels=("cold", "warm")):
     shape = (1, 512, 512, 3)
     for label in labels:
         _reset_counts()
-        out, seconds = core.synthesize(cfg, [style], content, device="cuda")
+        out, seconds = core.synthesize(cfg, styles, content, device="cuda")
         launches = _counts()
         o = out.cpu().numpy()
         walls.append(seconds)
@@ -410,12 +551,14 @@ def drive_path(name: str, cfg, style, content=None, labels=("cold", "warm")):
 
 
 def paths(seed: int, profile: bool):
-    """Phase 5: the main path, path A (cdf) and path B (transfer + opt,
-    then lum). Returns the launch counts of the main path and of path A."""
+    """Phase 6: the main path, path A (cdf), path B (transfer + opt, then
+    lum) and path C (two-style mixing, then in cdf mode). Returns the launch
+    counts of the main path and of path A."""
     from optimaltextures_tpu_torch.config import OptexConfig
 
     style = _style_exemplar(seed + 1)
     content = _style_exemplar(seed + 3)
+    pair = [style, _style_exemplar(seed + 5)]
     main_cfg = OptexConfig(size=512, seed=seed, style=["smoke_style"])
     cdf_cfg = OptexConfig(size=512, seed=seed, hist_mode="cdf",
                           style=["smoke_style"])
@@ -425,18 +568,41 @@ def paths(seed: int, profile: bool):
     lum_cfg = OptexConfig(size=512, seed=seed, content="smoke_content",
                           content_strength=0.2, color_transfer="lum",
                           style=["smoke_style"])
-    main_counts, _ = drive_path("main path", main_cfg, style)
-    cdf_counts, _ = drive_path("path A, cdf synthesis", cdf_cfg, style)
-    drive_path("path B, transfer + opt", opt_cfg, style, content)
-    drive_path("path B, transfer + lum", lum_cfg, style, content, ("warm",))
+    # the README's mixing command: --style a b --mixing_alpha 0.5
+    mix_cfg = OptexConfig(size=512, seed=seed, mixing_alpha=0.5,
+                          style=["smoke_style", "smoke_style_b"])
+    mix_cdf_cfg = OptexConfig(size=512, seed=seed, mixing_alpha=0.5,
+                              hist_mode="cdf",
+                              style=["smoke_style", "smoke_style_b"])
+    main_counts, _ = drive_path("main path", main_cfg, [style])
+    cdf_counts, _ = drive_path("path A, cdf synthesis", cdf_cfg, [style])
+    drive_path("path B, transfer + opt", opt_cfg, [style], content)
+    drive_path("path B, transfer + lum", lum_cfg, [style], content, ("warm",))
+    mix_counts, _ = drive_path("path C, mixing", mix_cfg, pair)
+    if mix_counts != main_counts:
+        raise AssertionError(f"path C: launches {mix_counts} != the main "
+                             f"path's {main_counts}")
+    mix_cdf_counts, _ = drive_path("path C, cdf mixing", mix_cdf_cfg, pair,
+                                   labels=("warm",))
+    own = mixing_matches(mix_cdf_cfg)
+    for name, per_match in (("batched_histogram", 2), ("pwl_remap", 1)):
+        if mix_cdf_counts[name] != cdf_counts[name] + per_match * own:
+            raise AssertionError(
+                f"path C (cdf): {name} {mix_cdf_counts[name]} != path A's "
+                f"{cdf_counts[name]} + the mixing's {per_match * own}")
+    print(f"path C (cdf): the mixing's own cross-matching: {own} hist_match "
+          f"calls, {2 * own} histograms and {own} remaps on top of path A's",
+          flush=True)
     if profile:
-        for name, cfg, cont in (("main", main_cfg, None), ("cdf", cdf_cfg, None),
-                                ("transfer_opt", opt_cfg, content)):
-            profile_run(name, cfg, style, cont)
+        for name, cfg, sty, cont in (("main", main_cfg, [style], None),
+                                     ("cdf", cdf_cfg, [style], None),
+                                     ("transfer_opt", opt_cfg, [style], content),
+                                     ("mix", mix_cfg, pair, None)):
+            profile_run(name, cfg, sty, cont)
     return main_counts, cdf_counts
 
 
-def profile_run(name, cfg, style, content=None):
+def profile_run(name, cfg, styles, content=None):
     """One more warm run under torch.profiler: device busy time against the
     wall, the ported kernels' share, and the top device kernels (the whole
     table goes to chiprun_out/profile_<name>.txt)."""
@@ -446,7 +612,7 @@ def profile_run(name, cfg, style, content=None):
     from optimaltextures_tpu_torch import core
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        _, wall = core.synthesize(cfg, [style], content, device="cuda")
+        _, wall = core.synthesize(cfg, styles, content, device="cuda")
     rows = p.key_averages()
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0.0))
@@ -469,7 +635,8 @@ def profile_run(name, cfg, style, content=None):
 
 def _gpu_vs_cpu(cfg, seed: int, content_shape=None):
     """``cfg`` at 64 px on the GPU (kernels) and on the CPU (plain
-    versions): same noise, style, content and injected rotations."""
+    versions): same noise, styles (one per ``cfg.style``), content, and
+    injected rotations and mixing masks."""
     import torch
 
     from optimaltextures_tpu_torch import core
@@ -478,13 +645,13 @@ def _gpu_vs_cpu(cfg, seed: int, content_shape=None):
     rng = np.random.default_rng(seed)
     shape = content_shape or (1, cfg.size, cfg.size, 3)
     noise = rng.uniform(size=shape).astype(np.float32)
-    style = _style_exemplar(seed + 2, 64)
+    styles = [_style_exemplar(seed + 2 + 5 * i, 64) for i in range(len(cfg.style))]
     content = (np.ascontiguousarray(_style_exemplar(seed + 4, 96)[:, :shape[1],
                                                                   :shape[2]])
                if content_shape else None)
     color = polar_rotations(torch.as_tensor(
         rng.standard_normal((core.COLOR_STEPS, 3, 3)))).float().numpy()
-    rots = {}
+    rots, masks = {}, {}
 
     def rotations(p, i, n_iters, c):
         if (p, i) not in rots:
@@ -492,12 +659,17 @@ def _gpu_vs_cpu(cfg, seed: int, content_shape=None):
             rots[(p, i)] = polar_rotations(g).float().numpy()
         return rots[(p, i)]
 
+    def mix_draws(p, hw, n_styles):
+        if p not in masks:
+            masks[p] = rng.integers(0, n_styles, size=hw)
+        return masks[p]
+
     outs = {}
     for dev in ("cpu", "cuda"):
         _reset_counts()
         outs[dev] = core.Synthesizer(cfg, device=dev).run(
-            noise, [style], content, rotations=rotations,
-            color_rotations=color).cpu().numpy()
+            noise, styles, content, rotations=rotations,
+            color_rotations=color, mix_draws=mix_draws).cpu().numpy()
         launches = _counts()
         if dev == "cpu" and any(launches.values()):
             raise AssertionError(f"the CPU run counted launches: {launches}")
@@ -507,36 +679,45 @@ def _gpu_vs_cpu(cfg, seed: int, content_shape=None):
     return outs["cuda"], outs["cpu"]
 
 
-def small_agreement(seed: int):
-    """Phase 6: the port at 64 px on the GPU (kernels) vs the CPU (plain
-    versions), same inputs and injected rotations, no PCA."""
-    from optimaltextures_tpu_torch.config import OptexConfig
-
-    gpu, cpu = _gpu_vs_cpu(OptexConfig(
-        size=64, passes=2, iters=48, no_pca=True, no_multires=True, seed=seed,
-        style=["smoke_style"]), seed)
+def _hold_max(name: str, gpu, cpu, bound: float = 1e-3) -> None:
     err = float(np.abs(gpu - cpu).max())
-    print(f"64-px main path, GPU (kernels) vs CPU (plain): max abs diff "
-          f"{err:.3e}", flush=True)
-    if not err <= 1e-3:
-        raise AssertionError(f"64-px GPU vs CPU diff {err} > 1e-3")
+    print(f"{name}, GPU (kernels) vs CPU (plain): max abs diff {err:.3e}",
+          flush=True)
+    if not err <= bound:
+        raise AssertionError(f"{name}: GPU vs CPU diff {err} > {bound}")
 
-    # cdf: a sample a rounding apart lands in the next bin and the runs
-    # then diverge pixel by pixel, so hold the output's distribution
-    gpu, cpu = _gpu_vs_cpu(OptexConfig(
-        size=64, passes=1, iters=60, no_pca=True, no_multires=True, seed=seed,
-        hist_mode="cdf", style=["smoke_style"]), seed)
+
+def _hold_distribution(name: str, gpu, cpu) -> None:
+    """cdf runs: a sample a rounding apart lands in the next bin and the
+    runs then diverge pixel by pixel, so hold the output's distribution."""
     g, c = gpu.reshape(-1, 3), cpu.reshape(-1, 3)
     stats = (float(np.abs(g.mean(0) - c.mean(0)).max()),
              float(np.abs(g.std(0) - c.std(0)).max()),
              float(np.abs(np.sort(g, 0) - np.sort(c, 0)).mean()))
-    print(f"64-px cdf synthesis, GPU vs CPU: max abs diff "
+    print(f"{name}, GPU vs CPU: max abs diff "
           f"{float(np.abs(gpu - cpu).max()):.3e}, per-channel mean diff "
           f"{stats[0]:.3e}, std diff {stats[1]:.3e}, sorted-pixel mean diff "
           f"{stats[2]:.3e}", flush=True)
     if not (np.isfinite(gpu).all() and stats[0] <= 3e-3 and stats[1] <= 1e-2
             and stats[2] <= 1e-2):
-        raise AssertionError(f"64-px cdf GPU vs CPU distribution {stats}")
+        raise AssertionError(f"{name}: GPU vs CPU distribution {stats}")
+
+
+def small_agreement(seed: int):
+    """Phase 7: the port at 64 px on the GPU (kernels) vs the CPU (plain
+    versions), same inputs, injected rotations and mixing masks, no PCA."""
+    from optimaltextures_tpu_torch.config import OptexConfig
+
+    kw = dict(size=64, no_pca=True, no_multires=True, seed=seed)
+    _hold_max("64-px main path", *_gpu_vs_cpu(OptexConfig(
+        passes=2, iters=48, style=["smoke_style"], **kw), seed))
+    _hold_distribution("64-px cdf synthesis", *_gpu_vs_cpu(OptexConfig(
+        passes=1, iters=60, hist_mode="cdf", style=["smoke_style"], **kw), seed))
+    pair = ["smoke_style", "smoke_style_b"]
+    _hold_max("64-px two-style mixing", *_gpu_vs_cpu(OptexConfig(
+        passes=2, iters=48, style=pair, **kw), seed))
+    _hold_distribution("64-px two-style cdf mixing", *_gpu_vs_cpu(OptexConfig(
+        passes=1, iters=60, hist_mode="cdf", style=pair, **kw), seed))
 
     gpu, cpu = _gpu_vs_cpu(OptexConfig(
         size=96, passes=2, iters=60, no_pca=True, seed=seed,
@@ -551,18 +732,21 @@ def small_agreement(seed: int):
 
 
 def cli_phase(seed: int):
-    """Phase 6: the CLI end to end on a style file; a PNG must appear."""
+    """Phase 8: the CLI end to end on a style file, then mixing two style
+    files; a PNG must appear each time."""
     from optimaltextures_tpu_torch import cli
 
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_cli_",
-                               dir=os.path.join(REPO, "build"))
-    rc = cli.main(["--style", SAMPLE_STYLE, "--size", "512", "--seed", str(seed),
-                   "--output_dir", out_dir, "--quiet"])
-    pngs = [f for f in os.listdir(out_dir) if f.endswith(".png")]
-    if rc != 0 or not pngs:
-        raise AssertionError(f"cli returned {rc}, wrote {pngs}")
-    print(f"cli: wrote {os.path.join(out_dir, pngs[0])}", flush=True)
+    for styles, tag in (([SAMPLE_STYLE], "cholhist"),
+                        ([SAMPLE_STYLE, SAMPLE_STYLE_B], "blend0.5")):
+        out_dir = tempfile.mkdtemp(prefix="chip_smoke_cli_",
+                                   dir=os.path.join(REPO, "build"))
+        rc = cli.main(["--style", *styles, "--size", "512", "--seed", str(seed),
+                       "--output_dir", out_dir, "--quiet"])
+        pngs = [f for f in os.listdir(out_dir) if f.endswith(".png")]
+        if rc != 0 or len(pngs) != 1 or tag not in pngs[0]:
+            raise AssertionError(f"cli returned {rc}, wrote {pngs}")
+        print(f"cli: wrote {os.path.join(out_dir, pngs[0])}", flush=True)
 
 
 def main() -> int:
@@ -590,9 +774,9 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.time()
-    libs = cuda_build.build("codec", "cdf")
-    print(f"built csrc/codec.cu and csrc/cdf.cu in {time.time() - t0:.1f} s "
-          "(sm_90a, in parallel)", flush=True)
+    libs = cuda_build.build("codec", "cdf", "conv64")
+    print(f"built csrc/codec.cu, csrc/cdf.cu and csrc/conv64.cu in "
+          f"{time.time() - t0:.1f} s (sm_90a, in parallel)", flush=True)
     for lib in libs:
         with open(lib + ".log") as f:
             for line in f:
@@ -602,6 +786,7 @@ def main() -> int:
     rows = check_kernels(args.seed, args.reps, card)
     cdf_rows, _ = check_cdf_kernels(args.seed, args.reps, card)
     rows.update(cdf_rows)
+    rows.update(check_conv64(args.reps, card))
     main_counts, cdf_counts = paths(args.seed, args.profile)
     small_agreement(args.seed)
     try:
@@ -616,12 +801,17 @@ def main() -> int:
 
     kernels = []
     for name, r in rows.items():
-        launches = (cdf_counts if name in SOURCES else main_counts)[name]
+        if "launches" in r:     # on no path: its own check phase's launches
+            launches, phase = r["launches"], f"{name} check phase"
+        elif name in SOURCES:
+            launches, phase = cdf_counts[name], "path A (cdf synthesis)"
+        else:
+            launches, phase = main_counts[name], "main path"
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"optimaltextures_tpu_torch/csrc/"
                       f"{SOURCES.get(name, 'codec')}.cu",
-            "replaces": REPLACES[name], "launches": launches,
+            "replaces": REPLACES[name], "launches": launches, "phase": phase,
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"],
             "bound_by": "operations" if r["t_flops"] >= r["t_bytes"] else "bytes",

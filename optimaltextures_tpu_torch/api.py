@@ -1,6 +1,6 @@
 """High-level library API (the counterpart of ``optimaltextures_tpu/api.py``):
-texture synthesis, style transfer and color transfer from files in one call
-each. Mixing is a ROADMAP item and raises NotImplementedError."""
+texture synthesis, style transfer, texture mixing and color transfer from
+files in one call each."""
 
 from __future__ import annotations
 
@@ -41,6 +41,25 @@ def transfer_style(style: str, content: str, size: int = 512,
     """Style transfer: synthesis pulled toward a content image's structure."""
     out, _, _ = run_files(OptexConfig(style=[style], content=content, size=size,
                                       content_strength=content_strength,
+                                      **overrides), device=device)
+    return out
+
+
+def mix_textures(style_a: str, style_b: str, *more_styles: str,
+                 alpha: float = 0.5, weights=None, size: int = 512,
+                 device=None, **overrides) -> np.ndarray:
+    """Texture mixing with a random spatial mask: two styles blend by
+    ``alpha`` (the reference's blend), three or more by ``weights`` (one
+    positive weight per style, default uniform). ``alpha`` is keyword-only,
+    so a float passed by position is refused instead of read as a path."""
+    for s in (style_a, style_b, *more_styles):
+        if not isinstance(s, str):
+            raise TypeError(
+                f"style paths must be strings, got {s!r} — if this was "
+                "alpha, pass it by keyword: mix_textures(a, b, alpha=...)")
+    out, _, _ = run_files(OptexConfig(style=[style_a, style_b, *more_styles],
+                                      mixing_alpha=alpha,
+                                      mixing_weights=weights, size=size,
                                       **overrides), device=device)
     return out
 

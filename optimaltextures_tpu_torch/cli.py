@@ -1,8 +1,9 @@
-"""Command line for texture synthesis, style transfer and color transfer on
-the GPU (the counterpart of ``optimaltextures_tpu/cli.py``; mixing and the
-multi-device flags are not ported yet).
+"""Command line for texture synthesis, style transfer, texture mixing and
+color transfer on the GPU (the counterpart of ``optimaltextures_tpu/cli.py``;
+the multi-device flags are not ported yet).
 
 Run: python -m optimaltextures_tpu_torch.cli --style style.jpg --size 512
+     python -m optimaltextures_tpu_torch.cli --style a.jpg b.jpg --mixing_alpha 0.5
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--version", action="version",
                    version=f"optex-torch {__version__}")
     p.add_argument("-s", "--style", type=str, nargs="+", required=True,
-                   help="style exemplar image")
+                   help="style exemplar image (two or more: mixing)")
     p.add_argument("-c", "--content", type=str, default=None,
                    help="content image for style transfer")
     p.add_argument("--size", type=int, default=512, help="output size")
@@ -38,6 +39,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--content_strength", type=float, default=0.01)
     p.add_argument("--style_scale", type=float, default=1.0,
                    help="style detail scale relative to the output")
+    p.add_argument("--mixing_alpha", type=float, default=0.5,
+                   help="interpolation between 2 styles")
+    p.add_argument("--mixing_weights", type=float, nargs="+", default=None,
+                   help="one positive weight per style for 3+-style mixing "
+                        "(default uniform); with 2 styles overrides "
+                        "--mixing_alpha via the generalized blend")
     p.add_argument("--no_pca", action="store_true",
                    help="disable PCA feature reduction")
     p.add_argument("--no_multires", action="store_true",

@@ -101,7 +101,6 @@ class OptexConfig:
 
 # (condition, feature, ROADMAP.md queue-1 item that ports it)
 _NOT_PORTED = [
-    (lambda c: len(c.style) > 1, "texture mixing", 12),
     (lambda c: c.conv_dtype != "float32", "conv_dtype bfloat16", 13),
     (lambda c: c.tileable, "tileable output", 13),
     (lambda c: c.batch != 1, "batch > 1", 13),

@@ -8,7 +8,10 @@ and runs one stage per VGG layer, deepest first:
 
 The style side of every pass (multi-tap encode, PCA spectrum, the host's
 k-decision, projected moments) is prepared for ALL passes before the first
-stage runs, with one host fetch of every pass's eigenvalues; a content
+stage runs, with one host fetch of every pass's eigenvalues; with two or
+more styles (texture mixing) every pass blends the styles' projected maps
+under a random spatial mask, with cross-histogram matching, before their
+moments are taken; a content
 image is encoded per pass, projected into the style's PC space and pulled
 toward at the three deepest stage positions. After the last pass an
 optional color-transfer tail keeps the content's colors (lum: a lightness
@@ -25,7 +28,7 @@ counterpart of the JAX package's ``precision=HIGHEST``.
 from __future__ import annotations
 
 import time
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,16 +38,21 @@ from .config import OptexConfig, require_ported
 from .models import fastcodec
 from .models.vgg import VGGBank, decode, encode, encode_taps
 from .ops import colors, histmatch
-from .ops.resize import apply_resample, resample_pair
+from .ops.resize import apply_resample, resample_pair, resize_nearest_nhwc
 from .ops.rotation import derive_seed, generator
 from .utils import schedule
 
 # (pass index, stage index, n_iters, C) -> (n_iters, C, C) rotation stack
 RotationSource = Callable[[int, int, int, int], object]
+# (pass index, (h, w), n_styles) -> the mixing mask's (h, w) region indices
+MixDrawSource = Callable[[int, Tuple[int, int], int], object]
 
 # the color tail's generator key part: step i draws from (run_key, COLOR_KEY, i)
 COLOR_KEY = 0xC0102
 COLOR_STEPS = 3
+# the mixing mask's: pass p draws from (run_key, MIX_KEY, p) (the JAX
+# package folds 7919 into the pass key)
+MIX_KEY = 7919
 
 
 def full_f32_precision() -> None:
@@ -94,11 +102,10 @@ def _style_spectra_pass(enc_params, style_tens, *, depth: int, use_pca: bool):
     return out
 
 
-def _style_stats_pass(sfs, vs, *, ks, need_samples: bool = False):
+def _project_pass(sfs, vs, *, ks):
     """Project every depth onto its first k PCs (k chosen on the host; 0 =
-    no PCA) and compute the transport statistics (with the sample cloud
-    for cdf/sort). Returns [(sf_projected, eigvecs, stats, scalar mean)]."""
-    out = []
+    no PCA). Returns [(projected sf, eigvecs)]."""
+    projected = []
     for sf, v, k in zip(sfs, vs, ks):
         eigvecs = None
         if k:
@@ -109,8 +116,59 @@ def _style_stats_pass(sfs, vs, *, ks, need_samples: bool = False):
                 vtv = eigvecs.T @ eigvecs
                 eigvecs = 1.5 * eigvecs - 0.5 * (eigvecs @ vtv)
             sf = sf @ eigvecs
-        out.append((sf, eigvecs, transport.style_stats(sf, need_samples),
-                    sf.mean()))
+        projected.append((sf, eigvecs))
+    return projected
+
+
+# ---------------------------------------------------------------------------
+# texture mixing (counterparts of core._mix_multi_impl and, with weights
+# (1 - alpha, alpha), of _mix_pair_impl; _mix_pass_pair_jit and
+# _mix_pass_multi_jit)
+
+
+def _mix_multi_impl(sfs, mask_onehot, weights, *, mode: str,
+                    use_pallas: bool = True):
+    """N-style blend: region i of the categorical mask shows
+    ``sum_j w_j * hist_match(S_i -> S_j)`` (``S_i`` itself for j == i). For
+    N = 2 with weights (1 - alpha, alpha) this is the reference's 2-style
+    blend ``(a(1-alpha) + AtoB alpha) m + (BtoA(1-alpha) + b alpha)(1 - m)``.
+    ``sfs``: N (1, H, W, C) maps; ``mask_onehot``: (1, H, W, N);
+    ``weights``: (N,) float32."""
+    out = torch.zeros_like(sfs[0])
+    for i, si in enumerate(sfs):
+        fi = torch.zeros_like(si)
+        for j in range(len(sfs)):
+            fi = fi + weights[j] * (si if j == i else histmatch.hist_match(
+                si, sfs[j], mode, use_pallas=use_pallas))
+        out = out + fi * mask_onehot[..., i:i + 1]
+    return out
+
+
+def _mix_regions(u, weights):
+    """Categorical regions from uniforms ``u``: the inverse cdf of
+    ``weights`` taken from the last style down, so region N-1 holds u <=
+    w[N-1]. For two styles that is the reference's threshold: the second
+    style where ``ceil(u - alpha) == 0``."""
+    n = len(weights)
+    below = torch.searchsorted(torch.cumsum(weights.flip(0), 0),
+                               u.reshape(-1).contiguous()).clamp(max=n - 1)
+    return (n - 1 - below).reshape(u.shape)
+
+
+def _mix_pass(sfs, regions, weights, *, mode: str, need_samples: bool = False,
+              use_pallas: bool = True):
+    """One pass's mixing on every depth's projected joint style maps
+    ``sfs`` [(N, h, w, C)], deepest first: the one-hot of the (h, w) region
+    indices, nearest-resized to each depth, blends the N maps under
+    ``weights``, then the blend's transport statistics."""
+    mask = torch.nn.functional.one_hot(regions, len(weights)).to(
+        torch.float32)[None]
+    out = []
+    for sf in sfs:
+        mixed = _mix_multi_impl([sf[i:i + 1] for i in range(len(weights))],
+                                resize_nearest_nhwc(mask, sf.shape[1:3]),
+                                weights, mode=mode, use_pallas=use_pallas)
+        out.append(transport.style_stats(mixed, need_samples))
     return out
 
 
@@ -326,13 +384,51 @@ class Synthesizer:
             return tuple(0 for _ in spectra)
         return tuple(transport.choose_k(sv) for sv in svals_np)
 
-    def _finish_style_prep(self, spectra, ks):
+    def _finish_style_prep(self, spectra, ks, regions=None, weights=None):
         """After the k-decisions: projected statistics. Returns
-        [(eigvecs, stats, scalar style mean)] per depth (deepest first)."""
-        prepared = _style_stats_pass(
-            [sf for (sf, _, _) in spectra], [v for (_, _, v) in spectra],
-            ks=ks, need_samples=self.cfg.hist_mode in ("cdf", "sort"))
-        return [(eigvecs, stats, mean) for (_, eigvecs, stats, mean) in prepared]
+        [(eigvecs, stats, scalar style mean)] per depth (deepest first).
+        With several styles, the pass's mask ``regions`` (see
+        :meth:`_mix_draw`) and ``weights`` blend the projected maps before
+        their statistics are taken; the scalar means stay the PRE-mix ones,
+        which the content re-centring uses."""
+        cfg = self.cfg
+        need_samples = cfg.hist_mode in ("cdf", "sort")
+        projected = _project_pass([sf for (sf, _, _) in spectra],
+                                  [v for (_, _, v) in spectra], ks=ks)
+        sfs = [sf for sf, _ in projected]
+        if regions is None:
+            stats = [transport.style_stats(sf, need_samples) for sf in sfs]
+        else:
+            stats = _mix_pass(sfs, regions, weights, mode=cfg.hist_mode,
+                              need_samples=need_samples,
+                              use_pallas=cfg.use_pallas)
+        return [(eigvecs, st, sf.mean())
+                for (sf, eigvecs), st in zip(projected, stats)]
+
+    def _mix_weights(self, n_styles: int) -> torch.Tensor:
+        """The blend's (N,) float32 weights, normalised in float64:
+        (1 - alpha, alpha) for two styles without ``mixing_weights`` (the
+        reference's alpha blend), else ``mixing_weights`` (uniform by
+        default)."""
+        cfg = self.cfg
+        w = cfg.mixing_weights
+        if w is not None and len(w) != n_styles:
+            raise ValueError(f"mixing_weights has {len(w)} weights for "
+                             f"{n_styles} styles")
+        if w is None:
+            w = ([1.0 - cfg.mixing_alpha, cfg.mixing_alpha] if n_styles == 2
+                 else [1.0] * n_styles)
+        w = np.asarray(w, dtype=np.float64)
+        return torch.as_tensor((w / w.sum()).astype(np.float32),
+                               device=self.device)
+
+    def _mix_draw(self, run_key: int, p: int, hw, weights) -> torch.Tensor:
+        """Pass ``p``'s (h, w) mask regions (:func:`_mix_regions`) from a
+        uniform drawn by the generator (run_key, MIX_KEY, p)."""
+        u = torch.rand(tuple(hw), generator=generator(self.device, run_key,
+                                                      MIX_KEY, p),
+                       device=self.device, dtype=torch.float32)
+        return _mix_regions(u, weights)
 
     def _assemble_targets(self, slim, cont=None):
         """Finished style targets + this pass's content prep (``cont``: the
@@ -370,27 +466,30 @@ class Synthesizer:
     def run(self, pastiche, styles, content=None, verbose: bool = False,
             key: Optional[int] = None,
             rotations: Optional[RotationSource] = None,
-            color_rotations=None) -> torch.Tensor:
+            color_rotations=None,
+            mix_draws: Optional[MixDrawSource] = None) -> torch.Tensor:
         """Synthesis, or style transfer when ``content`` (1, Hc, Wc, 3) is
-        given. ``pastiche`` (1, H, W, 3) and ``styles`` [(1, h, w, 3)] are
-        NHWC float32 arrays or tensors; returns the float32 result on this
-        synthesizer's device.
+        given; two or more ``styles`` mix. ``pastiche`` (1, H, W, 3) and
+        ``styles`` [(1, h, w, 3)] are NHWC float32 arrays or tensors;
+        returns the float32 result on this synthesizer's device.
 
         ``key`` overrides the run key (default :meth:`next_run_key`);
-        ``rotations`` injects every stage's rotation stack and
-        ``color_rotations`` (COLOR_STEPS, 3, 3) the color tail's (tests)."""
+        ``rotations`` injects every stage's rotation stack,
+        ``color_rotations`` (COLOR_STEPS, 3, 3) the color tail's and
+        ``mix_draws`` every pass's mixing-mask draw (tests)."""
         cfg = self.cfg
         dev = self.device
         run_key = key if key is not None else self.next_run_key()
         pastiche = torch.as_tensor(pastiche, dtype=torch.float32).to(dev, copy=True)
         styles = [torch.as_tensor(s, dtype=torch.float32).to(dev) for s in styles]
+        if any(s.shape != styles[0].shape for s in styles[1:]):
+            # mixing blends the styles' feature maps position by position
+            raise ValueError("style images must have the same shape; got "
+                             f"{[tuple(s.shape) for s in styles]}")
         if content is not None:
             content = torch.as_tensor(content, dtype=torch.float32).to(dev)
         elif cfg.color_transfer is not None:
             raise ValueError("Color transfer requires content image")
-        if len(styles) != 1:
-            raise NotImplementedError("texture mixing is not ported yet "
-                                      "(ROADMAP.md, queue 1 item 12)")
         if pastiche.shape[0] != 1:
             raise NotImplementedError("batch > 1 is not ported yet "
                                       "(ROADMAP.md, queue 1 item 13)")
@@ -415,8 +514,28 @@ class Synthesizer:
                     svals[ck][j] = flat[off:off + sv.shape[0]]
                     off += sv.shape[0]
         widths = {ck: self._choose_widths(preps[ck], svals[ck]) for ck in order}
-        # phase C: projected statistics per distinct prep
-        slims = {ck: self._finish_style_prep(preps[ck], widths[ck]) for ck in order}
+        # phase C: projected statistics, once per distinct prep; mixing draws
+        # its mask per pass, so a multi-style finish runs once per pass (a
+        # gate-skip pass still shares the spectra). The mask is drawn at the
+        # second-deepest depth's size and nearest-resized to every depth.
+        n_styles = len(styles)
+        if n_styles == 1:
+            slims = {ck: self._finish_style_prep(preps[ck], widths[ck])
+                     for ck in order}
+            pass_slims = [slims[size if rs else None] for (size, rs, _) in plan]
+        else:
+            weights = self._mix_weights(n_styles)
+            pass_slims = []
+            for p, (size, rs, _) in enumerate(plan):
+                spectra = preps[size if rs else None]
+                hw = tuple(spectra[1 if len(spectra) > 1 else 0][0].shape[1:3])
+                if mix_draws is not None:
+                    regions = torch.as_tensor(
+                        np.array(mix_draws(p, hw, n_styles)), device=dev).long()
+                else:
+                    regions = self._mix_draw(run_key, p, hw, weights)
+                pass_slims.append(self._finish_style_prep(
+                    spectra, widths[size if rs else None], regions, weights))
 
         # per-pass content, resized from the ORIGINAL (as the reference does)
         conts, resized = [], {}
@@ -438,7 +557,7 @@ class Synthesizer:
                 for d in self.layer_depths:
                     print(f"Layer: relu{d}_1", flush=True)
             targets, strengths = self._stage_strengths(
-                self._assemble_targets(slims[size if rs else None], conts[p]))
+                self._assemble_targets(pass_slims[p], conts[p]))
             targets_all.append(targets)
             strengths_all.append(strengths)
             pca_flags_all.append(tuple(t.eigvecs is not None for t in targets))

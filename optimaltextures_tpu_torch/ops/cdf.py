@@ -1,12 +1,15 @@
 """The cdf-matching kernels: the port of ``optimaltextures_tpu/ops/pallas/
-histogram.py`` and ``optimaltextures_tpu/ops/pallas/pwl_remap.py``.
+histogram.py``, ``pwl_remap.py`` and ``cdf_remap.py``.
 
 Every cdf-mode OT iteration (and each of the three pixel-space steps of
-``color_transfer="opt"``) bins the rotated target and style clouds into
-256-bin shared-range histograms (:func:`batched_histogram`, two launches)
-and maps every target sample through the piecewise-linear remap built from
-them (:func:`pwl_remap`, one launch). Both take (C, N) rows, one channel per
-row, as the JAX functions do.
+``color_transfer="opt"``, and each cross-matching of texture mixing in cdf
+mode) bins the rotated target and style clouds into 256-bin shared-range
+histograms (:func:`batched_histogram`, two launches) and maps every target
+sample through the piecewise-linear remap built from them
+(:func:`pwl_remap`, one launch). :func:`cdf_remap` is the legacy fused
+apply (cdfs, remap table and per-sample map in one launch); as in the JAX
+package, no path of the program calls it. All take (C, N) rows, one
+channel per row, as the JAX functions do.
 
 Each wrapper below:
 
@@ -17,14 +20,17 @@ Each wrapper below:
   stream, or raises — nothing falls back;
 * counts its launches in ``LAUNCHES[name]`` (plain versions do not count).
 
-What bounds them on the H100: both are bytes-bound (a few dozen operations
+What bounds them on the H100: all three are bytes-bound (a few dozen operations
 per 4-byte sample against 3.35 TB/s). The TPU kernels turn the bin lookups
 into one-hot contractions on the MXU (nibble one-hots, 8-channel blocks,
 pad-with-lo then subtract); none of that carries over. Here the histogram
 counts with shared-memory atomics into per-warp sub-histograms and flushes
 each block's counts with float atomics (exact: counts stay below 2^24),
 and the remap reads its channel's 256-entry table from shared memory, one
-thread per sample. Each reads its samples once and writes its result once.
+thread per sample; the fused apply builds its channel's cdfs, edges and
+remap table in shared memory in every block and finds each sample's
+segment by a binary search over the monotone edges. Each reads its samples
+once and writes its result once.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from . import cuda_build
 
 BINS = 256
 
-LAUNCHES = {"batched_histogram": 0, "pwl_remap": 0}
+LAUNCHES = {"batched_histogram": 0, "pwl_remap": 0, "cdf_remap": 0}
 
 
 def reset_launches() -> None:
@@ -105,6 +111,44 @@ def pwl_remap_plain(t: torch.Tensor, remapped: torch.Tensor, lo: torch.Tensor,
     return torch.where((width > 0)[:, None], f, remapped[:, :1])
 
 
+def interp_rows(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """The reference's interp on every row: (C, Q) queries ``x`` on (C, B)
+    non-decreasing nodes ``xp`` with values ``fp``. The index is
+    ``min(#(xp < x), B - 1)`` (a batched searchsorted 'left', which on
+    sorted rows equals the JAX kernels' compare-count), ``idx_next =
+    min(idx + 1, B - 1)``, and the linear map falls back from anchoring at
+    xp[idx] to xp[idx_next] and then to fp[idx] where non-finite (duplicate
+    nodes)."""
+    b = xp.shape[1]
+    idx = torch.searchsorted(xp.contiguous(), x.contiguous()).clamp(max=b - 1)
+    nxt = (idx + 1).clamp(max=b - 1)
+    xp_i, xp_n = torch.gather(xp, 1, idx), torch.gather(xp, 1, nxt)
+    fp_i, fp_n = torch.gather(fp, 1, idx), torch.gather(fp, 1, nxt)
+    slope = (fp_n - fp_i) / (xp_n - xp_i)
+    f0 = slope * (x - xp_i) + fp_i
+    f1 = slope * (x - xp_n) + fp_n
+    return torch.where(torch.isfinite(f0), f0,
+                       torch.where(torch.isfinite(f1), f1, fp_i))
+
+
+def cdf_remap_plain(t: torch.Tensor, t_hist: torch.Tensor, s_hist: torch.Tensor,
+                    lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """The fused cdf apply, in the kernel's order: cdfs (cumsum, divided by
+    the total), right edges ``lo + j * (width / 256)`` for j = 1..256 (``lo``
+    where the width is <= 0), the remap table ``interp(t_cdf; s_cdf ->
+    edges)``, then ``interp(t; edges -> remapped)`` (:func:`interp_rows`)."""
+    bins = t_hist.shape[1]
+    t_cdf = torch.cumsum(t_hist, dim=1)
+    t_cdf = t_cdf / t_cdf[:, -1:]
+    s_cdf = torch.cumsum(s_hist, dim=1)
+    s_cdf = s_cdf / s_cdf[:, -1:]
+    width = hi - lo
+    j = torch.arange(1, bins + 1, dtype=t.dtype, device=t.device)
+    edges = lo[:, None] + j * (width / bins)[:, None]
+    edges = torch.where((width > 0)[:, None], edges, lo[:, None].expand_as(edges))
+    return interp_rows(t, edges, interp_rows(t_cdf, s_cdf, edges))
+
+
 # ---------------------------------------------------------------------------
 # the library
 
@@ -113,6 +157,7 @@ _I = ctypes.c_int
 _ARGTYPES = {
     "optex_batched_histogram": [_P, _P, _P, _P, _I, _I, _P],
     "optex_pwl_remap": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "optex_cdf_remap": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 
@@ -204,4 +249,29 @@ def pwl_remap(t: torch.Tensor, remapped: torch.Tensor, lo: torch.Tensor,
     out = torch.empty_like(t)
     _launch("pwl_remap", t.device, t.data_ptr(), remapped.data_ptr(),
             lo.data_ptr(), hi.data_ptr(), step.data_ptr(), out.data_ptr(), c, n)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 8. cdf_remap — replaces ops/pallas/cdf_remap.py:97 cdf_remap (body
+#    _remap_kernel :70). Bytes-bound.
+
+def cdf_remap(t: torch.Tensor, t_hist: torch.Tensor, s_hist: torch.Tensor,
+              lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """(C, N) target samples + (C, 256) target and source histograms on the
+    shared range (C,) -> the matched (C, N) samples (see
+    :func:`cdf_remap_plain`). Any C and N: no padding."""
+    c = t.shape[0] if t.dim() == 2 else -1
+    for name, h in (("t_hist", t_hist), ("s_hist", s_hist)):
+        if tuple(h.shape) != (c, BINS):
+            raise ValueError(f"cdf_remap: {name} must be (C, {BINS}), got "
+                             f"{tuple(h.shape)}")
+    if _check("cdf_remap", t, lo, hi, t_hist, s_hist):
+        return cdf_remap_plain(t, t_hist, s_hist, lo, hi)
+    n = t.shape[1]
+    t, t_hist, s_hist = t.contiguous(), t_hist.contiguous(), s_hist.contiguous()
+    lo, hi = lo.contiguous(), hi.contiguous()
+    out = torch.empty_like(t)
+    _launch("cdf_remap", t.device, t.data_ptr(), t_hist.data_ptr(),
+            s_hist.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(), c, n)
     return out

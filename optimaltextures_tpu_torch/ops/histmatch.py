@@ -202,21 +202,10 @@ def _cdf_match_channel(t: torch.Tensor, s: torch.Tensor, bins: int) -> torch.Ten
 def _remap_table_rows(t_cdf: torch.Tensor, s_cdf: torch.Tensor,
                       edges: torch.Tensor) -> torch.Tensor:
     """remapped[c] = interp_ref(t_cdf[c]; xp=s_cdf[c], fp=edges[c]) for every
-    channel at once: a batched searchsorted (s_cdf rows are non-decreasing,
-    so the left insertion index is the JAX package's compare-count
-    #(s_cdf < t_cdf), without its (C, B, B) compare) and gathers of the
-    selected table entries."""
-    bins = t_cdf.shape[1]
-    idx = torch.searchsorted(s_cdf.contiguous(),
-                             t_cdf.contiguous()).clamp(max=bins - 1)
-    nxt = (idx + 1).clamp(max=bins - 1)
-    xp_i, xp_n = torch.gather(s_cdf, 1, idx), torch.gather(s_cdf, 1, nxt)
-    fp_i, fp_n = torch.gather(edges, 1, idx), torch.gather(edges, 1, nxt)
-    slope = (fp_n - fp_i) / (xp_n - xp_i)
-    f0 = slope * (t_cdf - xp_i) + fp_i
-    f1 = slope * (t_cdf - xp_n) + fp_n
-    return torch.where(torch.isfinite(f0), f0,
-                       torch.where(torch.isfinite(f1), f1, fp_i))
+    channel at once (:func:`.cdf.interp_rows`: a batched searchsorted, which
+    on the non-decreasing s_cdf rows is the JAX package's compare-count
+    #(s_cdf < t_cdf) without its (C, B, B) compare, and gathers)."""
+    return cdf.interp_rows(t_cdf, s_cdf, edges)
 
 
 def cdf_cdfs_rows(t_hist: torch.Tensor, s_hist: torch.Tensor):

@@ -4,7 +4,8 @@
 Each separable 1-D bicubic-antialias resampling (torch's
 ``interpolate(mode="bicubic", antialias=True)``, the reference's resize) is a
 dense (out, in) weight matrix built on the host in float64, cached, and
-applied as a matmul with the weights passed as runtime tensors.
+applied as a matmul with the weights passed as runtime tensors. The mixing
+mask resizes by nearest-neighbour gathers (:func:`resize_nearest_nhwc`).
 """
 
 from __future__ import annotations
@@ -63,3 +64,14 @@ def apply_resample(x: torch.Tensor, wh: torch.Tensor,
     """NHWC x -> contract H with wh (out, in), then W with ww (out, in)."""
     y = torch.einsum("oh,nhwc->nowc", wh, x)
     return torch.einsum("ow,nhwc->nhoc", ww, y)
+
+
+def resize_nearest_nhwc(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Nearest-neighbour NHWC resize with torch ``interpolate(mode=
+    "nearest")``'s index ``floor(i * in/out)``, clipped (the mixing mask's
+    resize; the same host index vectors as the JAX package)."""
+    h_out, w_out = size
+    _, h_in, w_in, _ = x.shape
+    hi = np.minimum((np.arange(h_out) * (h_in / h_out)).astype(np.int64), h_in - 1)
+    wi = np.minimum((np.arange(w_out) * (w_in / w_out)).astype(np.int64), w_in - 1)
+    return x[:, torch.from_numpy(hi).to(x.device)][:, :, torch.from_numpy(wi).to(x.device)]

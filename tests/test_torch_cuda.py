@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each kernel against its plain PyTorch
 version, and small runs through the kernels (synthesis, cdf synthesis,
-style transfer with the opt color tail) against the same runs on the CPU.
+style transfer with the opt color tail, texture mixing) against the same
+runs on the CPU.
 Every test here needs an NVIDIA GPU and skips without one. This file
 imports neither jax nor the JAX package, so it also runs where only the
 port's dependencies are installed (tests/conftest.py imports jax, hence
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from optimaltextures_tpu_torch import config, core
-from optimaltextures_tpu_torch.ops import cdf, codec, histmatch
+from optimaltextures_tpu_torch.ops import cdf, codec, conv64, histmatch
 from optimaltextures_tpu_torch.ops.rotation import polar_rotations
 
 # |kernel - plain| bound: both sum up to 1152 f32 products, in their own order
@@ -244,7 +245,8 @@ def test_small_sampled_run_on_gpu_matches_cpu(mode):
     gpu, cpu, launches = _gpu_vs_cpu(cfg)
     steps = sum(core.Synthesizer(cfg, device="cpu").iters_table[0])
     steps = steps if mode == "cdf" else 0
-    assert launches == {"batched_histogram": 2 * steps, "pwl_remap": steps}
+    assert launches == {"batched_histogram": 2 * steps, "pwl_remap": steps,
+                        "cdf_remap": 0}
     assert np.isfinite(gpu).all()
     g, c = gpu.reshape(-1, 3), cpu.reshape(-1, 3)
     assert float(np.abs(g.mean(0) - c.mean(0)).max()) <= 3e-3
@@ -265,7 +267,110 @@ def test_small_transfer_opt_run_on_gpu_matches_cpu():
                              color_transfer="opt", style=["s.png"])
     gpu, cpu, launches = _gpu_vs_cpu(cfg, (1, 64, 96, 3))
     assert launches == {"batched_histogram": 2 * core.COLOR_STEPS,
-                        "pwl_remap": core.COLOR_STEPS}
+                        "pwl_remap": core.COLOR_STEPS, "cdf_remap": 0}
     assert gpu.shape == cpu.shape == (1, 64, 96, 3)
     assert float(np.abs(gpu - cpu).mean()) <= 3e-3
     assert float(np.abs(gpu - cpu).max()) <= 5e-2
+
+
+# ---------------------------------------------------------------------------
+# the legacy kernels: cdf_remap (csrc/cdf.cu) and conv64 (csrc/conv64.cu)
+
+
+@pytest.mark.cuda
+# odd N below one block, C = 3, ragged C and N, a degenerate shared range,
+# a top-edge pile, and the 512-px relu1 shape
+@pytest.mark.parametrize("c,n,const", [
+    (3, 262144, None), (3, 1001, 1), (5, 4099, None), (13, 70001, 4),
+    (1, 300, None), (24, 262144, None)])
+def test_cdf_remap_kernel_matches_plain(c, n, const):
+    _need_gpu()
+    t, _, _ = _rows(c, n, 3 * c + n, pile=True)
+    s, _, _ = _rows(c, n + 91, 5 * c + n)
+    if const is not None:
+        t[const] = -1.0
+        s[const] = -1.0                  # a degenerate shared range
+    lo = torch.minimum(t.min(dim=1).values, s.min(dim=1).values)
+    hi = torch.maximum(t.max(dim=1).values, s.max(dim=1).values)
+    t_hist = cdf.batched_histogram(t, lo, hi)
+    s_hist = cdf.batched_histogram(s, lo, hi)
+    before = cdf.LAUNCHES["cdf_remap"]
+    got = cdf.cdf_remap(t, t_hist, s_hist, lo, hi)
+    ref = cdf.cdf_remap_plain(t, t_hist, s_hist, lo, hi)
+    torch.cuda.synchronize()
+    assert cdf.LAUNCHES["cdf_remap"] == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+# the tool's check shape, ragged H, W and B, and B = 1
+@pytest.mark.parametrize("h,w,b", [(64, 64, 128), (37, 45, 5), (9, 7, 130),
+                                   (16, 33, 1)])
+def test_conv64_kernel_matches_plain(h, w, b):
+    """|kernel - plain| <= 2^-7 * max|plain|: one bf16 rounding of two f32
+    sums of 576 products taken in other orders."""
+    _need_gpu()
+    g = torch.Generator(device="cuda").manual_seed(h * w + b)
+    xpad = torch.randn((h + 2, w + 2, 64, b), generator=g,
+                       device="cuda").to(torch.bfloat16)
+    wrow = conv64.pack_wrow((torch.randn((3, 3, 64, 64), generator=g,
+                                         device="cuda") * 0.1).to(torch.bfloat16))
+    before = conv64.LAUNCHES["conv64"]
+    got = conv64.conv64(xpad, wrow)
+    ref = conv64.conv64_plain(xpad, wrow)
+    torch.cuda.synchronize()
+    assert conv64.LAUNCHES["conv64"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape == (h, w, 64, b)
+    scale = float(ref.float().abs().max())
+    assert float((got.float() - ref.float()).abs().max()) <= 2.0 ** -7 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["chol", "cdf"])
+def test_small_mixing_run_on_gpu_matches_cpu(mode):
+    """Two-style mixing at 64 px, 1 pass, no PCA, injected rotations and
+    mask draws: chol within 1e-3; cdf by distribution (as above), and its
+    launches are the stages' plus the mixing's own: 2 hist_match x 3
+    depths, each 2 histograms and 1 remap."""
+    _need_gpu()
+    cfg = config.OptexConfig(size=64, passes=1, iters=60, no_pca=True,
+                             no_multires=True, seed=0, hist_mode=mode,
+                             style=["a.png", "b.png"])
+    rng = np.random.default_rng(1)
+    noise = rng.uniform(size=(1, 64, 64, 3)).astype(np.float32)
+    styles = [np.clip(0.5 + np.kron(rng.uniform(-a, a, (1, 8, 8, 3)),
+                                    np.ones((1, 8, 8, 1))) +
+                      0.1 * rng.standard_normal((1, 64, 64, 3)), 0, 1
+                      ).astype(np.float32) for a in (0.5, 0.3)]
+    draw = rng.integers(0, 2, size=(32, 32))    # mask regions at relu2's size
+    rots = {}
+
+    def rotations(p, i, n_iters, c):
+        if (p, i) not in rots:
+            g = torch.as_tensor(rng.standard_normal((n_iters, c, c)))
+            rots[(p, i)] = polar_rotations(g).float().numpy()
+        return rots[(p, i)]
+
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        cdf.reset_launches()
+        outs[dev] = core.Synthesizer(cfg, device=dev).run(
+            noise, styles, rotations=rotations,
+            mix_draws=lambda p, hw, n: draw).cpu().numpy()
+        if dev == "cuda":
+            launches = dict(cdf.LAUNCHES)
+    gpu, cpu = outs["cuda"], outs["cpu"]
+    assert np.isfinite(gpu).all()
+    if mode == "chol":
+        assert launches == {"batched_histogram": 0, "pwl_remap": 0, "cdf_remap": 0}
+        assert float(np.abs(gpu - cpu).max()) <= 1e-3
+        return
+    steps = sum(core.Synthesizer(cfg, device="cpu").iters_table[0])
+    mix = 2 * 3
+    assert launches == {"batched_histogram": 2 * (steps + mix),
+                        "pwl_remap": steps + mix, "cdf_remap": 0}
+    g, c = gpu.reshape(-1, 3), cpu.reshape(-1, 3)
+    assert float(np.abs(g.mean(0) - c.mean(0)).max()) <= 3e-3
+    assert float(np.abs(g.std(0) - c.std(0)).max()) <= 1e-2
+    assert float(np.abs(np.sort(g, 0) - np.sort(c, 0)).mean()) <= 1e-2

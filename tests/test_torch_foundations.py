@@ -179,7 +179,9 @@ def test_ported_settings_run(override):
 
 
 @pytest.mark.parametrize("override", [
-    dict(style=["a.png", "b.png"]),
+    # mixing is ported, and lifts no unported setting it is combined with
+    dict(style=["a.png", "b.png", "c.png"], mixing_weights=[1.0, 2.0, 3.0],
+         tileable=True),
     dict(conv_dtype="bfloat16"), dict(tileable=True), dict(batch=2),
     dict(out_width=64), dict(init="i.png"), dict(pca_bucket=8),
     dict(pca_traced_k=True), dict(batch_chunk=1), dict(cov_propagation=False),
@@ -187,5 +189,6 @@ def test_ported_settings_run(override):
 def test_out_of_slice_settings_raise(override):
     kw = dict(size=64, style=["x.png"])
     kw.update(override)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
         tcore.Synthesizer(tconfig.OptexConfig(**kw), device="cpu")
+    assert "mixing" not in str(err.value)
