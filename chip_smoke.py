@@ -7,12 +7,16 @@ NVIDIA GPU.
 Phases (each raises on failure; none catches its own):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ with nvcc (sm_90a), one nvcc per
-     source, all started together;
+     source, all started together, print ptxas's registers, shared memory
+     and spills, and check in the SASS (cuobjdump) that conv64's kernel runs
+     HGMMA (wgmma) and conv3x3_full's HMMA on TF32;
   3. every codec kernel at its 512-px main-path shapes, on inputs made by a
      512-px decode->encode roundtrip of the real depth-3 weights: held
      against its plain PyTorch version (|kernel - plain| <= 2e-5 *
-     max|plain|: f32 sums of up to 1152 products in another order), and
-     timed beside its plain version and one F.conv2d call (TF32 off);
+     max|plain|: f32 sums of up to 1152 products in another order;
+     conv3x3_full sums three TF32 tensor-core products), and timed beside
+     its plain version and one F.conv2d call (TF32 off); conv3x3_full's
+     bound is its 3xTF32 work at the TF32 tensor-core rate;
   4. the three cdf kernels at their main-path shapes: the rotated relu1
      clouds of the 512-px pass at the C the PCA rule picks, and the rotated
      512x512 pixel cloud of the color tail (C = 3). The histogram must
@@ -21,7 +25,8 @@ Phases (each raises on failure; none catches its own):
      max|plain|; timed beside the plain versions and, for the histogram,
      torch.histc called once per channel;
   5. the conv64 prototype kernel against its plain version at the tool's
-     check shape (64 px, B = 128) and a ragged one (37 x 45, B = 5), within
+     check shape (64 px, B = 128, the TMA path) and a ragged one (37 x 45,
+     B = 5, the masked path), within
      2^-7 * max|plain| (one bf16 rounding), and again at the tool's
      512 px x 128, whose tensors pass 2^31 elements; timed there beside its
      plain version, its bound and one cuDNN bf16 F.conv2d + ReLU in
@@ -47,9 +52,10 @@ Phases (each raises on failure; none catches its own):
      Pillow).
 
 The last two lines of standard output are the {"kernels": [...]} line (all
-nine kernels; conv64 and cdf_remap are on no path of the program, so their
-launches are those of their own check phase, which the "phase" field
-names) and {"ok": true, "device": {...}}. Exits non-zero, printing no
+nine kernels, each with its "design": ffma, wgmma+tma or 3xtf32-mma;
+conv64 and cdf_remap are on no path of the program, so their launches are
+those of their own check phase, which the "phase" field names) and
+{"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when no GPU is present or the package is missing.
 """
 
@@ -86,20 +92,55 @@ SOURCES = {"batched_histogram": "cdf", "pwl_remap": "cdf", "cdf_remap": "cdf",
            "conv64": "conv64"}   # else codec
 
 # f32 (non-tensor-core) peak, dense bf16 tensor-core peak and HBM rate by
-# card variant (NVIDIA data sheets)
+# card variant (NVIDIA data sheets); dense TF32 on the tensor cores is half
+# the bf16 rate
 _PEAKS = [("H100 PCIe", 51.2e12, 756e12, 2.0e12),
           ("H100 NVL", 60.0e12, 835e12, 3.9e12),
           ("H100", 66.9e12, 989e12, 3.35e12),
           ("H200", 66.9e12, 989e12, 4.8e12)]
 
+# how each kernel computes: FFMA convs on the FP32 cores, wgmma fed by TMA,
+# three TF32 mma.sync products (hi*hi + hi*lo + lo*hi), or scalar code on
+# the CUDA cores (the cdf kernels: counting, searching, interpolating)
+DESIGNS = {"conv64": "wgmma+tma", "conv3x3_full": "3xtf32-mma",
+           "batched_histogram": "simt", "pwl_remap": "simt",
+           "cdf_remap": "simt"}   # else ffma
 
-def _peaks(name: str, bf16: bool = False):
-    """(peak FLOP/s, HBM bytes/s) of the card: f32 on the FP32 cores, or
-    dense bf16 on the tensor cores."""
+
+def _peaks(name: str, kind: str = "f32"):
+    """(peak FLOP/s, HBM bytes/s) of the card: "f32" on the FP32 cores,
+    "bf16" or "tf32" dense on the tensor cores."""
     for key, f32, tc_bf16, bw in _PEAKS:
         if key in name:
-            return (tc_bf16 if bf16 else f32), bw
+            return {"f32": f32, "bf16": tc_bf16, "tf32": tc_bf16 / 2}[kind], bw
     raise RuntimeError(f"no peak on record for {name!r}")
+
+
+def check_sass(libs) -> dict:
+    """Disassemble the built libraries (cuobjdump beside nvcc) and count the
+    tensor-core instructions of the two redesigned kernels: conv64's kernel
+    must hold HGMMA (wgmma) and conv3x3_full's HMMA on TF32 operands."""
+    from optimaltextures_tpu_torch.ops import cuda_build
+
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    funcs = {}
+    for lib in libs:
+        sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        for part in sass.split("Function : ")[1:]:
+            funcs[part.split(None, 1)[0]] = part
+    counts = {}
+    for kernel, symbol, op, want in (("conv64", "conv64_wgmma", "HGMMA", "HGMMA"),
+                                     ("conv3x3_full", "conv3x3_tf32x3", "HMMA", "TF32")):
+        bodies = [b for f, b in funcs.items() if symbol in f]
+        lines = [l for b in bodies for l in b.splitlines() if op in l]
+        n_op, n_want = len(lines), sum(want in l for l in lines)
+        print(f"sass {kernel}: {len(bodies)} kernel(s) {symbol}, {n_op} {op} "
+              f"instructions, {n_want} of them {want}", flush=True)
+        if not bodies or n_want == 0:
+            raise AssertionError(f"{kernel}: no {want} {op} in the SASS of {symbol}")
+        counts[kernel] = n_want
+    return counts
 
 
 def _smi() -> str:
@@ -165,6 +206,7 @@ def check_kernels(seed: int, reps: int, card: str):
 
     dev = torch.device("cuda")
     peak_flops, peak_bw = _peaks(card)
+    peak_tf32, _ = _peaks(card, "tf32")
     bank = VGGBank(3, device=dev)
     enc, dec, enc2 = bank.enc_params[3], bank.dec_params[3], bank.enc_params[2]
     px = torch.as_tensor(_style_exemplar(seed), device=dev)
@@ -232,6 +274,13 @@ def check_kernels(seed: int, reps: int, card: str):
         flops = 2.0 * x.shape[0] * hc * wc * cout * cin * taps
         nbytes = 4.0 * (x.numel() + p.w.numel() + p.b.numel() + got.numel())
         t_flops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+        if name == "conv3x3_full":
+            # its least time is now the 3xTF32 work on the tensor cores; the
+            # FP32-core figure is printed beside it
+            t_fp32, t_flops = t_flops, 3 * flops / peak_tf32 * 1e3
+            print(f"kernel conv3x3_full {label}: bound on the FP32 cores "
+                  f"{max(t_fp32, t_bytes):.4f} ms, 3xTF32 on the tensor cores "
+                  f"{t_flops:.4f} ms", flush=True)
         ms = _time_ms(lambda: kern(x, p, **kw), reps)
         plain_ms = _time_ms(lambda: plain(x, p, **plain_kw), reps)
         lib_ms = _time_ms(conv_call(x, p, name == "upconv_p2"), reps)
@@ -458,7 +507,7 @@ def check_conv64(reps: int, card: str):
     lib_ms = _time_ms(lambda: torch.relu_(F.conv2d(xcl, wcl)), reps)
     del xcl
     flops, nbytes = conv_proto.work(size, b)
-    peak_flops, peak_bw = _peaks(card, bf16=True)
+    peak_flops, peak_bw = _peaks(card, "bf16")
     t_flops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
     print(f"kernel conv64 {size}x{size} B={b}: {ms:.4f} ms "
           f"({flops / ms / 1e9:.1f} TF/s)  plain {plain_ms:.4f} ms  cuDNN bf16 "
@@ -622,7 +671,9 @@ def profile_run(name, cfg, styles, content=None):
     part = lambda key: sum(dev_us(e) for e in kernels if key in e.key) / 1e3
     print(f"profile {name} (warm run, profiler on): wall {wall * 1e3:.1f} ms, "
           f"device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% of the "
-          f"wall), codec kernels {part('conv3x3_reflect'):.1f} ms, histogram "
+          f"wall), codec kernels "
+          f"{part('conv3x3_reflect') + part('conv3x3_tf32x3'):.1f} ms (conv3x3_full "
+          f"{part('conv3x3_tf32x3'):.1f}), histogram "
           f"kernel {part('histogram_kernel'):.1f} ms, pwl kernel "
           f"{part('pwl_kernel'):.1f} ms", flush=True)
     for e in sorted(kernels, key=dev_us, reverse=True)[:15]:
@@ -780,8 +831,10 @@ def main() -> int:
     for lib in libs:
         with open(lib + ".log") as f:
             for line in f:
-                if "registers" in line or "spill" in line or "Compiling" in line:
+                if ("registers" in line or "spill" in line or "Compiling" in line
+                        or "Performance Loss" in line):
                     print("  ptxas:", line.strip())
+    check_sass(libs)
 
     rows = check_kernels(args.seed, args.reps, card)
     cdf_rows, _ = check_cdf_kernels(args.seed, args.reps, card)
@@ -811,7 +864,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"optimaltextures_tpu_torch/csrc/"
                       f"{SOURCES.get(name, 'codec')}.cu",
-            "replaces": REPLACES[name], "launches": launches, "phase": phase,
+            "replaces": REPLACES[name], "design": DESIGNS.get(name, "ffma"),
+            "launches": launches, "phase": phase,
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"],
             "bound_by": "operations" if r["t_flops"] >= r["t_bytes"] else "bytes",

@@ -5,8 +5,10 @@ conv with bias, differing in channel counts, an optional nearest-x2 prologue
 and an optional ReLU / 2x2 max-pool epilogue — in a TPU layout (batch in the
 128 lanes, 2-pixel M-packing, 8-channel padded RGB, DMA-then-repair halos).
 None of that layout carries over: here every kernel takes and returns NHWC
-float32 at any batch, and one CUDA template serves all five
-(``csrc/codec.cu``, ``conv3x3_reflect<CIN, COUT, ..., RELU, POOL, UP>``).
+float32 at any batch. Four run on one FFMA template (``csrc/codec.cu``,
+``conv3x3_reflect<CIN, COUT, ..., RELU, POOL, UP>``); ``conv3x3_full`` runs
+on the tensor cores (``conv3x3_tf32x3<CIN, RELU, POOL>``, 3xTF32 on
+``mma.sync``).
 
 Each wrapper below:
 
@@ -18,22 +20,25 @@ Each wrapper below:
 * counts its launches in ``LAUNCHES[name]`` (plain versions do not count).
 
 Each conv's weights are packed once (:func:`pack`, :func:`pack_final`, as
-the JAX package's ``pack_*``): OIHW for the plain version, and an HWIO copy
-for the kernel, whose [tap][ci][co] rows load into shared memory
-contiguously.
+the JAX package's ``pack_*``): OIHW for the plain version, an HWIO copy for
+the FFMA kernels, whose [tap][ci][co] rows load into shared memory
+contiguously, and for the 128-channel convs the TF32 hi/lo split in the
+tensor-core kernel's fragment order (:func:`pack_tc`).
 
-What bounds them on the H100 (f32, no tensor cores; 67 TFLOP/s FFMA and
-3.35 TB/s HBM on the SXM part): the 64/128-channel convs do 2*9*Cin FLOPs per
-output value against 4 bytes read and 4 written per value, ~290-580 FLOP/B,
-far above the card's f32 ridge (~20 FLOP/B), so they are operations-bound;
-the 3->64 entry and 64->3 final convs do 54 / 1152 FLOPs per 4+256 /
-256+12 bytes of pixel traffic, so they are bytes-bound. The design answers
-each: the wide convs keep a 4-pixel x 16-channel f32 accumulator tile per
-thread fed from shared memory (weights broadcast across a warp); the narrow
-ones read their input once and write their output once, with the reflect
-pad resolved while loading and the next stage's renorm folded into the final
-conv's weights, so no padded, upsampled or renormalised copy ever reaches
-device memory.
+What bounds them on the H100 (67 TFLOP/s FFMA, 495 TFLOP/s dense TF32 on
+the tensor cores and 3.35 TB/s HBM on the SXM part): the 64/128-channel
+convs do 2*9*Cin FLOPs per output value against 4 bytes read and 4 written
+per value, ~290-580 FLOP/B, far above the card's ridge, so they are
+operations-bound; the 3->64 entry and 64->3 final convs do 54 / 1152 FLOPs
+per 4+256 / 256+12 bytes of pixel traffic, so they are bytes-bound. The
+design answers each: the wide FFMA convs keep a 4-pixel x 16-channel f32
+accumulator tile per thread fed from shared memory (weights broadcast
+across a warp), and ``conv3x3_full`` moves its products to the tensor cores
+at three TF32 products per f32 product (one TF32 product misses the 2e-5
+bound); the narrow ones read their input once and write their output once,
+with the reflect pad resolved while loading and the next stage's renorm
+folded into the final conv's weights, so no padded, upsampled or
+renormalised copy ever reaches device memory.
 """
 
 from __future__ import annotations
@@ -58,14 +63,46 @@ def reset_launches() -> None:
 
 class Packed(NamedTuple):
     """One conv's weights: ``w`` (Cout, Cin, 3, 3) OIHW and ``b`` (Cout,) for
-    the plain version, ``w_hwio`` (3, 3, Cin, Cout) for the kernel."""
+    the plain version, ``w_hwio`` (3, 3, Cin, Cout) for the FFMA kernels, and
+    for a 64|128 -> 128 conv ``w_tc``, the TF32 hi/lo split in the tensor-core
+    kernel's fragment order (:func:`pack_tc`; None for other shapes)."""
     w: torch.Tensor
     b: torch.Tensor
     w_hwio: torch.Tensor
+    w_tc: Optional[torch.Tensor] = None
 
 
 def pack(w: torch.Tensor, b: torch.Tensor) -> Packed:
-    return Packed(w, b, w.permute(2, 3, 1, 0).contiguous())
+    w_hwio = w.permute(2, 3, 1, 0).contiguous()
+    tc = w.shape[0] == 128 and w.shape[1] in (64, 128)
+    return Packed(w, b, w_hwio, pack_tc(w_hwio) if tc else None)
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 x -> (hi, lo), both TF32 values (the low 13 of the 23
+    mantissa bits zero) with hi + lo = x to ~2^-22 relative: hi is x rounded
+    to TF32 to nearest, ties away from zero (PTX ``cvt.rna.tf32.f32``), lo
+    the remainder x - hi (exact in f32) rounded the same way."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    hi = rna(x.to(torch.float32))
+    return hi, rna(x - hi)
+
+
+def pack_tc(w_hwio: torch.Tensor) -> torch.Tensor:
+    """(3, 3, Cin, 128) HWIO -> (Cin/8, 9, 16, 32, 4) float32, the weights of
+    ``conv3x3_full``'s tensor-core kernel: per input-channel chunk c of 8
+    (one k8 step), tap, n8 tile j and lane (g = lane // 4, t = lane % 4) the
+    lane's B fragments {hi(k), hi(k + 4), lo(k), lo(k + 4)} of
+    ``w[tap, 8c + k, 8j + g]`` at k = t (:func:`split_tf32`), so one chunk is
+    one contiguous block and a lane's fragment one 16-byte load."""
+    _, _, cin, cout = w_hwio.shape
+    hi, lo = split_tf32(w_hwio.reshape(9, cin // 8, 2, 4, cout // 8, 8))
+    # (tap, c, k-half, t, j, g) -> (c, tap, j, g, t, [hi0, hi1, lo0, lo1])
+    frag = torch.stack([hi[:, :, 0], hi[:, :, 1], lo[:, :, 0], lo[:, :, 1]], -1)
+    return frag.permute(1, 0, 3, 4, 2, 5).reshape(
+        cin // 8, 9, cout // 8, 32, 4).contiguous()
 
 
 def pack_final(w_fin: torch.Tensor, b_fin: torch.Tensor,
@@ -151,7 +188,12 @@ def _conv(name: str, x: torch.Tensor, p: Packed, cins, cout: int,
         return conv3x3_plain(x, p, relu, pool, up)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
-    if not (x.dtype == p.w_hwio.dtype == p.b.dtype == torch.float32):
+    w = p.w_tc if name == "conv3x3_full" else p.w_hwio
+    if w is None or (name == "conv3x3_full" and tuple(w.shape) != (
+            x.shape[-1] // 8, 9, cout // 8, 32, 4)):
+        raise ValueError(f"{name}: the kernel's weights are missing or of "
+                         "another shape; pack them with codec.pack")
+    if not (x.dtype == w.dtype == p.b.dtype == torch.float32):
         raise TypeError(f"{name}: the kernel takes float32 only")
     if up:
         oh, ow = 2 * h, 2 * wd
@@ -163,7 +205,7 @@ def _conv(name: str, x: torch.Tensor, p: Packed, cins, cout: int,
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = getattr(lib, "optex_" + name)(
-        x.contiguous().data_ptr(), p.w_hwio.data_ptr(), p.b.data_ptr(),
+        x.contiguous().data_ptr(), w.data_ptr(), p.b.data_ptr(),
         y.data_ptr(), n, h, wd, *[int(a) for a in args], stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {rc} "
@@ -187,7 +229,8 @@ def conv3x3_p2(x, p: Packed, relu: bool = True, pool: bool = False):
 # ---------------------------------------------------------------------------
 # 2. conv3x3_full — replaces ops/pallas/codec.py:376 conv3x3_full (body
 #    _conv_full_kernel :340): the encoder 64->128 and 128->128 (+ pool)
-#    convs. Operations-bound; two 64-channel output tiles per pixel tile.
+#    convs. Operations-bound: an implicit GEMM on mma.sync, 3xTF32, with
+#    the weights of pack_tc.
 
 def conv3x3_full(x, p: Packed, relu: bool = True, pool: bool = False):
     """x (N, H, W, Cin), Cin in {64, 128} -> [relu] conv3x3_reflect (N, H, W,

@@ -19,11 +19,14 @@ The wrapper:
 
 What bounds it on the H100: at the tool's 512 px x 128 shape, bytes (4.33
 GB in, 4.29 GB out: 2.57 ms at 3.35 TB/s), with the 2.47e12 operations
-level with them at the bf16 tensor-core rate (2.50 ms). The kernel is the
-simple first version: float32 FFMA from bf16 loads, the batch on
-consecutive threads (coalesced loads and stores), each block's weights in
-shared memory. The TPU kernel's th/tw tiles and its MXU packing are TPU
-tiling and are not carried over.
+level with them at the bf16 tensor-core rate (2.50 ms). The kernel runs
+each output pixel as one (64 co x 64 b) GEMM on wgmma, K = 9 taps x 64 ci,
+with the weights (:func:`pack_tc`'s layout, built from ``wrow`` in shared
+memory) resident per block and the input slabs brought in once each by TMA
+into a ring that serves every pixel reading them (``csrc/conv64.cu``). A
+batch that is not a multiple of 8 cannot be described to TMA (16-byte
+strides) and takes the kernel's masked load path. The TPU kernel's th/tw
+tiles and its MXU packing are TPU tiling and are not carried over.
 """
 
 from __future__ import annotations
@@ -67,11 +70,20 @@ def unpack_wrow(wrow: torch.Tensor) -> torch.Tensor:
     return wrow[:, :C, :3 * C].reshape(3, C, 3, C).permute(0, 2, 3, 1)
 
 
+def pack_tc(wrow: torch.Tensor) -> torch.Tensor:
+    """(3, 128, 256) packed rows -> (64, 576), the kernel's wgmma A operand:
+    row co, column 64 tap + ci (tap = 3r + s) holds ``w[r, s, ci, co]``,
+    K-major. The kernel assembles it from ``wrow``'s phase-0 rows into
+    shared memory (128-byte swizzled) once per block."""
+    return unpack_wrow(wrow).permute(3, 0, 1, 2).reshape(C, 9 * C)
+
+
 def conv64_plain(xpad: torch.Tensor, wrow: torch.Tensor) -> torch.Tensor:
     """The kernel's function in plain PyTorch: one float32 F.conv2d of the
-    widened input with the unpacked weights, ReLU, one rounding to bf16.
-    On a GPU the caller turns TF32 off (``core.full_f32_precision``)."""
-    w = unpack_wrow(wrow).to(torch.float32).permute(3, 2, 0, 1)   # OIHW
+    widened input with the kernel's weight matrix (:func:`pack_tc`), ReLU,
+    one rounding to bf16. On a GPU the caller turns TF32 off
+    (``core.full_f32_precision``)."""
+    w = pack_tc(wrow).to(torch.float32).reshape(C, 3, 3, C).permute(0, 3, 1, 2)
     y = F.conv2d(xpad.to(torch.float32).permute(3, 2, 0, 1), w)   # (B, 64, H, W)
     return torch.relu(y).to(torch.bfloat16).permute(2, 3, 1, 0).contiguous()
 
@@ -99,7 +111,8 @@ def build() -> None:
 
 # ---------------------------------------------------------------------------
 # 9. conv64 — replaces tools/pallas_conv_proto.py:109 conv64_pallas (body
-#    _kernel :63). Bytes-bound at the tool's shape (operations level).
+#    _kernel :63). Bytes-bound at the tool's shape (operations level); wgmma
+#    + TMA (B % 8 == 0) or wgmma + masked loads (any other B).
 
 def conv64(xpad: torch.Tensor, wrow: torch.Tensor) -> torch.Tensor:
     """relu(valid 3x3 conv): xpad (H+2, W+2, 64, B) bf16 and wrow (3, 128,

@@ -61,6 +61,37 @@ def test_kernel_matches_plain(name, cin, cout, kw, plain_kw, hw):
 
 
 @pytest.mark.cuda
+# the two 256^2 main-path shapes, odd sizes, and a wide dynamic range
+@pytest.mark.parametrize("cin,kw,hw,wide", [
+    (64, dict(relu=True), (256, 256), False),
+    (128, dict(relu=True, pool=True), (256, 256), False),
+    (64, dict(relu=False), (33, 47), True),
+    (128, dict(relu=True, pool=True), (35, 19), True),
+    (128, dict(relu=False, pool=True), (256, 256), True)])
+def test_conv3x3_full_tensor_cores_match_plain(cin, kw, hw, wide):
+    """conv3x3_full runs 3xTF32 on mma.sync: within 2e-5 x max|plain| of
+    the f32 plain version, also on inputs whose magnitudes spread over
+    1e-3 .. 1e3 (log-uniform, random signs)."""
+    _need_gpu()
+    h, w = hw
+    g = torch.Generator(device="cuda").manual_seed(cin + h + w)
+    x = torch.rand((2, h, w, cin), generator=g, device="cuda")
+    if wide:
+        mag = 10.0 ** (6.0 * torch.rand(x.shape, generator=g, device="cuda") - 3.0)
+        x = torch.where(x < 0.5, -mag, mag)
+    p = codec.pack(torch.randn((128, cin, 3, 3), generator=g, device="cuda") * 0.1,
+                   torch.randn((128,), generator=g, device="cuda") * 0.1)
+    before = codec.LAUNCHES["conv3x3_full"]
+    got = codec.conv3x3_full(x, p, **kw)
+    ref = codec.conv3x3_plain(x, p, **kw)
+    torch.cuda.synchronize()
+    assert codec.LAUNCHES["conv3x3_full"] == before + 1
+    assert got.shape == ref.shape
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= REL_TOL * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_other_dtypes():
     _need_gpu()
     x = torch.rand((1, 16, 16, 3), device="cuda", dtype=torch.float64)
@@ -304,9 +335,13 @@ def test_cdf_remap_kernel_matches_plain(c, n, const):
 
 
 @pytest.mark.cuda
-# the tool's check shape, ragged H, W and B, and B = 1
+# B % 8 == 0 takes the TMA path: 8 and 16 (one partial 64-wide batch tile),
+# 128 and 256 (two and four full tiles); 5, 130 and 1 the masked path (130:
+# three tiles, the last ragged). Ragged H and W throughout, and rows longer
+# than one 64-pixel strip (70, 130).
 @pytest.mark.parametrize("h,w,b", [(64, 64, 128), (37, 45, 5), (9, 7, 130),
-                                   (16, 33, 1)])
+                                   (16, 33, 1), (11, 70, 8), (7, 13, 16),
+                                   (5, 130, 256), (3, 3, 128)])
 def test_conv64_kernel_matches_plain(h, w, b):
     """|kernel - plain| <= 2^-7 * max|plain|: one bf16 rounding of two f32
     sums of 576 products taken in other orders."""
