@@ -8,15 +8,19 @@ Phases (each raises on failure; none catches its own):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ with nvcc (sm_90a), one nvcc per
      source, all started together, print ptxas's registers, shared memory
-     and spills, and check in the SASS (cuobjdump) that conv64's kernel runs
-     HGMMA (wgmma) and conv3x3_full's HMMA on TF32;
+     and spills (and any "Performance Loss" remark), and check in the SASS
+     (cuobjdump) that conv64's kernel runs HGMMA (wgmma), the kernels of
+     conv3x3_p2, conv3x3_full and upconv_p2 HMMA on TF32, and that no FFMA
+     conv3x3_reflect is left for a conv with 64 or 128 channels in and out;
   3. every codec kernel at its 512-px main-path shapes, on inputs made by a
      512-px decode->encode roundtrip of the real depth-3 weights: held
      against its plain PyTorch version (|kernel - plain| <= 2e-5 *
-     max|plain|: f32 sums of up to 1152 products in another order;
-     conv3x3_full sums three TF32 tensor-core products), and timed beside
-     its plain version and one F.conv2d call (TF32 off); conv3x3_full's
-     bound is its 3xTF32 work at the TF32 tensor-core rate;
+     max|plain|: f32 sums of up to 1152 products in another order, three
+     TF32 tensor-core products per product in conv3x3_p2, conv3x3_full and
+     upconv_p2, whose signed mean error is printed so a rounding bias
+     shows), and timed beside its plain version and one F.conv2d call (TF32
+     off); the tensor-core kernels' bound is their 3xTF32 work at the TF32
+     tensor-core rate (upconv_p2's on its folded 4 taps a fine pixel);
   4. the three cdf kernels at their main-path shapes: the rotated relu1
      clouds of the 512-px pass at the C the PCA rule picks, and the rotated
      512x512 pixel cloud of the color tail (C = 3). The histogram must
@@ -28,9 +32,10 @@ Phases (each raises on failure; none catches its own):
      check shape (64 px, B = 128, the TMA path) and a ragged one (37 x 45,
      B = 5, the masked path), within
      2^-7 * max|plain| (one bf16 rounding), and again at the tool's
-     512 px x 128, whose tensors pass 2^31 elements; timed there beside its
-     plain version, its bound and one cuDNN bf16 F.conv2d + ReLU in
-     channels-last;
+     512 px x 128, whose tensors pass 2^31 elements; there 100 repeated
+     launches must equal the first bit for bit (a race in the kernel's ring
+     shows so); timed there beside its plain version, its bound and one
+     cuDNN bf16 F.conv2d + ReLU in channels-last;
   6. the paths, each once cold and once warm (lum once), every launch
      count set to 0 just before a run and checked just after it:
        main path: core.synthesize at 512 px, defaults otherwise (chol), the
@@ -52,7 +57,7 @@ Phases (each raises on failure; none catches its own):
      Pillow).
 
 The last two lines of standard output are the {"kernels": [...]} line (all
-nine kernels, each with its "design": ffma, wgmma+tma or 3xtf32-mma;
+nine kernels, each with its "design": ffma, simt, wgmma+tma or 3xtf32-mma;
 conv64 and cdf_remap are on no path of the program, so their launches are
 those of their own check phase, which the "phase" field names) and
 {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -64,6 +69,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -102,9 +108,18 @@ _PEAKS = [("H100 PCIe", 51.2e12, 756e12, 2.0e12),
 # how each kernel computes: FFMA convs on the FP32 cores, wgmma fed by TMA,
 # three TF32 mma.sync products (hi*hi + hi*lo + lo*hi), or scalar code on
 # the CUDA cores (the cdf kernels: counting, searching, interpolating)
-DESIGNS = {"conv64": "wgmma+tma", "conv3x3_full": "3xtf32-mma",
+TENSOR_CORE_CODEC = ("conv3x3_p2", "conv3x3_full", "upconv_p2")
+DESIGNS = {"conv64": "wgmma+tma", **{k: "3xtf32-mma" for k in TENSOR_CORE_CODEC},
            "batched_histogram": "simt", "pwl_remap": "simt",
            "cdf_remap": "simt"}   # else ffma
+
+# per tensor-core kernel: its symbol in the SASS (a regex over the mangled
+# name: conv3x3_tf32x3<CIN, COUT, ...>, upconv_tf32x3<C>), the instruction
+# and the operand type it must show
+SASS_CHECKS = (("conv64", r"conv64_wgmma", "HGMMA", "HGMMA"),
+               ("conv3x3_p2", r"conv3x3_tf32x3ILi\d+ELi64E", "HMMA", "TF32"),
+               ("conv3x3_full", r"conv3x3_tf32x3ILi\d+ELi128E", "HMMA", "TF32"),
+               ("upconv_p2", r"upconv_tf32x3ILi\d+E", "HMMA", "TF32"))
 
 
 def _peaks(name: str, kind: str = "f32"):
@@ -118,8 +133,10 @@ def _peaks(name: str, kind: str = "f32"):
 
 def check_sass(libs) -> dict:
     """Disassemble the built libraries (cuobjdump beside nvcc) and count the
-    tensor-core instructions of the two redesigned kernels: conv64's kernel
-    must hold HGMMA (wgmma) and conv3x3_full's HMMA on TF32 operands."""
+    tensor-core instructions of the redesigned kernels (SASS_CHECKS); raise
+    unless each holds its instruction on its operand type, or if an FFMA
+    conv3x3_reflect instantiation is left for a wide conv (CIN and COUT both
+    64 or 128: those run on the tensor cores)."""
     from optimaltextures_tpu_torch.ops import cuda_build
 
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
@@ -130,9 +147,8 @@ def check_sass(libs) -> dict:
         for part in sass.split("Function : ")[1:]:
             funcs[part.split(None, 1)[0]] = part
     counts = {}
-    for kernel, symbol, op, want in (("conv64", "conv64_wgmma", "HGMMA", "HGMMA"),
-                                     ("conv3x3_full", "conv3x3_tf32x3", "HMMA", "TF32")):
-        bodies = [b for f, b in funcs.items() if symbol in f]
+    for kernel, symbol, op, want in SASS_CHECKS:
+        bodies = [b for f, b in funcs.items() if re.search(symbol, f)]
         lines = [l for b in bodies for l in b.splitlines() if op in l]
         n_op, n_want = len(lines), sum(want in l for l in lines)
         print(f"sass {kernel}: {len(bodies)} kernel(s) {symbol}, {n_op} {op} "
@@ -140,6 +156,12 @@ def check_sass(libs) -> dict:
         if not bodies or n_want == 0:
             raise AssertionError(f"{kernel}: no {want} {op} in the SASS of {symbol}")
         counts[kernel] = n_want
+    ffma = sorted((int(m[1]), int(m[2])) for f in funcs
+                  if (m := re.search(r"conv3x3_reflectILi(\d+)ELi(\d+)E", f)))
+    print(f"sass conv3x3_reflect (FFMA): (CIN, COUT) {ffma}", flush=True)
+    wide = [c for c in ffma if set(c) <= {64, 128}]
+    if wide:
+        raise AssertionError(f"FFMA conv3x3_reflect left for wide convs: {wide}")
     return counts
 
 
@@ -274,13 +296,17 @@ def check_kernels(seed: int, reps: int, card: str):
         flops = 2.0 * x.shape[0] * hc * wc * cout * cin * taps
         nbytes = 4.0 * (x.numel() + p.w.numel() + p.b.numel() + got.numel())
         t_flops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
-        if name == "conv3x3_full":
-            # its least time is now the 3xTF32 work on the tensor cores; the
-            # FP32-core figure is printed beside it
+        if name in TENSOR_CORE_CODEC:
+            # its least time is the 3xTF32 work on the tensor cores; the
+            # FP32-core figure is printed beside it, and the signed mean
+            # error: the tensor cores' accumulate rounds toward zero, so a
+            # bias would show here before the cdf runs feel it
             t_fp32, t_flops = t_flops, 3 * flops / peak_tf32 * 1e3
-            print(f"kernel conv3x3_full {label}: bound on the FP32 cores "
+            lean = float(((got - ref) * torch.sign(ref)).mean()) / scale
+            print(f"kernel {name} {label}: bound on the FP32 cores "
                   f"{max(t_fp32, t_bytes):.4f} ms, 3xTF32 on the tensor cores "
-                  f"{t_flops:.4f} ms", flush=True)
+                  f"{t_flops:.4f} ms; signed mean error {lean:.3e} of "
+                  f"max|plain|", flush=True)
         ms = _time_ms(lambda: kern(x, p, **kw), reps)
         plain_ms = _time_ms(lambda: plain(x, p, **plain_kw), reps)
         lib_ms = _time_ms(conv_call(x, p, name == "upconv_p2"), reps)
@@ -498,6 +524,19 @@ def check_conv64(reps: int, card: str):
                        device="cuda").to(torch.bfloat16)
     errs.append(check(xpad, f"{size}x{size} B={b}"))
     torch.cuda.empty_cache()
+    # the kernel sums each output in a fixed order, so repeated launches
+    # agree bit for bit; a race in its producer/consumer ring shows as a
+    # launch that does not (7-10 of 100 at this shape before the consumers
+    # released only columns they had seen land)
+    first = conv64.conv64(xpad, wrow)
+    differ = sum(not torch.equal(conv64.conv64(xpad, wrow), first)
+                 for _ in range(100))
+    print(f"kernel conv64 {size}x{size} B={b}: {differ} of 100 repeated "
+          f"launches differ from the first", flush=True)
+    if differ:
+        raise AssertionError(f"conv64: {differ} of 100 repeated launches "
+                             "differ from the first")
+    del first
     ms = _time_ms(lambda: conv64.conv64(xpad, wrow), reps)
     plain_ms = _time_ms(lambda: conv64.conv64_plain(xpad, wrow), reps)
     torch.cuda.empty_cache()
@@ -669,12 +708,13 @@ def profile_run(name, cfg, styles, content=None):
     kernels = [e for e in rows if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(dev_us(e) for e in kernels) / 1e3
     part = lambda key: sum(dev_us(e) for e in kernels if key in e.key) / 1e3
+    tc = part('conv3x3_tf32x3') + part('upconv_tf32x3')
     print(f"profile {name} (warm run, profiler on): wall {wall * 1e3:.1f} ms, "
           f"device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% of the "
-          f"wall), codec kernels "
-          f"{part('conv3x3_reflect') + part('conv3x3_tf32x3'):.1f} ms (conv3x3_full "
-          f"{part('conv3x3_tf32x3'):.1f}), histogram "
-          f"kernel {part('histogram_kernel'):.1f} ms, pwl kernel "
+          f"wall), codec kernels {part('conv3x3_reflect') + tc:.1f} ms "
+          f"(tensor-core {tc:.1f}: conv3x3_p2 + conv3x3_full "
+          f"{part('conv3x3_tf32x3'):.1f}, upconv_p2 {part('upconv_tf32x3'):.1f}), "
+          f"histogram kernel {part('histogram_kernel'):.1f} ms, pwl kernel "
           f"{part('pwl_kernel'):.1f} ms", flush=True)
     for e in sorted(kernels, key=dev_us, reverse=True)[:15]:
         print(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")

@@ -30,7 +30,9 @@
 //   columns (3 slabs each) holds the current pixel's 3 columns and the next
 //   ones, and a producer warp loads each new column once by TMA, completing
 //   on the slot's "full" mbarrier, after the consumers freed the slot
-//   ("empty" mbarrier). The 50 MB L2 serves the reuse between rows.
+//   ("empty" mbarrier). Each consumer warpgroup watches every column land,
+//   in order, and frees only columns it has seen land (wait_landed). The
+//   50 MB L2 serves the reuse between rows.
 // * Two consumer warpgroups take alternate pixels of a strip (ping-pong):
 //   each waits for its pixel's columns, issues the 36 wgmma, waits, and runs
 //   the epilogue (ReLU, one bf16 rounding, staged through shared memory so
@@ -173,16 +175,24 @@ __device__ __forceinline__ Item decode(long long it, int h, int w, int strips) {
   return m;
 }
 
+// a consumer warpgroup waits, in order, until every ring column below `end`
+// has landed; `seen` counts the columns it has watched land. In order,
+// because a parity wait cannot tell a slot's phase k from phase k - 2: a
+// wait for column c must come after column c - 5 (the slot's previous
+// column) was seen to land. And a warpgroup releases only columns it has
+// seen land, or its arrival could count toward the slot's previous phase
+// and free a slab the other warpgroup still reads.
+__device__ __forceinline__ void wait_landed(uint32_t s_bar, uint32_t& seen,
+                                            uint32_t end) {
+  for (; seen < end; ++seen) mbar_wait(s_bar + 8 * (seen % kRing), (seen / kRing) & 1);
+}
+
 // consumer: wait for pixel i's 3 columns (ring counters c0 + i .. + 2), then
 // issue its 36 k-steps as one wgmma group
 __device__ __forceinline__ void issue_pixel(float (&acc)[32], uint32_t c0, int i,
                                             uint32_t s_a, uint32_t s_ring,
-                                            uint32_t s_bar) {
-#pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    const uint32_t c = c0 + i + s;
-    mbar_wait(s_bar + 8 * (c % kRing), (c / kRing) & 1);
-  }
+                                            uint32_t s_bar, uint32_t& seen) {
+  wait_landed(s_bar, seen, c0 + i + 3);
   wgmma_fence();
 #pragma unroll
   for (int tap = 0; tap < 9; ++tap) {
@@ -211,7 +221,8 @@ __device__ __forceinline__ void release(uint32_t s_bar, uint32_t c0, int lo, int
 // not read, store
 __device__ __forceinline__ void finish_pixel(float (&acc)[32], const Item& m, int i,
                                              int& rel, int wg, uint32_t c0,
-                                             uint32_t s_bar, __nv_bfloat16* stage,
+                                             uint32_t s_bar, uint32_t& seen,
+                                             __nv_bfloat16* stage,
                                              __nv_bfloat16* __restrict__ out, int w,
                                              int b) {
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
@@ -228,6 +239,7 @@ __device__ __forceinline__ void finish_pixel(float (&acc)[32], const Item& m, in
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
   // every thread of the warpgroup is past its wgmma wait for pixel i
   const int hi = i + 2 < m.npix ? i + 2 : m.npix + 2;
+  wait_landed(s_bar, seen, c0 + hi);
   if (tid == 0) release(s_bar, c0, rel, hi);
   rel = hi;
   __nv_bfloat16* op = out + (static_cast<int64_t>(m.hh) * w + m.w0 + i) * kC * b;
@@ -329,17 +341,21 @@ conv64_wgmma(const __grid_constant__ CUtensorMap xmap,
   const int wg = role;
   __nv_bfloat16* stage =
       reinterpret_cast<__nv_bfloat16*>(sm + kOffStage + wg * kStageBytes);
-  uint32_t g = 0;   // ring counter of the current item's first column
+  uint32_t g = 0;      // ring counter of the current item's first column
+  uint32_t seen = 0;   // ring columns this warpgroup has seen land
   float acc[32];
   for (long long it = blockIdx.x; it < items; it += gridDim.x) {
     const Item m = decode(it, h, w, strips);
     int rel = 0;   // the item's columns below rel are released by this wg
     for (int i = wg; i < m.npix; i += 2) {
-      issue_pixel(acc, g, i, s_a, s_ring, s_bar);
+      issue_pixel(acc, g, i, s_a, s_ring, s_bar, seen);
       wgmma_wait<0>();
-      finish_pixel(acc, m, i, rel, wg, g, s_bar, stage, out, w, b);
+      finish_pixel(acc, m, i, rel, wg, g, s_bar, seen, stage, out, w, b);
     }
-    if (rel == 0 && (threadIdx.x & 127) == 0) release(s_bar, g, 0, m.npix + 2);
+    if (rel == 0) {   // no pixel of this item: release its columns all the same
+      wait_landed(s_bar, seen, g + m.npix + 2);
+      if ((threadIdx.x & 127) == 0) release(s_bar, g, 0, m.npix + 2);
+    }
     g += m.npix + 2;
   }
 }

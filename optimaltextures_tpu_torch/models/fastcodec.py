@@ -61,12 +61,14 @@ def pack_stage(enc_params, dec_params, depth: int,
                renorm_params=None) -> StageCodec:
     """``renorm_params``: the NEXT stage's encoder 1x1 renorm (w, b) to fold
     into the decoder-final conv, or None for the pass's last decode (raw
-    pixels)."""
+    pixels). The tail's upconvs get their folded taps (``codec.pack_up``)."""
     split = max(len(dec_params) - 4, 0)
+    tail_specs = arch.decoder_specs(depth)[split:-1]
     return StageCodec(
         depth, tuple(codec.pack(*p) for p in enc_params[1:5]),
         list(enc_params[5:]), list(dec_params[:split]),
-        tuple(codec.pack(*p) for p in dec_params[split:-1]),
+        tuple((codec.pack_up if s[3] == "up" else codec.pack)(*p)
+              for s, p in zip(tail_specs, dec_params[split:-1])),
         codec.pack_final(*dec_params[-1], renorm_params))
 
 

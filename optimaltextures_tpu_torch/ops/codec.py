@@ -5,10 +5,7 @@ conv with bias, differing in channel counts, an optional nearest-x2 prologue
 and an optional ReLU / 2x2 max-pool epilogue — in a TPU layout (batch in the
 128 lanes, 2-pixel M-packing, 8-channel padded RGB, DMA-then-repair halos).
 None of that layout carries over: here every kernel takes and returns NHWC
-float32 at any batch. Four run on one FFMA template (``csrc/codec.cu``,
-``conv3x3_reflect<CIN, COUT, ..., RELU, POOL, UP>``); ``conv3x3_full`` runs
-on the tensor cores (``conv3x3_tf32x3<CIN, RELU, POOL>``, 3xTF32 on
-``mma.sync``).
+float32 at any batch (``csrc/codec.cu``).
 
 Each wrapper below:
 
@@ -19,26 +16,32 @@ Each wrapper below:
   nothing falls back;
 * counts its launches in ``LAUNCHES[name]`` (plain versions do not count).
 
-Each conv's weights are packed once (:func:`pack`, :func:`pack_final`, as
-the JAX package's ``pack_*``): OIHW for the plain version, an HWIO copy for
-the FFMA kernels, whose [tap][ci][co] rows load into shared memory
-contiguously, and for the 128-channel convs the TF32 hi/lo split in the
-tensor-core kernel's fragment order (:func:`pack_tc`).
-
 What bounds them on the H100 (67 TFLOP/s FFMA, 495 TFLOP/s dense TF32 on
-the tensor cores and 3.35 TB/s HBM on the SXM part): the 64/128-channel
-convs do 2*9*Cin FLOPs per output value against 4 bytes read and 4 written
-per value, ~290-580 FLOP/B, far above the card's ridge, so they are
-operations-bound; the 3->64 entry and 64->3 final convs do 54 / 1152 FLOPs
-per 4+256 / 256+12 bytes of pixel traffic, so they are bytes-bound. The
-design answers each: the wide FFMA convs keep a 4-pixel x 16-channel f32
-accumulator tile per thread fed from shared memory (weights broadcast
-across a warp), and ``conv3x3_full`` moves its products to the tensor cores
-at three TF32 products per f32 product (one TF32 product misses the 2e-5
-bound); the narrow ones read their input once and write their output once,
-with the reflect pad resolved while loading and the next stage's renorm
-folded into the final conv's weights, so no padded, upsampled or
-renormalised copy ever reaches device memory.
+the tensor cores and 3.35 TB/s HBM on the SXM part), and what the design
+does about it:
+
+* ``conv3x3_p2``, ``conv3x3_full`` and ``upconv_p2`` (64/128 channels in and
+  out) do 2*9*Cin FLOPs per output value (upconv 2*4*Cin, folded) against
+  5-12 bytes of pixel traffic, ~100-460 FLOP/B, above the card's ridge (148
+  FLOP/B at the TF32 rate) even before three products triple the work:
+  operations-bound. They run on the tensor cores as implicit GEMMs on
+  ``mma.sync``, three TF32 products per f32 product (hi*hi + hi*lo + lo*hi;
+  one TF32 product misses the 2e-5 bound), with the weights split hi/lo
+  once at pack time in the kernels' fragment order (:func:`pack_tc`). The
+  upconv folds its nearest-x2 upsample into 2x2 taps per output phase on
+  the edge-padded coarse image (:func:`pack_up`, the math of the JAX
+  package's ``pack_upconv_fold``): 4 taps per fine pixel, not 9.
+* ``rgb_to_relu1`` (3 -> 64) and ``final_to_rgb`` (64 -> 3) do 54 / 1152
+  FLOPs per 4+256 / 256+12 bytes of pixel traffic: bytes-bound. An FFMA
+  direct conv reads the input once and writes the output once, with the
+  reflect pad resolved while loading and the next stage's renorm folded
+  into the final conv's weights (:func:`pack_final`), so no padded or
+  renormalised copy ever reaches device memory.
+
+Each conv's weights are packed once (:func:`pack`, :func:`pack_up`,
+:func:`pack_final`, as the JAX package's ``pack_*``): OIHW for the plain
+version, an HWIO copy for the FFMA kernels, and the tensor-core fragments
+for the wide convs.
 """
 
 from __future__ import annotations
@@ -64,18 +67,31 @@ def reset_launches() -> None:
 class Packed(NamedTuple):
     """One conv's weights: ``w`` (Cout, Cin, 3, 3) OIHW and ``b`` (Cout,) for
     the plain version, ``w_hwio`` (3, 3, Cin, Cout) for the FFMA kernels, and
-    for a 64|128 -> 128 conv ``w_tc``, the TF32 hi/lo split in the tensor-core
-    kernel's fragment order (:func:`pack_tc`; None for other shapes)."""
+    for the tensor-core kernels the TF32 hi/lo split in fragment order:
+    ``w_tc`` for a 64|128 -> 64|128 conv (:func:`pack_tc`), ``w_up`` for an
+    upconv's folded taps (:func:`pack_up`); None where the conv has none."""
     w: torch.Tensor
     b: torch.Tensor
     w_hwio: torch.Tensor
     w_tc: Optional[torch.Tensor] = None
+    w_up: Optional[torch.Tensor] = None
 
 
 def pack(w: torch.Tensor, b: torch.Tensor) -> Packed:
+    """A conv's weights for the plain version, and for the kernel that runs
+    it: ``w_tc`` when Cin and Cout are both 64 or 128."""
     w_hwio = w.permute(2, 3, 1, 0).contiguous()
-    tc = w.shape[0] == 128 and w.shape[1] in (64, 128)
+    tc = w.shape[0] in (64, 128) and w.shape[1] in (64, 128)
     return Packed(w, b, w_hwio, pack_tc(w_hwio) if tc else None)
+
+
+def pack_up(w: torch.Tensor, b: torch.Tensor) -> Packed:
+    """An upconv's weights (nearest-x2 then this conv, C -> C): ``w_up``, the
+    folded taps of :func:`fold_up` split into fragments, for ``upconv_p2``."""
+    w_hwio = w.permute(2, 3, 1, 0).contiguous()
+    taps = fold_up(w_hwio).permute(0, 2, 1, 3, 4, 5)     # (a, u, b, v, ci, co)
+    return Packed(w, b, w_hwio,
+                  w_up=_fragments(taps.reshape(16, *w_hwio.shape[2:])))
 
 
 def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -90,19 +106,45 @@ def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, rna(x - hi)
 
 
-def pack_tc(w_hwio: torch.Tensor) -> torch.Tensor:
-    """(3, 3, Cin, 128) HWIO -> (Cin/8, 9, 16, 32, 4) float32, the weights of
-    ``conv3x3_full``'s tensor-core kernel: per input-channel chunk c of 8
-    (one k8 step), tap, n8 tile j and lane (g = lane // 4, t = lane % 4) the
-    lane's B fragments {hi(k), hi(k + 4), lo(k), lo(k + 4)} of
-    ``w[tap, 8c + k, 8j + g]`` at k = t (:func:`split_tf32`), so one chunk is
-    one contiguous block and a lane's fragment one 16-byte load."""
-    _, _, cin, cout = w_hwio.shape
-    hi, lo = split_tf32(w_hwio.reshape(9, cin // 8, 2, 4, cout // 8, 8))
+def _fragments(taps: torch.Tensor) -> torch.Tensor:
+    """(T, Cin, Cout) float32 taps -> (Cin/8, T, Cout/8, 32, 4), the B
+    operands of the tensor-core kernels: per input-channel chunk c of 8 (one
+    k8 step), tap, n8 tile j and lane (g = lane // 4, t = lane % 4) the
+    lane's fragments {hi(k), hi(k + 4), lo(k), lo(k + 4)} of
+    ``taps[tap, 8c + k, 8j + g]`` at k = t (:func:`split_tf32`), so one chunk
+    is one contiguous block and a lane's fragment one 16-byte load."""
+    n, cin, cout = taps.shape
+    hi, lo = split_tf32(taps.reshape(n, cin // 8, 2, 4, cout // 8, 8))
     # (tap, c, k-half, t, j, g) -> (c, tap, j, g, t, [hi0, hi1, lo0, lo1])
     frag = torch.stack([hi[:, :, 0], hi[:, :, 1], lo[:, :, 0], lo[:, :, 1]], -1)
     return frag.permute(1, 0, 3, 4, 2, 5).reshape(
-        cin // 8, 9, cout // 8, 32, 4).contiguous()
+        cin // 8, n, cout // 8, 32, 4).contiguous()
+
+
+def pack_tc(w_hwio: torch.Tensor) -> torch.Tensor:
+    """(3, 3, Cin, Cout) HWIO -> (Cin/8, 9, Cout/8, 32, 4), the weights of
+    ``conv3x3_p2`` (Cout 64) and ``conv3x3_full`` (Cout 128), tap 3r + s."""
+    _, _, cin, cout = w_hwio.shape
+    return _fragments(w_hwio.reshape(9, cin, cout))
+
+
+def fold_up(w_hwio: torch.Tensor) -> torch.Tensor:
+    """(3, 3, Cin, Cout) HWIO -> (2, 2, 2, 2, Cin, Cout) folded taps [a, b,
+    u, v]: nearest-x2 upsample, reflect pad and this conv equal, at fine
+    pixel (2i + a, 2j + b), a 2x2 conv of the EDGE-padded coarse image at
+    rows i + a - 1 + u, columns j + b - 1 + v (a fine-scale reflection of a
+    nearest-upsampled image is a coarse-scale edge pad). Row phase a = 0
+    takes coarse rows (i - 1, i) with weight rows (W0, W1 + W2), a = 1
+    takes (i, i + 1) with (W0 + W1, W2); columns fold the same way. Summed
+    in the dtype given, rows first, then columns: in float32 the folded
+    taps are bit-equal to JAX's ``pack_upconv_fold``."""
+    w = w_hwio
+    rows = (torch.stack([w[0], w[1] + w[2]]),        # a = 0: (u, s, ci, co)
+            torch.stack([w[0] + w[1], w[2]]))        # a = 1
+    return torch.stack([
+        torch.stack([torch.stack([r[:, 0], r[:, 1] + r[:, 2]], 1),   # b = 0
+                     torch.stack([r[:, 0] + r[:, 1], r[:, 2]], 1)])  # b = 1
+        for r in rows])
 
 
 def pack_final(w_fin: torch.Tensor, b_fin: torch.Tensor,
@@ -165,6 +207,12 @@ def conv3x3_plain(x: torch.Tensor, p: Packed, relu: bool = False,
     return to_nhwc(t)
 
 
+# per kernel: the Packed field it takes, its taps (fragment-packed weights
+# only) and the function that packs them
+_WEIGHTS = {"conv3x3_p2": ("w_tc", 9, "pack"), "conv3x3_full": ("w_tc", 9, "pack"),
+            "upconv_p2": ("w_up", 16, "pack_up")}
+
+
 def _conv(name: str, x: torch.Tensor, p: Packed, cins, cout: int,
           relu: bool = False, pool: bool = False, up: bool = False,
           args=()) -> torch.Tensor:
@@ -180,19 +228,22 @@ def _conv(name: str, x: torch.Tensor, p: Packed, cins, cout: int,
                          f"3) OIHW + ({cout},), got {tuple(p.w.shape)}, "
                          f"{tuple(p.b.shape)}")
     n, h, wd, _ = x.shape
-    if h < 2 or wd < 2:
-        raise ValueError(f"{name}: reflect padding needs H, W >= 2")
+    scale = 2 if up else 1
+    if scale * h < 2 or scale * wd < 2:
+        raise ValueError(f"{name}: reflect padding needs H, W >= 2 at the "
+                         "conv's resolution")
     if not (x.device == p.w.device == p.b.device):
         raise ValueError(f"{name}: operands on different devices")
     if x.device.type == "cpu":
         return conv3x3_plain(x, p, relu, pool, up)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
-    w = p.w_tc if name == "conv3x3_full" else p.w_hwio
-    if w is None or (name == "conv3x3_full" and tuple(w.shape) != (
-            x.shape[-1] // 8, 9, cout // 8, 32, 4)):
-        raise ValueError(f"{name}: the kernel's weights are missing or of "
-                         "another shape; pack them with codec.pack")
+    field, taps, packer = _WEIGHTS.get(name, ("w_hwio", None, "pack"))
+    w = getattr(p, field)
+    if w is None or (taps is not None and tuple(w.shape) != (
+            x.shape[-1] // 8, taps, cout // 8, 32, 4)):
+        raise ValueError(f"{name}: the kernel's weights ({field}) are missing "
+                         f"or of another shape; pack them with codec.{packer}")
     if not (x.dtype == w.dtype == p.b.dtype == torch.float32):
         raise TypeError(f"{name}: the kernel takes float32 only")
     if up:
@@ -217,7 +268,8 @@ def _conv(name: str, x: torch.Tensor, p: Packed, cins, cout: int,
 # ---------------------------------------------------------------------------
 # 1. conv3x3_p2 — replaces ops/pallas/codec.py:282 conv3x3_p2 (body
 #    _conv_p2_kernel :244): the encoder conv1_2 (+ pool) and the decoder
-#    128->64 conv. Operations-bound; see the module note.
+#    128->64 conv. Operations-bound: conv3x3_tf32x3 at 64 output channels,
+#    3xTF32 on mma.sync, 16 x 16-pixel blocks, with the weights of pack_tc.
 
 def conv3x3_p2(x, p: Packed, relu: bool = True, pool: bool = False):
     """x (N, H, W, Cin), Cin in {64, 128} -> [relu] conv3x3_reflect (N, H, W,
@@ -229,8 +281,8 @@ def conv3x3_p2(x, p: Packed, relu: bool = True, pool: bool = False):
 # ---------------------------------------------------------------------------
 # 2. conv3x3_full — replaces ops/pallas/codec.py:376 conv3x3_full (body
 #    _conv_full_kernel :340): the encoder 64->128 and 128->128 (+ pool)
-#    convs. Operations-bound: an implicit GEMM on mma.sync, 3xTF32, with
-#    the weights of pack_tc.
+#    convs. Operations-bound: conv3x3_tf32x3 at 128 output channels, 8 x
+#    16-pixel blocks, with the weights of pack_tc.
 
 def conv3x3_full(x, p: Packed, relu: bool = True, pool: bool = False):
     """x (N, H, W, Cin), Cin in {64, 128} -> [relu] conv3x3_reflect (N, H, W,
@@ -242,16 +294,16 @@ def conv3x3_full(x, p: Packed, relu: bool = True, pool: bool = False):
 # ---------------------------------------------------------------------------
 # 3. upconv_p2 — replaces ops/pallas/codec.py:449 upconv_p2 (body
 #    _upconv_kernel :424): ReLU(conv3x3_reflect(nearest_up_x2(x))) in the
-#    decoder. Operations-bound. The TPU kernel folds the upsample into
-#    per-phase 2x2 taps with edge padding; this one computes the fine-scale
-#    conv directly (2.25x the folded FLOPs) from a shared-memory halo whose
-#    indices are reflected at the fine scale and halved to the coarse one
-#    (a fine reflection of a nearest-upsampled image is a coarse edge pad),
-#    so the 4x upsampled tensor is never written to device memory.
+#    decoder. Operations-bound. As the TPU kernel does, upconv_tf32x3 folds
+#    the upsample into 2x2 taps per output phase on the edge-padded coarse
+#    image (pack_up): 4 taps per fine pixel, not 9, and the 4x upsampled
+#    tensor never exists. 3xTF32 on mma.sync; a warp's two m16 tiles are the
+#    two column phases of 16 coarse columns, which share their three
+#    column-shifted input fragments.
 
 def upconv_p2(x, p: Packed):
     """coarse x (N, Hc, Wc, C), C in {64, 128} -> relu(conv3x3_reflect(
-    nearest_up_x2(x))) (N, 2Hc, 2Wc, C)."""
+    nearest_up_x2(x))) (N, 2Hc, 2Wc, C); ``p`` from :func:`pack_up`."""
     c = x.shape[-1] if x.dim() == 4 else -1
     return _conv("upconv_p2", x, p, (64, 128), c, relu=True, up=True,
                  args=(c,))

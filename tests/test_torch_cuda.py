@@ -49,8 +49,9 @@ def test_kernel_matches_plain(name, cin, cout, kw, plain_kw, hw):
         h, w = h // 2, w // 2
     g = torch.Generator(device="cuda").manual_seed(cin * cout + h)
     x = torch.rand((2, h, w, cin), generator=g, device="cuda")
-    p = codec.pack(torch.randn((cout, cin, 3, 3), generator=g, device="cuda") * 0.1,
-                   torch.randn((cout,), generator=g, device="cuda") * 0.1)
+    pack = codec.pack_up if name == "upconv_p2" else codec.pack
+    p = pack(torch.randn((cout, cin, 3, 3), generator=g, device="cuda") * 0.1,
+             torch.randn((cout,), generator=g, device="cuda") * 0.1)
     before = codec.LAUNCHES[name]
     got = getattr(codec, name)(x, p, **kw)
     ref = codec.conv3x3_plain(x, p, **plain_kw)
@@ -61,34 +62,69 @@ def test_kernel_matches_plain(name, cin, cout, kw, plain_kw, hw):
 
 
 @pytest.mark.cuda
-# the two 256^2 main-path shapes, odd sizes, and a wide dynamic range
-@pytest.mark.parametrize("cin,kw,hw,wide", [
-    (64, dict(relu=True), (256, 256), False),
-    (128, dict(relu=True, pool=True), (256, 256), False),
-    (64, dict(relu=False), (33, 47), True),
-    (128, dict(relu=True, pool=True), (35, 19), True),
-    (128, dict(relu=False, pool=True), (256, 256), True)])
-def test_conv3x3_full_tensor_cores_match_plain(cin, kw, hw, wide):
-    """conv3x3_full runs 3xTF32 on mma.sync: within 2e-5 x max|plain| of
-    the f32 plain version, also on inputs whose magnitudes spread over
-    1e-3 .. 1e3 (log-uniform, random signs)."""
+# each kernel's two main-path shapes (512 px), odd and ragged sizes (pooled
+# 41 x 57, 35 x 19; coarse 17 x 23, and one coarse row), batch 1, 2 and 3,
+# and inputs whose magnitudes spread over 1e-3 .. 1e3 (log-uniform, random
+# signs)
+@pytest.mark.parametrize("name,cin,kw,n,hw,wide", [
+    ("conv3x3_full", 64, dict(relu=True), 2, (256, 256), False),
+    ("conv3x3_full", 128, dict(relu=True, pool=True), 2, (256, 256), False),
+    ("conv3x3_full", 64, dict(relu=False), 2, (33, 47), True),
+    ("conv3x3_full", 128, dict(relu=True, pool=True), 2, (35, 19), True),
+    ("conv3x3_full", 128, dict(relu=False, pool=True), 2, (256, 256), True),
+    ("conv3x3_p2", 64, dict(relu=True, pool=True), 1, (512, 512), False),
+    ("conv3x3_p2", 128, dict(relu=True), 1, (256, 256), False),
+    ("conv3x3_p2", 64, dict(relu=True, pool=True), 3, (41, 57), True),
+    ("conv3x3_p2", 128, dict(relu=False, pool=True), 3, (41, 57), False),
+    ("conv3x3_p2", 128, dict(relu=False), 1, (35, 19), True),
+    ("upconv_p2", 128, {}, 1, (128, 128), False),
+    ("upconv_p2", 64, {}, 1, (256, 256), False),
+    ("upconv_p2", 128, {}, 3, (17, 23), True),
+    ("upconv_p2", 64, {}, 3, (17, 23), False),
+    ("upconv_p2", 64, {}, 2, (1, 3), True)])
+def test_tensor_core_kernels_match_plain(name, cin, kw, n, hw, wide):
+    """The three tensor-core codec kernels run 3xTF32 on mma.sync: within
+    2e-5 x max|plain| of the f32 plain version."""
     _need_gpu()
     h, w = hw
-    g = torch.Generator(device="cuda").manual_seed(cin + h + w)
-    x = torch.rand((2, h, w, cin), generator=g, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(cin + h + w + n)
+    x = torch.rand((n, h, w, cin), generator=g, device="cuda")
     if wide:
         mag = 10.0 ** (6.0 * torch.rand(x.shape, generator=g, device="cuda") - 3.0)
         x = torch.where(x < 0.5, -mag, mag)
-    p = codec.pack(torch.randn((128, cin, 3, 3), generator=g, device="cuda") * 0.1,
-                   torch.randn((128,), generator=g, device="cuda") * 0.1)
-    before = codec.LAUNCHES["conv3x3_full"]
-    got = codec.conv3x3_full(x, p, **kw)
-    ref = codec.conv3x3_plain(x, p, **kw)
+    cout = {"conv3x3_full": 128, "conv3x3_p2": 64, "upconv_p2": cin}[name]
+    pack = codec.pack_up if name == "upconv_p2" else codec.pack
+    p = pack(torch.randn((cout, cin, 3, 3), generator=g, device="cuda") * 0.1,
+             torch.randn((cout,), generator=g, device="cuda") * 0.1)
+    plain_kw = dict(relu=True, up=True) if name == "upconv_p2" else kw
+    before = codec.LAUNCHES[name]
+    got = getattr(codec, name)(x, p, **kw)
+    ref = codec.conv3x3_plain(x, p, **plain_kw)
     torch.cuda.synchronize()
-    assert codec.LAUNCHES["conv3x3_full"] == before + 1
+    assert codec.LAUNCHES[name] == before + 1
     assert got.shape == ref.shape
     assert bool(torch.isfinite(got).all())
     assert float((got - ref).abs().max()) <= REL_TOL * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cin,cout", [("conv3x3_p2", 64, 64),
+                                           ("conv3x3_full", 128, 128),
+                                           ("upconv_p2", 64, 64)])
+def test_tensor_core_kernels_refuse_weights_without_fragments(name, cin, cout):
+    """A CUDA tensor whose Packed lacks the kernel's split weights raises
+    (an upconv takes pack_up's folded taps, not pack's w_tc); nothing falls
+    back to the plain version."""
+    _need_gpu()
+    x = torch.rand((1, 16, 16, cin), device="cuda")
+    w, b = torch.rand((cout, cin, 3, 3), device="cuda"), torch.rand(cout, device="cuda")
+    kw = {} if name == "upconv_p2" else dict(relu=True)
+    before = codec.LAUNCHES[name]
+    for p in (codec.Packed(w, b, w.permute(2, 3, 1, 0).contiguous()),
+              (codec.pack if name == "upconv_p2" else codec.pack_up)(w, b)):
+        with pytest.raises(ValueError):
+            getattr(codec, name)(x, p, **kw)
+    assert codec.LAUNCHES[name] == before
 
 
 @pytest.mark.cuda
@@ -359,6 +395,25 @@ def test_conv64_kernel_matches_plain(h, w, b):
     assert got.dtype == torch.bfloat16 and got.shape == ref.shape == (h, w, 64, b)
     scale = float(ref.float().abs().max())
     assert float((got.float() - ref.float()).abs().max()) <= 2.0 ** -7 * scale
+
+
+@pytest.mark.cuda
+def test_conv64_repeated_launches_agree():
+    """The kernel sums each output in a fixed order, so 100 launches at the
+    tool's 512 px x 128 (8192 work items over the persistent blocks) equal
+    the first bit for bit. A race in its producer/consumer ring broke that
+    in 7-10 of 100 launches before the consumers waited for every column
+    in order and released only columns they had seen land."""
+    _need_gpu()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    xpad = torch.randn((514, 514, 64, 128), generator=g,
+                       device="cuda").to(torch.bfloat16)
+    wrow = conv64.pack_wrow((torch.randn((3, 3, 64, 64), generator=g,
+                                         device="cuda") * 0.1).to(torch.bfloat16))
+    first = conv64.conv64(xpad, wrow)
+    differ = sum(not torch.equal(conv64.conv64(xpad, wrow), first)
+                 for _ in range(100))
+    assert differ == 0
 
 
 @pytest.mark.cuda
