@@ -10,8 +10,8 @@ Phases (each raises on failure; none catches its own):
      source, all started together, print ptxas's registers, shared memory
      and spills (and any "Performance Loss" remark), and check in the SASS
      (cuobjdump) that conv64's kernel runs HGMMA (wgmma), the kernels of
-     conv3x3_p2, conv3x3_full and upconv_p2 HMMA on TF32, and that no FFMA
-     conv3x3_reflect is left for a conv with 64 or 128 channels in and out;
+     conv3x3_p2, conv3x3_full and upconv_p2 HMMA on TF32, final_to_rgb's
+     TMA loads (UTMALDG) and rgb_to_relu1's TMA stores (UTMASTG);
   3. every codec kernel at its 512-px main-path shapes, on inputs made by a
      512-px decode->encode roundtrip of the real depth-3 weights: held
      against its plain PyTorch version (|kernel - plain| <= 2e-5 *
@@ -21,6 +21,12 @@ Phases (each raises on failure; none catches its own):
      shows), and timed beside its plain version and one F.conv2d call (TF32
      off); the tensor-core kernels' bound is their 3xTF32 work at the TF32
      tensor-core rate (upconv_p2's on its folded 4 taps a fine pixel);
+     then the two bytes-bound kernels, final_to_rgb and rgb_to_relu1, at
+     512^2 and 256^2 (inputs from the same roundtrip at each size), each
+     timed by the device's own record (torch.profiler's kernel time over
+     R calls) beside the event-timed loop and the wrapper's host
+     microseconds per call, with both bounds
+     (optimaltextures_tpu_torch/tools/edge_convs.py);
   4. the three cdf kernels at their main-path shapes: the rotated relu1
      clouds of the 512-px pass at the C the PCA rule picks, and the rotated
      512x512 pixel cloud of the color tail (C = 3). The histogram must
@@ -57,7 +63,9 @@ Phases (each raises on failure; none catches its own):
      Pillow).
 
 The last two lines of standard output are the {"kernels": [...]} line (all
-nine kernels, each with its "design": ffma, simt, wgmma+tma or 3xtf32-mma;
+nine kernels, each with its "design": ffma+tma, simt, wgmma+tma or
+3xtf32-mma; final_to_rgb and rgb_to_relu1 also carry "device_ms", their
+profiler time at the 512^2 shape;
 conv64 and cdf_remap are on no path of the program, so their launches are
 those of their own check phase, which the "phase" field names) and
 {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -97,46 +105,39 @@ REPLACES = {
 SOURCES = {"batched_histogram": "cdf", "pwl_remap": "cdf", "cdf_remap": "cdf",
            "conv64": "conv64"}   # else codec
 
-# f32 (non-tensor-core) peak, dense bf16 tensor-core peak and HBM rate by
-# card variant (NVIDIA data sheets); dense TF32 on the tensor cores is half
-# the bf16 rate
-_PEAKS = [("H100 PCIe", 51.2e12, 756e12, 2.0e12),
-          ("H100 NVL", 60.0e12, 835e12, 3.9e12),
-          ("H100", 66.9e12, 989e12, 3.35e12),
-          ("H200", 66.9e12, 989e12, 4.8e12)]
-
-# how each kernel computes: FFMA convs on the FP32 cores, wgmma fed by TMA,
-# three TF32 mma.sync products (hi*hi + hi*lo + lo*hi), or scalar code on
-# the CUDA cores (the cdf kernels: counting, searching, interpolating)
+# how each kernel computes: FFMA convs on the FP32 cores with their
+# 64-channel side moved by TMA, wgmma fed by TMA, three TF32 mma.sync
+# products (hi*hi + hi*lo + lo*hi), or scalar code on the CUDA cores (the
+# cdf kernels: counting, searching, interpolating)
 TENSOR_CORE_CODEC = ("conv3x3_p2", "conv3x3_full", "upconv_p2")
+EDGE_CODEC = ("final_to_rgb", "rgb_to_relu1")
 DESIGNS = {"conv64": "wgmma+tma", **{k: "3xtf32-mma" for k in TENSOR_CORE_CODEC},
-           "batched_histogram": "simt", "pwl_remap": "simt",
-           "cdf_remap": "simt"}   # else ffma
+           **{k: "ffma+tma" for k in EDGE_CODEC},
+           "batched_histogram": "simt", "pwl_remap": "simt", "cdf_remap": "simt"}
 
-# per tensor-core kernel: its symbol in the SASS (a regex over the mangled
+# per redesigned kernel: its symbol in the SASS (a regex over the mangled
 # name: conv3x3_tf32x3<CIN, COUT, ...>, upconv_tf32x3<C>), the instruction
-# and the operand type it must show
+# and the operand type (or form) it must show
 SASS_CHECKS = (("conv64", r"conv64_wgmma", "HGMMA", "HGMMA"),
                ("conv3x3_p2", r"conv3x3_tf32x3ILi\d+ELi64E", "HMMA", "TF32"),
                ("conv3x3_full", r"conv3x3_tf32x3ILi\d+ELi128E", "HMMA", "TF32"),
-               ("upconv_p2", r"upconv_tf32x3ILi\d+E", "HMMA", "TF32"))
+               ("upconv_p2", r"upconv_tf32x3ILi\d+E", "HMMA", "TF32"),
+               ("final_to_rgb", r"final_to_rgb_tma", "UTMALDG", "UTMALDG"),
+               ("rgb_to_relu1", r"rgb_to_relu1_tma", "UTMASTG", "UTMASTG"))
 
 
 def _peaks(name: str, kind: str = "f32"):
     """(peak FLOP/s, HBM bytes/s) of the card: "f32" on the FP32 cores,
-    "bf16" or "tf32" dense on the tensor cores."""
-    for key, f32, tc_bf16, bw in _PEAKS:
-        if key in name:
-            return {"f32": f32, "bf16": tc_bf16, "tf32": tc_bf16 / 2}[kind], bw
-    raise RuntimeError(f"no peak on record for {name!r}")
+    "bf16" or "tf32" dense on the tensor cores (NVIDIA data sheets)."""
+    from optimaltextures_tpu_torch.tools import edge_convs
+
+    return edge_convs.peaks(name, kind)
 
 
 def check_sass(libs) -> dict:
     """Disassemble the built libraries (cuobjdump beside nvcc) and count the
-    tensor-core instructions of the redesigned kernels (SASS_CHECKS); raise
-    unless each holds its instruction on its operand type, or if an FFMA
-    conv3x3_reflect instantiation is left for a wide conv (CIN and COUT both
-    64 or 128: those run on the tensor cores)."""
+    tensor-core and TMA instructions of the redesigned kernels
+    (SASS_CHECKS); raise unless each holds its instruction."""
     from optimaltextures_tpu_torch.ops import cuda_build
 
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
@@ -156,12 +157,6 @@ def check_sass(libs) -> dict:
         if not bodies or n_want == 0:
             raise AssertionError(f"{kernel}: no {want} {op} in the SASS of {symbol}")
         counts[kernel] = n_want
-    ffma = sorted((int(m[1]), int(m[2])) for f in funcs
-                  if (m := re.search(r"conv3x3_reflectILi(\d+)ELi(\d+)E", f)))
-    print(f"sass conv3x3_reflect (FFMA): (CIN, COUT) {ffma}", flush=True)
-    wide = [c for c in ffma if set(c) <= {64, 128}]
-    if wide:
-        raise AssertionError(f"FFMA conv3x3_reflect left for wide convs: {wide}")
     return counts
 
 
@@ -173,32 +168,17 @@ def _smi() -> str:
 
 
 def _time_ms(fn, reps: int) -> float:
-    import torch
+    """CUDA events around ``reps`` calls of ``fn``, after a warm-up."""
+    from optimaltextures_tpu_torch.tools import edge_convs
 
-    for _ in range(3):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return edge_convs.event_ms(fn, reps)
 
 
 def _style_exemplar(seed: int, size: int = 512) -> np.ndarray:
-    """A (1, size, size, 3) texture in [0, 1] from ``seed``: smooth blobs
-    plus fine grain, so every VGG depth sees structure."""
-    rng = np.random.default_rng(seed)
-    img = np.zeros((size, size, 3), np.float32)
-    for cells, amp in ((8, 0.5), (32, 0.3), (128, 0.2)):
-        if cells > size:
-            continue
-        coarse = rng.uniform(-1, 1, (cells, cells, 3)).astype(np.float32)
-        img += amp * np.kron(coarse, np.ones((size // cells, size // cells, 1),
-                                             np.float32))
-    img += 0.1 * rng.standard_normal((size, size, 3)).astype(np.float32)
-    return np.clip(0.5 + 0.5 * img, 0.0, 1.0)[None]
+    """A (1, size, size, 3) texture in [0, 1] from ``seed``."""
+    from optimaltextures_tpu_torch.tools import edge_convs
+
+    return edge_convs.style_exemplar(seed, size)
 
 
 def _expected_launches(layer_depths, passes: int) -> dict:
@@ -221,32 +201,22 @@ def check_kernels(seed: int, reps: int, card: str):
     import torch
     import torch.nn.functional as F
 
-    from optimaltextures_tpu_torch.models import fastcodec
-    from optimaltextures_tpu_torch.models.vgg import VGGBank, _run_stack
-    from optimaltextures_tpu_torch.models import arch
+    from optimaltextures_tpu_torch.models.vgg import VGGBank
     from optimaltextures_tpu_torch.ops import codec
+    from optimaltextures_tpu_torch.tools import edge_convs
 
     dev = torch.device("cuda")
     peak_flops, peak_bw = _peaks(card)
     peak_tf32, _ = _peaks(card, "tf32")
     bank = VGGBank(3, device=dev)
-    enc, dec, enc2 = bank.enc_params[3], bank.dec_params[3], bank.enc_params[2]
     px = torch.as_tensor(_style_exemplar(seed), device=dev)
 
     # main-path inputs from one plain 512-px roundtrip (relu1/relu2 scales)
-    sc = fastcodec.pack_stage(enc, dec, 3, enc2[0])
-    enc_k, dec_k = sc.head, sc.tail
-    plain = codec.conv3x3_plain
-    rgb = fastcodec.pixels_to_rgb(enc[0], px)
-    r11 = plain(rgb, enc_k[0], relu=True)
-    r11p = plain(r11, enc_k[1], relu=True, pool=True)
-    r2a = plain(r11p, enc_k[2], relu=True)
-    feat3 = _run_stack(sc.enc_rest, [(128, 256, 3, "", "relu")],
-                       plain(r2a, enc_k[3], relu=True, pool=True))
-    d128 = _run_stack(sc.dec_rest, arch.decoder_specs(3)[:-4], feat3)
-    up128 = plain(d128, dec_k[0], relu=True, up=True)
-    d64 = plain(up128, dec_k[1], relu=True)
-    up64 = plain(d64, dec_k[2], relu=True, up=True)
+    t = edge_convs.roundtrip(bank, px)
+    sc = t["stage"]
+    enc_k, dec_k, plain = sc.head, sc.tail, codec.conv3x3_plain
+    rgb, r11, r11p, r2a, d128, up128, d64, up64 = (
+        t[k] for k in ("rgb", "r11", "r11p", "r2a", "d128", "up128", "d64", "up64"))
 
     def conv_call(x, p, up=False):
         t = x.permute(0, 3, 1, 2)
@@ -315,6 +285,12 @@ def check_kernels(seed: int, reps: int, card: str):
               f"F.conv2d {lib_ms:.4f} ms  bound {max(t_flops, t_bytes):.4f} ms "
               f"({'operations' if t_flops >= t_bytes else 'bytes'})", flush=True)
         _add_row(rows, name, err, ms, plain_ms, lib_ms, t_flops, t_bytes)
+
+    # the two bytes-bound kernels at both ends of the pass sizes, by the
+    # device's own record: the event-timed loop above can carry host time
+    edge = edge_convs.time_edge_convs(seed, reps * 10, card)
+    for name in EDGE_CODEC:
+        rows[name]["device_ms"] = edge[(name, 512)]["device_ms"]
     return rows
 
 
@@ -709,11 +685,14 @@ def profile_run(name, cfg, styles, content=None):
     busy = sum(dev_us(e) for e in kernels) / 1e3
     part = lambda key: sum(dev_us(e) for e in kernels if key in e.key) / 1e3
     tc = part('conv3x3_tf32x3') + part('upconv_tf32x3')
+    edge = part('final_to_rgb_tma') + part('rgb_to_relu1_tma')
     print(f"profile {name} (warm run, profiler on): wall {wall * 1e3:.1f} ms, "
           f"device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% of the "
-          f"wall), codec kernels {part('conv3x3_reflect') + tc:.1f} ms "
+          f"wall), codec kernels {edge + tc:.1f} ms "
           f"(tensor-core {tc:.1f}: conv3x3_p2 + conv3x3_full "
-          f"{part('conv3x3_tf32x3'):.1f}, upconv_p2 {part('upconv_tf32x3'):.1f}), "
+          f"{part('conv3x3_tf32x3'):.1f}, upconv_p2 {part('upconv_tf32x3'):.1f}; "
+          f"final_to_rgb {part('final_to_rgb_tma'):.3f}, rgb_to_relu1 "
+          f"{part('rgb_to_relu1_tma'):.3f}), "
           f"histogram kernel {part('histogram_kernel'):.1f} ms, pwl kernel "
           f"{part('pwl_kernel'):.1f} ms", flush=True)
     for e in sorted(kernels, key=dev_us, reverse=True)[:15]:
@@ -909,7 +888,8 @@ def main() -> int:
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"],
             "bound_by": "operations" if r["t_flops"] >= r["t_bytes"] else "bytes",
-            "library_ms": r["lib_ms"]})
+            "library_ms": r["lib_ms"],
+            **({"device_ms": r["device_ms"]} if "device_ms" in r else {})})
     print(f"device: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,28 +6,32 @@
 // upsample in front, and an optional ReLU and 2x2 max-pool (taken after the
 // ReLU, ceil mode) behind. What bounds each on the H100 sets its design:
 //
-//   rgb_to_relu1  conv3x3_reflect<3, 64, 16, 64, 3, true>    bytes
-//   final_to_rgb  conv3x3_reflect<64, 3, 32, 4, 8, false>    bytes
+//   rgb_to_relu1  rgb_to_relu1_tma                           bytes
+//   final_to_rgb  final_to_rgb_tma                           bytes
 //   conv3x3_p2    conv3x3_tf32x3<64|128, 64, RELU, POOL>     operations
 //   conv3x3_full  conv3x3_tf32x3<64|128, 128, RELU, POOL>    operations
 //   upconv_p2     upconv_tf32x3<64|128>                      operations
 //
 // The narrow entry and final convs do 54 / 1152 FLOPs per 4+256 / 256+12
-// bytes of pixel traffic, below the card's ridge: a plain FFMA direct
-// convolution that reads its input once and writes its output once. The
+// bytes of pixel traffic, below the card's ridge: FFMA direct convolutions
+// that read their input once and write their output once, with the 64-channel
+// side moved by TMA so the bytes stay in flight while the FMAs run. The
 // wide convs do 2 x 9 x Cin multiply-adds per output value (upconv, folded:
 // 2 x 4 x Cin) against 8 bytes of traffic, far above it: implicit GEMMs on
 // the tensor cores, three TF32 products per f32 product.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (or cudaErrorInvalidValue for a configuration
-// it was not built for).
+// it was not built for, cudaErrorMisalignedAddress for a TMA operand whose
+// base is not 16-byte aligned).
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 
 namespace {
 
@@ -40,145 +44,498 @@ __device__ __forceinline__ int reflect1(int i, int n) {
 }
 
 // ---------------------------------------------------------------------------
-// rgb_to_relu1 and final_to_rgb: conv3x3_reflect, an FFMA direct convolution.
+// rgb_to_relu1 and final_to_rgb: FFMA direct convolutions around TMA.
 //
-// Replaces ops/pallas/codec.py:578 rgb_to_relu1 (body _entry_kernel :551)
+// Replace ops/pallas/codec.py:578 rgb_to_relu1 (body _entry_kernel :551)
 // and :515 final_to_rgb (_final_kernel :491; the next stage's 1x1 RGB
-// renorm is folded into its weights at pack time). Bytes-bound:
-// * A block computes a TILE x TILE patch of output pixels for CO_TILE output
-//   channels of one image. Thread t owns one 2x2 pixel quad and CPT
-//   consecutive output channels, so each thread's stores are float4-wide
-//   (the 64-channel output of the entry conv is written once, coalesced).
-// * Input channels stream through shared memory CI_CHUNK at a time: the
-//   (TILE+2)^2 halo with the reflect indices resolved while loading, plus
-//   the weight slice [tap][ci][co] for the block's output channels. No
-//   padded copy reaches device memory.
-// * Each thread keeps its 4 x CPT accumulators in f32 registers; per input
-//   channel it reads a 4x4 input window once and each weight float4 once
-//   (broadcast across the warp, which shares the channel group).
+// renorm is folded into its weights at pack time). Both move 256 bytes a
+// pixel on their 64-channel side and 12 on the other, and do 1728 FMAs a
+// pixel: at 512^2 the bytes take 0.021 ms at 3.35 TB/s and the FMAs 0.0135
+// ms at 67 TF/s. So what bounds them is bytes, with the FMAs close behind:
+// the 64-channel traffic must stay in flight while the FMAs run, and the
+// FMAs must not wait on shared-memory reads.
+//
+// Both are persistent (one block per SM walks 16 x 16-pixel tiles with 8
+// computing warps, so even the 256^2 pass fills every SM) and keep the 64-channel
+// side in shared memory in the 128-byte-swizzled TMA layout: a pixel's 32
+// channels are one 128-byte line, its 16-byte chunk j stored at chunk
+// j ^ (pixel & 7) (sw128). A quarter-warp that reads or writes one chunk of
+// 8 consecutive pixels then hits 32 distinct banks.
+//
+// final_to_rgb_tma (64 -> 3):
+// * Input: a 3-slot ring of half tiles (32 channels of the 18 x 18 halo,
+//   41,472 bytes) filled by TMA. A producer warp (warp 8) starts each load
+//   on the slot's "full" mbarrier once the 8 consumer warps have released
+//   the slot on its "empty" one, so loads stay in flight while the
+//   consumers compute and no consumer waits to start one. Consumers sync
+//   among themselves only (named barrier 1). TMA fills coordinates outside
+//   the image with zeros; the 1-px reflect
+//   halo is repaired in shared memory after the box lands (columns, then
+//   whole rows, so corners follow), as the TPU kernel's DMA-then-repair.
+// * Compute: warp w takes channels 4w..4w+3 of each half (its 108 weights
+//   of the half in registers, read once from shared memory), and every
+//   warp the whole tile: lane (cx, rg) owns column cx, rows 8rg..8rg+7,
+//   all 3 output channels (24 accumulators). Per halo row it reads three
+//   16-byte chunks and does up to 108 FMAs: 30 reads for 864 FMAs a half.
+// * Epilogue, once per tile: the 8 warps' partial sums meet in shared
+//   memory (24 KB, double-buffered so the next tile needs no barrier), one
+//   thread per pixel adds them and the bias and stores its 3 values (a tile
+//   row is 192 contiguous bytes).
+//
+// rgb_to_relu1_tma (3 -> 64):
+// * Input: the 18 x 18 x 3 halo with the reflect resolved while loading,
+//   plain loads (its 12-byte pixel stride is no TMA stride for every
+//   width), fetched into registers one tile ahead and stored to shared
+//   memory at the tile's start, double-buffered.
+// * Compute: thread (q, s) owns 4 pixels of one column (rows 4(s >> 4)..+3,
+//   column s & 15) and channels 16q..16q+15, 4 at a time: its 6 x 3 x 3
+//   input window in registers, 16 accumulators, one broadcast float4 of
+//   weights per 16 FMAs. Bias and ReLU, then each float4 goes to a staged
+//   output tile (64 KB: two 32-channel halves, 128-byte swizzled).
+// * Output: thread 0 stores each staged half with one TMA bulk tensor store
+//   (TMA clips the ragged edge), and the staging is double-buffered: tile
+//   k's stores run while tile k + 1 computes, and a buffer is rewritten
+//   only after cp.async.bulk.wait_group.read says its stores have read it.
 
-template <int CIN, int COUT, int TILE, int CO_TILE, int CI_CHUNK, bool RELU>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_reflect(const float* __restrict__ x, const float* __restrict__ w,
-                const float* __restrict__ bias, float* __restrict__ y, int H,
-                int W) {
-  // x: (N, H, W, CIN); w: (3, 3, CIN, COUT) HWIO; y: (N, H, W, COUT)
-  constexpr int QS = TILE / 2;           // quads per tile side
-  constexpr int NQ = QS * QS;            // quads per tile
-  constexpr int NG = kThreads / NQ;      // channel groups per block
-  constexpr int CPT = CO_TILE / NG;      // output channels per thread
-  constexpr int HS = TILE + 2;           // halo side
-  constexpr int CO_TILES = (COUT + CO_TILE - 1) / CO_TILE;
-  static_assert(NQ * NG == kThreads, "thread layout");
-  static_assert(CPT * NG == CO_TILE && CPT % 4 == 0, "channel layout");
-  static_assert(CIN % CI_CHUNK == 0, "input-channel chunking");
+constexpr int kEdgeTile = 16;                              // output pixels a tile side
+constexpr int kEdgeHalo = kEdgeTile + 2;                   // 18
+constexpr int kEdgePx = kEdgeTile * kEdgeTile;             // 256 = threads
+constexpr int kEdgeHaloPx = kEdgeHalo * kEdgeHalo;         // 324
 
-  __shared__ float xs[CI_CHUNK * HS * HS];
-  __shared__ __align__(16) float ws[9 * CI_CHUNK * CO_TILE];
+constexpr int kFinStages = 3;
+constexpr int kFinThreads = kThreads + 32;                 // + the producer warp
+constexpr int kFinBox = kEdgeHaloPx * 128;                 // 41,472 bytes landed a slot
+constexpr int kFinSlot = 41 * 1024;                        // 1024-aligned slot
+constexpr int kFinOffW = kFinStages * kFinSlot;            // weights [tap][ci][co]
+constexpr int kFinOffRed = kFinOffW + 9 * 64 * 3 * 4;      // partial sums, 2 buffers
+constexpr int kFinRedBuf = 8 * 3 * kEdgePx * 4;            // [warp][co][px]
+constexpr int kFinOffBar = kFinOffRed + 2 * kFinRedBuf;    // full, then empty barriers
+constexpr int kFinSmem = kFinOffBar + 16 * kFinStages + 1024;   // + alignment slack
 
-  const int tid = threadIdx.x;
-  const int q = tid % NQ, g = tid / NQ;
-  const int qy = q / QS, qx = q % QS;
-  const int n = blockIdx.z / CO_TILES;
-  const int co0 = (blockIdx.z % CO_TILES) * CO_TILE;
-  const int ty0 = blockIdx.y * TILE, tx0 = blockIdx.x * TILE;
-  const float* xn = x + static_cast<size_t>(n) * H * W * CIN;
+constexpr int kEntHalf = kEdgePx * 128;                    // 32 channels of a tile
+constexpr int kEntIn = 3 * kEdgeHaloPx;                    // 972 floats [ci][row][col]
+constexpr int kEntLoads = (kEntIn + kThreads - 1) / kThreads;
+constexpr int kEntOffIn = 4 * kEntHalf;                    // after two staged tiles
+constexpr int kEntOffW = kEntOffIn + 2 * kEntIn * 4;       // weights [tap][ci][co], bias
+constexpr int kEntSmem = kEntOffW + (27 + 1) * 64 * 4 + 1024;
 
-  float acc[4][CPT];
-#pragma unroll
-  for (int p = 0; p < 4; ++p)
-#pragma unroll
-    for (int k = 0; k < CPT; ++k) acc[p][k] = 0.f;
+static_assert(kEdgePx == kThreads, "one thread per tile pixel in the epilogues");
+static_assert(kFinBox <= kFinSlot && kFinSlot % 1024 == 0, "ring slots");
 
-  for (int c0 = 0; c0 < CIN; c0 += CI_CHUNK) {
-    __syncthreads();  // the previous chunk's reads are done
-    for (int i = tid; i < HS * HS * CI_CHUNK; i += kThreads) {
-      const int ci = i % CI_CHUNK, p = i / CI_CHUNK;
-      // rows/cols past the image (a ragged last tile) feed no stored output:
-      // clamp them to stay in bounds
-      const int gy = reflect1(min(ty0 + p / HS - 1, H), H);
-      const int gx = reflect1(min(tx0 + p % HS - 1, W), W);
-      xs[ci * HS * HS + p] =
-          __ldg(xn + (static_cast<size_t>(gy) * W + gx) * CIN + c0 + ci);
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of 16-byte chunk j of line (pixel) p in a 128-byte-swizzled
+// region that starts 1024-aligned
+__device__ __forceinline__ int sw128(int p, int j) {
+  return p * 128 + ((j ^ (p & 7)) << 4);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// order this thread's generic-proxy shared-memory accesses before later
+// async-proxy (TMA) ones
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src,
+                                             int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk store groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// tile t of an (n, H, W) image stack in 16 x 16 tiles: image, first row, first column
+struct EdgeTile {
+  int n, y0, x0;
+};
+
+__device__ __forceinline__ EdgeTile edge_tile(int t, int tiles_x, int tiles_y) {
+  EdgeTile e;
+  e.x0 = (t % tiles_x) * kEdgeTile;
+  const int rest = t / tiles_x;
+  e.y0 = (rest % tiles_y) * kEdgeTile;
+  e.n = rest / tiles_y;
+  return e;
+}
+
+// copy 16-byte chunk j of halo pixel src to halo pixel dst
+__device__ __forceinline__ void copy_line_chunk(uint8_t* slot, int dst, int src, int j) {
+  *reinterpret_cast<float4*>(slot + sw128(dst, j)) =
+      *reinterpret_cast<const float4*>(slot + sw128(src, j));
+}
+
+// one arrival on the barrier (an "empty" barrier counts 8: one per consumer warp)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// the 256 consumer threads only (the producer warp never joins)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kFinThreads, 1)
+final_to_rgb_tma(const __grid_constant__ CUtensorMap xmap, const float* __restrict__ w,
+                 const float* __restrict__ bias, float* __restrict__ y, int n, int H,
+                 int W) {
+  // xmap: x (N, H, W, 64), boxes of {32 channels, 18 columns, 18 rows, 1};
+  // w: (3, 3, 64, 3) HWIO; y: (N, H, W, 3). Item i: half i & 1 of this
+  // block's tile i >> 1, in ring slot i % 3.
+  extern __shared__ uint8_t fin_smem[];
+  uint8_t* sm = fin_smem + ((1024u - (saddr(fin_smem) & 1023u)) & 1023u);
+  float* ws = reinterpret_cast<float*>(sm + kFinOffW);
+  const uint32_t s_ring = saddr(sm), s_full = saddr(sm + kFinOffBar);
+  const uint32_t s_empty = s_full + 8 * kFinStages;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tiles_x = (W + kEdgeTile - 1) / kEdgeTile;
+  const int tiles_y = (H + kEdgeTile - 1) / kEdgeTile;
+  const int tiles = n * tiles_x * tiles_y;
+  const int mine = (tiles - 1 - static_cast<int>(blockIdx.x)) / static_cast<int>(gridDim.x) + 1;
+  const int items = 2 * mine;
+
+  if (tid == 0) {
+    for (int s = 0; s < kFinStages; ++s) {
+      mbar_init(s_full + 8 * s, 1);
+      mbar_init(s_empty + 8 * s, 8);    // one arrival per consumer warp
     }
-    for (int i = tid; i < 9 * CI_CHUNK * CO_TILE; i += kThreads) {
-      const int co = i % CO_TILE, r = i / CO_TILE;  // r = tap * CI_CHUNK + ci
-      const int tap = r / CI_CHUNK, ci = r % CI_CHUNK;
-      const int gco = co0 + co;
-      ws[i] = gco < COUT
-                  ? __ldg(w + (static_cast<size_t>(tap) * CIN + c0 + ci) * COUT + gco)
-                  : 0.f;
-    }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < 9 * 64 * 3; i += kFinThreads) ws[i] = __ldg(w + i);
+  __syncthreads();
 
-#pragma unroll 2
-    for (int ci = 0; ci < CI_CHUNK; ++ci) {
-      float v[4][4];
-      const float* xc = xs + ci * HS * HS + (2 * qy) * HS + 2 * qx;
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) v[a][b] = xc[a * HS + b];
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const int kh = tap / 3, kw = tap % 3;
-        const float4* wp = reinterpret_cast<const float4*>(
-            ws + (tap * CI_CHUNK + ci) * CO_TILE + g * CPT);
-#pragma unroll
-        for (int k4 = 0; k4 < CPT / 4; ++k4) {
-          const float4 wv = wp[k4];
-#pragma unroll
-          for (int p = 0; p < 4; ++p) {
-            const float xv = v[kh + p / 2][kw + p % 2];
-            acc[p][4 * k4 + 0] = fmaf(xv, wv.x, acc[p][4 * k4 + 0]);
-            acc[p][4 * k4 + 1] = fmaf(xv, wv.y, acc[p][4 * k4 + 1]);
-            acc[p][4 * k4 + 2] = fmaf(xv, wv.z, acc[p][4 * k4 + 2]);
-            acc[p][4 * k4 + 3] = fmaf(xv, wv.w, acc[p][4 * k4 + 3]);
-          }
-        }
+  if (__shfl_sync(0xffffffffu, warp, 0) == 8) {
+    // producer warp: item i into its slot once the consumers freed it (the
+    // role test is warp-uniform)
+    if (lane == 0) {
+      for (int i = 0; i < items; ++i) {
+        const int slot = i % kFinStages;
+        if (i >= kFinStages) mbar_wait(s_empty + 8 * slot, ((i / kFinStages) - 1) & 1);
+        const EdgeTile e = edge_tile(blockIdx.x + (i >> 1) * gridDim.x, tiles_x, tiles_y);
+        mbar_expect_tx(s_full + 8 * slot, kFinBox);
+        tma_load_4d(s_ring + slot * kFinSlot, &xmap, s_full + 8 * slot, 32 * (i & 1),
+                    e.x0 - 1, e.y0 - 1, e.n);
       }
     }
+    return;
   }
 
-  // epilogue: bias, ReLU
-  const int cbase = co0 + g * CPT;
-#pragma unroll
-  for (int k = 0; k < CPT; ++k) {
-    const float bk = cbase + k < COUT ? __ldg(bias + cbase + k) : 0.f;
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const float t = acc[p][k] + bk;
-      acc[p][k] = RELU ? fmaxf(t, 0.f) : t;
+  const int cx = lane & 15, rg = lane >> 4;
+  float acc[8][3];
+  for (int i = 0; i < items; ++i) {
+    const int slot = i % kFinStages, half = i & 1;
+    const EdgeTile e = edge_tile(blockIdx.x + (i >> 1) * gridDim.x, tiles_x, tiles_y);
+    uint8_t* st = sm + slot * kFinSlot;
+    mbar_wait(s_full + 8 * slot, (i / kFinStages) & 1);
+    // reflect repair: halo column 0 (image column -1) takes halo column 2,
+    // the halo column of image column W takes that of W - 2; then whole
+    // rows the same way. Block-uniform conditions, so every consumer warp
+    // meets the same sequence of named barriers.
+    const bool left = e.x0 == 0, right = e.x0 + kEdgeTile >= W;
+    const bool top = e.y0 == 0, bottom = e.y0 + kEdgeTile >= H;
+    if (left || right) {
+      for (int k = tid; k < 2 * kEdgeHalo * 8; k += kThreads) {
+        const int side = k >= kEdgeHalo * 8, r = (k >> 3) - side * kEdgeHalo;
+        if (side ? right : left) {
+          const int dst = side ? W - e.x0 + 1 : 0, src = side ? W - e.x0 - 1 : 2;
+          copy_line_chunk(st, r * kEdgeHalo + dst, r * kEdgeHalo + src, k & 7);
+        }
+      }
+      consumer_sync();
     }
-  }
+    if (top || bottom) {
+      for (int k = tid; k < 2 * kEdgeHalo * 8; k += kThreads) {
+        const int side = k >= kEdgeHalo * 8, c = (k >> 3) - side * kEdgeHalo;
+        if (side ? bottom : top) {
+          const int dst = side ? H - e.y0 + 1 : 0, src = side ? H - e.y0 - 1 : 2;
+          copy_line_chunk(st, dst * kEdgeHalo + c, src * kEdgeHalo + c, k & 7);
+        }
+      }
+      consumer_sync();
+    }
+    // this warp's 4 input channels of the half: weights [tap][ci][co]
+    const int c0 = 32 * half + 4 * warp;
+    float wr[9][12];
 #pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int Y = ty0 + 2 * qy + p / 2, X = tx0 + 2 * qx + p % 2;
-    if (Y >= H || X >= W) continue;
-    float* yp = y + ((static_cast<size_t>(n) * H + Y) * W + X) * COUT + cbase;
-    if (COUT % 4 == 0) {
+    for (int tap = 0; tap < 9; ++tap) {
+      const float4* wp = reinterpret_cast<const float4*>(ws + (tap * 64 + c0) * 3);
 #pragma unroll
-      for (int k4 = 0; k4 < CPT / 4; ++k4)
-        reinterpret_cast<float4*>(yp)[k4] =
-            make_float4(acc[p][4 * k4], acc[p][4 * k4 + 1], acc[p][4 * k4 + 2],
-                        acc[p][4 * k4 + 3]);
-    } else {
+      for (int k = 0; k < 3; ++k) {
+        const float4 v = wp[k];
+        wr[tap][4 * k] = v.x; wr[tap][4 * k + 1] = v.y;
+        wr[tap][4 * k + 2] = v.z; wr[tap][4 * k + 3] = v.w;
+      }
+    }
+    if (half == 0) {
 #pragma unroll
-      for (int k = 0; k < CPT; ++k)
-        if (cbase + k < COUT) yp[k] = acc[p][k];
+      for (int oy = 0; oy < 8; ++oy)
+#pragma unroll
+        for (int co = 0; co < 3; ++co) acc[oy][co] = 0.f;
+    }
+#pragma unroll
+    for (int iy = 0; iy < 10; ++iy) {
+      float v[3][4];
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw) {
+        const float4 q = *reinterpret_cast<const float4*>(
+            st + sw128((8 * rg + iy) * kEdgeHalo + cx + kw, warp));
+        v[kw][0] = q.x; v[kw][1] = q.y; v[kw][2] = q.z; v[kw][3] = q.w;
+      }
+#pragma unroll
+      for (int kh = 0; kh < 3; ++kh) {
+        const int oy = iy - kh;
+        if (oy < 0 || oy >= 8) continue;
+#pragma unroll
+        for (int kw = 0; kw < 3; ++kw)
+#pragma unroll
+          for (int ci = 0; ci < 4; ++ci)
+#pragma unroll
+            for (int co = 0; co < 3; ++co)
+              acc[oy][co] = fmaf(v[kw][ci], wr[3 * kh + kw][3 * ci + co], acc[oy][co]);
+      }
+    }
+    // this warp is done with the slot (its repair writes included)
+    fence_async_smem();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(s_empty + 8 * slot);
+    if (half == 1) {
+      // the 8 warps' partial sums -> one thread per pixel: bias, store. The
+      // buffer alternates by tile: a warp rewrites it two tiles on, past the
+      // next tile's barrier, which every reader of this one has reached
+      float* red = reinterpret_cast<float*>(sm + kFinOffRed + ((i >> 1) & 1) * kFinRedBuf);
+#pragma unroll
+      for (int oy = 0; oy < 8; ++oy)
+#pragma unroll
+        for (int co = 0; co < 3; ++co)
+          red[(warp * 3 + co) * kEdgePx + (8 * rg + oy) * kEdgeTile + cx] = acc[oy][co];
+      consumer_sync();
+      const int Y = e.y0 + (tid >> 4), X = e.x0 + (tid & 15);
+      if (Y < H && X < W) {
+        float s[3];
+#pragma unroll
+        for (int co = 0; co < 3; ++co) s[co] = __ldg(bias + co);
+#pragma unroll
+        for (int wp = 0; wp < 8; ++wp)
+#pragma unroll
+          for (int co = 0; co < 3; ++co) s[co] += red[(wp * 3 + co) * kEdgePx + tid];
+        float* yp = y + ((static_cast<size_t>(e.n) * H + Y) * W + X) * 3;
+#pragma unroll
+        for (int co = 0; co < 3; ++co) yp[co] = s[co];
+      }
     }
   }
 }
 
-template <int CIN, int COUT, int TILE, int CO_TILE, int CI_CHUNK, bool RELU>
-int launch(const float* x, const float* w, const float* b, float* y, int n,
-           int h, int wd, void* stream) {
-  constexpr int CO_TILES = (COUT + CO_TILE - 1) / CO_TILE;
-  const dim3 grid((wd + TILE - 1) / TILE, (h + TILE - 1) / TILE, n * CO_TILES);
-  conv3x3_reflect<CIN, COUT, TILE, CO_TILE, CI_CHUNK, RELU>
-      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(x, w, b, y, h,
-                                                                 wd);
-  return static_cast<int>(cudaGetLastError());
+__global__ void __launch_bounds__(kThreads, 1)
+rgb_to_relu1_tma(const __grid_constant__ CUtensorMap ymap, const float* __restrict__ x,
+                 const float* __restrict__ w, const float* __restrict__ bias, int n,
+                 int H, int W) {
+  // x: (N, H, W, 3); w: (3, 3, 3, 64) HWIO; ymap: y (N, H, W, 64), boxes of
+  // {32 channels, 16 columns, 16 rows, 1}
+  extern __shared__ uint8_t ent_smem[];
+  uint8_t* sm = ent_smem + ((1024u - (saddr(ent_smem) & 1023u)) & 1023u);
+  float* ws = reinterpret_cast<float*>(sm + kEntOffW);   // [27][64], then the bias
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q = warp >> 1;                               // channels 16q..16q+15
+  const int s = ((warp & 1) << 5) | lane;                // pixel set
+  const int cx = s & 15, ry = 4 * (s >> 4);              // column, first row
+  const int tiles_x = (W + kEdgeTile - 1) / kEdgeTile;
+  const int tiles_y = (H + kEdgeTile - 1) / kEdgeTile;
+  const int tiles = n * tiles_x * tiles_y;
+  const int mine = (tiles - 1 - static_cast<int>(blockIdx.x)) / static_cast<int>(gridDim.x) + 1;
+
+  for (int i = tid; i < 28 * 64; i += kThreads)
+    ws[i] = __ldg(i < 27 * 64 ? w + i : bias + i - 27 * 64);
+
+  // the halo of tile k into registers: element e = ci * 324 + row * 18 + col
+  float pre[kEntLoads];
+  auto fetch = [&](int k) {
+    const EdgeTile e = edge_tile(blockIdx.x + k * gridDim.x, tiles_x, tiles_y);
+    const float* xn = x + static_cast<size_t>(e.n) * H * W * 3;
+#pragma unroll
+    for (int l = 0; l < kEntLoads; ++l) {
+      const int el = tid + l * kThreads;
+      if (el < kEntIn) {
+        const int ci = el / kEdgeHaloPx, p = el % kEdgeHaloPx;
+        // rows/cols past the image (a ragged last tile) feed no stored
+        // output: clamp them to stay in bounds
+        const int gy = reflect1(min(e.y0 + p / kEdgeHalo - 1, H), H);
+        const int gx = reflect1(min(e.x0 + p % kEdgeHalo - 1, W), W);
+        pre[l] = __ldg(xn + (static_cast<size_t>(gy) * W + gx) * 3 + ci);
+      }
+    }
+  };
+  fetch(0);
+
+  for (int k = 0; k < mine; ++k) {
+    const int buf = k & 1;
+    const EdgeTile e = edge_tile(blockIdx.x + k * gridDim.x, tiles_x, tiles_y);
+    float* in = reinterpret_cast<float*>(sm + kEntOffIn) + buf * kEntIn;
+#pragma unroll
+    for (int l = 0; l < kEntLoads; ++l)
+      if (tid + l * kThreads < kEntIn) in[tid + l * kThreads] = pre[l];
+    // staging buffer buf last held tile k - 2: its stores must have read it
+    if (tid == 0) bulk_wait_read<1>();
+    __syncthreads();
+    if (k + 1 < mine) fetch(k + 1);
+
+    float v[3][6][3];   // [ci][row][col] of this thread's input window
+#pragma unroll
+    for (int ci = 0; ci < 3; ++ci)
+#pragma unroll
+      for (int r = 0; r < 6; ++r)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          v[ci][r][c] = in[ci * kEdgeHaloPx + (ry + r) * kEdgeHalo + cx + c];
+    uint8_t* st = sm + buf * 2 * kEntHalf;
+    const float4* w4 = reinterpret_cast<const float4*>(ws);
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int j = 4 * q + g;            // 16-byte chunk of the pixel's 64 channels
+      float acc[4][4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[p][c] = 0.f;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+        for (int ci = 0; ci < 3; ++ci) {
+          const float4 wv = w4[(tap * 3 + ci) * 16 + j];
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            const float xv = v[ci][p + tap / 3][tap % 3];
+            acc[p][0] = fmaf(xv, wv.x, acc[p][0]);
+            acc[p][1] = fmaf(xv, wv.y, acc[p][1]);
+            acc[p][2] = fmaf(xv, wv.z, acc[p][2]);
+            acc[p][3] = fmaf(xv, wv.w, acc[p][3]);
+          }
+        }
+      const float4 b = w4[27 * 16 + j];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const float4 o = make_float4(
+            fmaxf(acc[p][0] + b.x, 0.f), fmaxf(acc[p][1] + b.y, 0.f),
+            fmaxf(acc[p][2] + b.z, 0.f), fmaxf(acc[p][3] + b.w, 0.f));
+        *reinterpret_cast<float4*>(st + (j >> 3) * kEntHalf +
+                                   sw128((ry + p) * kEdgeTile + cx, j & 7)) = o;
+      }
+    }
+    // the staged tile is complete: thread 0 stores both halves by TMA
+    fence_async_smem();
+    __syncthreads();
+    if (tid == 0) {
+      const uint32_t src = saddr(st);
+      tma_store_4d(&ymap, src, 0, e.x0, e.y0, e.n);
+      tma_store_4d(&ymap, src + kEntHalf, 32, e.x0, e.y0, e.n);
+      bulk_commit();
+    }
+  }
+  if (tid == 0) bulk_wait_all();   // the staging outlives every store's read
+}
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (the
+// library links no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the TMA map of an (n, h, w, 64) float32 tensor, boxes {32 channels, box_w,
+// box_h, 1}, 128-byte swizzled; 0 or a cudaError_t code
+int map_nhwc64(CUtensorMap* map, const float* base, int n, int h, int w, int box_w,
+               int box_h) {
+  if (reinterpret_cast<uintptr_t>(base) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return static_cast<int>(cudaErrorSymbolNotFound);
+  std::memset(map, 0, sizeof *map);
+  const cuuint64_t px = 64 * sizeof(float);
+  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(w), static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[3] = {px, px * w, px * w * h};
+  const cuuint32_t box[4] = {32, static_cast<cuuint32_t>(box_w),
+                             static_cast<cuuint32_t>(box_h), 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(base), dims,
+             strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
+// a persistent grid: one block per SM, or one per tile when there are fewer
+int edge_grid(int n, int h, int w, int* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles = static_cast<long long>(n) * ((h + kEdgeTile - 1) / kEdgeTile) *
+                          ((w + kEdgeTile - 1) / kEdgeTile);
+  if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  *grid = static_cast<int>(tiles < sms ? tiles : sms);
+  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -673,10 +1030,20 @@ int launch_up(const float* x, const float* wup, const float* b, float* y, int n,
 
 extern "C" {
 
-// (N, H, W, 3) -> relu(conv) (N, H, W, 64)
+// (N, H, W, 3) -> relu(conv) (N, H, W, 64); y 16-byte aligned (TMA stores)
 int optex_rgb_to_relu1(const float* x, const float* w, const float* b, float* y,
                        int n, int h, int wd, void* stream) {
-  return launch<3, 64, 16, 64, 3, true>(x, w, b, y, n, h, wd, stream);
+  if (n <= 0 || n > 65535 || h < 2 || wd < 2) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ymap;
+  int grid = 0;
+  if (int rc = map_nhwc64(&ymap, y, n, h, wd, kEdgeTile, kEdgeTile)) return rc;
+  if (int rc = edge_grid(n, h, wd, &grid)) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      rgb_to_relu1_tma, cudaFuncAttributeMaxDynamicSharedMemorySize, kEntSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rgb_to_relu1_tma<<<grid, kThreads, kEntSmem, static_cast<cudaStream_t>(stream)>>>(
+      ymap, x, w, b, n, h, wd);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // (N, H, W, cin) -> (N, H, W, 64), or (N, ceil(H/2), ceil(W/2), 64) when
@@ -705,10 +1072,21 @@ int optex_upconv_p2(const float* x, const float* wup, const float* b, float* y,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// (N, H, W, 64) -> conv (N, H, W, 3), no ReLU (the renorm is folded into w, b)
+// (N, H, W, 64) -> conv (N, H, W, 3), no ReLU (the renorm is folded into w, b);
+// x 16-byte aligned (TMA loads)
 int optex_final_to_rgb(const float* x, const float* w, const float* b, float* y,
                        int n, int h, int wd, void* stream) {
-  return launch<64, 3, 32, 4, 8, false>(x, w, b, y, n, h, wd, stream);
+  if (n <= 0 || n > 65535 || h < 2 || wd < 2) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xmap;
+  int grid = 0;
+  if (int rc = map_nhwc64(&xmap, x, n, h, wd, kEdgeHalo, kEdgeHalo)) return rc;
+  if (int rc = edge_grid(n, h, wd, &grid)) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      final_to_rgb_tma, cudaFuncAttributeMaxDynamicSharedMemorySize, kFinSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  final_to_rgb_tma<<<grid, kFinThreads, kFinSmem, static_cast<cudaStream_t>(stream)>>>(
+      xmap, w, b, y, n, h, wd);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* optex_error_string(int code) {

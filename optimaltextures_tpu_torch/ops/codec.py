@@ -32,15 +32,21 @@ does about it:
   the edge-padded coarse image (:func:`pack_up`, the math of the JAX
   package's ``pack_upconv_fold``): 4 taps per fine pixel, not 9.
 * ``rgb_to_relu1`` (3 -> 64) and ``final_to_rgb`` (64 -> 3) do 54 / 1152
-  FLOPs per 4+256 / 256+12 bytes of pixel traffic: bytes-bound. An FFMA
-  direct conv reads the input once and writes the output once, with the
-  reflect pad resolved while loading and the next stage's renorm folded
-  into the final conv's weights (:func:`pack_final`), so no padded or
-  renormalised copy ever reaches device memory.
+  FLOPs per 4+256 / 256+12 bytes of pixel traffic: bytes-bound (0.021 ms
+  of bytes against 0.0135 ms of FMAs at 512^2). FFMA direct convs that
+  read the input once and write the output once, persistent over 16 x 16
+  tiles, with the 64-channel side moved by TMA in the 128-byte-swizzled
+  layout: ``final_to_rgb`` streams its input through a 3-slot ring and
+  repairs the reflect halo in shared memory; ``rgb_to_relu1`` stages its
+  output tile and stores it by TMA while the next tile computes. The next
+  stage's renorm is folded into the final conv's weights
+  (:func:`pack_final`), so no padded or renormalised copy ever reaches
+  device memory. TMA needs a 16-byte-aligned base: ``final_to_rgb`` raises
+  on an input that is not.
 
 Each conv's weights are packed once (:func:`pack`, :func:`pack_up`,
 :func:`pack_final`, as the JAX package's ``pack_*``): OIHW for the plain
-version, an HWIO copy for the FFMA kernels, and the tensor-core fragments
+version, an HWIO copy for the two FFMA kernels, and the tensor-core fragments
 for the wide convs.
 """
 
@@ -211,6 +217,8 @@ def conv3x3_plain(x: torch.Tensor, p: Packed, relu: bool = False,
 # only) and the function that packs them
 _WEIGHTS = {"conv3x3_p2": ("w_tc", 9, "pack"), "conv3x3_full": ("w_tc", 9, "pack"),
             "upconv_p2": ("w_up", 16, "pack_up")}
+# the kernels that read their input by TMA (the outputs are allocated here)
+_TMA_INPUT = ("final_to_rgb",)
 
 
 def _conv(name: str, x: torch.Tensor, p: Packed, cins, cout: int,
@@ -252,11 +260,15 @@ def _conv(name: str, x: torch.Tensor, p: Packed, cins, cout: int,
         oh, ow = (h + 1) // 2, (wd + 1) // 2
     else:
         oh, ow = h, wd
+    x = x.contiguous()
+    if name in _TMA_INPUT and x.data_ptr() % 16:
+        raise ValueError(f"{name}: TMA needs a 16-byte-aligned input, got "
+                         f"address {x.data_ptr():#x}")
     y = torch.empty((n, oh, ow, cout), device=x.device, dtype=torch.float32)
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = getattr(lib, "optex_" + name)(
-        x.contiguous().data_ptr(), w.data_ptr(), p.b.data_ptr(),
+        x.data_ptr(), w.data_ptr(), p.b.data_ptr(),
         y.data_ptr(), n, h, wd, *[int(a) for a in args], stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {rc} "
@@ -314,7 +326,10 @@ def upconv_p2(x, p: Packed):
 #    _final_kernel :491): the decoder-final 64->3 conv, no ReLU, with the
 #    next stage's 1x1 RGB renorm folded into its weights (pack_final, the
 #    math of pack_final_rgb :121). Bytes-bound: 64 input channels read once
-#    per pixel, 3 written; 32x32-pixel tiles, one thread per 2x2 quad.
+#    per pixel by TMA into a 3-slot ring of half tiles (reflect halo repaired
+#    in shared memory) that a producer warp keeps filling, 3 written;
+#    persistent over 16 x 16 tiles, each of 8 warps 4 channels of a half, the
+#    8 warps' partial sums added once per tile.
 
 def final_to_rgb(x, p: Packed):
     """x (N, H, W, 64) -> conv3x3_reflect (N, H, W, 3), no ReLU; ``p`` from
@@ -325,8 +340,10 @@ def final_to_rgb(x, p: Packed):
 # ---------------------------------------------------------------------------
 # 5. rgb_to_relu1 — replaces ops/pallas/codec.py:578 rgb_to_relu1 (body
 #    _entry_kernel :551): the encoder-entry 3->64 conv + bias + ReLU on the
-#    post-renorm RGB image. Bytes-bound on its 64-channel output: written
-#    once, float4-wide; the 3-channel input is read once into shared memory.
+#    post-renorm RGB image. Bytes-bound on its 64-channel output: staged in
+#    shared memory and written once by TMA bulk stores, double-buffered so a
+#    tile's stores overlap the next tile's FMAs; the 3-channel input is read
+#    once by plain loads, one tile ahead.
 
 def rgb_to_relu1(x, p: Packed):
     """x (N, H, W, 3) -> relu(conv3x3_reflect) (N, H, W, 64)."""

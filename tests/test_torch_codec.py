@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from optimaltextures_tpu.models import fastcodec as jfast
 from optimaltextures_tpu.models import vgg as jvgg
@@ -172,6 +173,117 @@ def test_final_without_renorm_vs_xla():
     b = (rng.standard_normal(3) * 0.1).astype(np.float32)
     got = codec.final_to_rgb(_t(x), codec.pack_final(_oihw(w), _t(b)))
     assert _err(got, _xla_conv(x, w, b, False, False)) < TOL
+
+
+# --- final_to_rgb's and rgb_to_relu1's kernels, emulated ---------------------
+# Their CUDA kernels run only on the card. What they rest on is emulated here:
+# final_to_rgb's halo from a TMA box (zeros outside the image) repaired in
+# place, and both kernels' summation orders, in float32 with fused
+# multiply-adds, held to the kernels' bound against a float64 conv.
+
+EDGE_TILE = 16
+
+
+def _tma_box_repaired(img, y0, x0):
+    """The 18 x 18 halo of the 16 x 16 tile at (y0, x0) as final_to_rgb's
+    kernel builds it: a TMA box of image rows y0 - 1 .. y0 + 16 and columns
+    x0 - 1 .. x0 + 16 with zeros outside the image, then the reflect repair:
+    halo column 0 takes column 2 at the left edge, the column of image column
+    W takes that of W - 2 at the right edge; then whole rows the same way."""
+    h, w = img.shape[:2]
+    box = np.zeros((EDGE_TILE + 2, EDGE_TILE + 2) + img.shape[2:], img.dtype)
+    ys = np.arange(y0 - 1, y0 + EDGE_TILE + 1)
+    xs = np.arange(x0 - 1, x0 + EDGE_TILE + 1)
+    iy, ix = (ys >= 0) & (ys < h), (xs >= 0) & (xs < w)
+    box[np.ix_(iy, ix)] = img[np.ix_(ys[iy], xs[ix])]
+    if x0 == 0:
+        box[:, 0] = box[:, 2]
+    if x0 + EDGE_TILE >= w:
+        box[:, w - x0 + 1] = box[:, w - x0 - 1]
+    if y0 == 0:
+        box[0] = box[2]
+    if y0 + EDGE_TILE >= h:
+        box[h - y0 + 1] = box[h - y0 - 1]
+    return box
+
+
+# whole tiles, a last tile of one row or one column, H or W = 2
+@pytest.mark.parametrize("hw", [(16, 16), (17, 33), (33, 17), (2, 2), (2, 37),
+                                (45, 2), (40, 56)])
+def test_dma_then_repair_halo_is_the_reflect_pad(hw, rng):
+    """Every halo value a stored output reads (image rows -1 .. H, columns
+    -1 .. W) equals the reflect-padded image's."""
+    h, w = hw
+    img = rng.standard_normal((h, w, 2)).astype(np.float32)
+    pad = np.pad(img, ((1, 1), (1, 1), (0, 0)), mode="reflect")
+    for y0 in range(0, h, EDGE_TILE):
+        for x0 in range(0, w, EDGE_TILE):
+            box = _tma_box_repaired(img, y0, x0)
+            rows = min(EDGE_TILE, h - y0) + 2
+            cols = min(EDGE_TILE, w - x0) + 2
+            np.testing.assert_array_equal(
+                box[:rows, :cols], pad[y0:y0 + rows, x0:x0 + cols])
+
+
+def _fma(acc, a, b):
+    """float32 fma(a, b, acc): the product is exact in float64."""
+    return (acc.double() + a.double() * b.double()).float()
+
+
+def _final_kernel_order(x, w, b):
+    """final_to_rgb's kernel in its own order: warp k sums input channels
+    4k..4k+3, then 32 + 4k..+3, over kh, kw, channel, into its partial;
+    the bias plus the 8 partials, warp by warp, make the output."""
+    n, h, wd, _ = x.shape
+    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect").permute(0, 2, 3, 1)
+    out = b.expand(n, h, wd, 3).clone()
+    for k in range(8):
+        acc = torch.zeros(n, h, wd, 3)
+        for c0 in (4 * k, 32 + 4 * k):
+            for kh in range(3):
+                for kw in range(3):
+                    for ci in range(c0, c0 + 4):
+                        acc = _fma(acc, xp[:, kh:kh + h, kw:kw + wd, ci:ci + 1],
+                                   w[kh, kw, ci])
+        out = out + acc
+    return out
+
+
+def _entry_kernel_order(x, w, b):
+    """rgb_to_relu1's kernel in its own order: each output channel sums over
+    the taps, then the 3 input channels, from 0; then the bias, then ReLU."""
+    n, h, wd, _ = x.shape
+    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect").permute(0, 2, 3, 1)
+    acc = torch.zeros(n, h, wd, 64)
+    for kh in range(3):
+        for kw in range(3):
+            for ci in range(3):
+                acc = _fma(acc, xp[:, kh:kh + h, kw:kw + wd, ci:ci + 1], w[kh, kw, ci])
+    return torch.relu(acc + b)
+
+
+@pytest.mark.parametrize("kernel", ["final_to_rgb", "rgb_to_relu1"])
+@pytest.mark.parametrize("kind", ["normal", "wide"])
+def test_edge_kernel_summation_order_holds_the_bound(kernel, kind, rng):
+    """Each kernel's float32 order is within 2e-5 x max|ref| of a float64
+    conv (inputs of both signs, magnitudes over 1e-3 .. 1e3 for "wide")."""
+    cin, cout = (64, 3) if kernel == "final_to_rgb" else (3, 64)
+    shape = (2, 19, 21, cin)
+    if kind == "normal":
+        x = rng.standard_normal(shape)
+    else:
+        x = 10.0 ** rng.uniform(-3, 3, shape) * np.where(rng.uniform(size=shape) < 0.5, -1, 1)
+    x = _t(x)
+    w = _t(rng.standard_normal((3, 3, cin, cout)) * 0.1)
+    b = _t(rng.standard_normal(cout) * 0.1)
+    emulate = _final_kernel_order if kernel == "final_to_rgb" else _entry_kernel_order
+    got = emulate(x, w, b)
+    ref = F.conv2d(F.pad(x.double().permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect"),
+                   w.double().permute(3, 2, 0, 1), b.double()).permute(0, 2, 3, 1)
+    if kernel == "rgb_to_relu1":
+        ref = torch.relu(ref)
+    assert got.shape == ref.shape
+    assert float((got.double() - ref).abs().max()) <= TOL * float(ref.abs().max())
 
 
 def test_wrappers_reject_bad_operands():

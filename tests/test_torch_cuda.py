@@ -108,6 +108,72 @@ def test_tensor_core_kernels_match_plain(name, cin, kw, n, hw, wide):
 
 
 @pytest.mark.cuda
+# both main-path sizes (512^2, 256^2), ragged sizes whose last 16 x 16 tile
+# is one row or one column (17 x 33, 33 x 17, 300 x 47), H or W = 2, one
+# whole tile, batch 1-3, and inputs whose magnitudes spread over 1e-3 .. 1e3
+@pytest.mark.parametrize("name", ["final_to_rgb", "rgb_to_relu1"])
+@pytest.mark.parametrize("n,hw,wide", [
+    (1, (512, 512), False), (1, (256, 256), False), (2, (17, 33), True),
+    (3, (33, 17), False), (1, (2, 2), False), (2, (2, 37), True),
+    (3, (45, 2), False), (2, (16, 16), True), (1, (300, 47), True)])
+def test_edge_convs_match_plain(name, n, hw, wide):
+    """The two bytes-bound kernels (TMA, persistent over 16 x 16 tiles,
+    final_to_rgb's reflect halo repaired after the load): within 2e-5 x
+    max|plain| of the plain version."""
+    _need_gpu()
+    h, w = hw
+    cin, cout = (64, 3) if name == "final_to_rgb" else (3, 64)
+    g = torch.Generator(device="cuda").manual_seed(cin + 7 * h + w + n)
+    x = torch.rand((n, h, w, cin), generator=g, device="cuda")
+    if wide:
+        mag = 10.0 ** (6.0 * torch.rand(x.shape, generator=g, device="cuda") - 3.0)
+        x = torch.where(x < 0.5, -mag, mag)
+    p = codec.pack(torch.randn((cout, cin, 3, 3), generator=g, device="cuda") * 0.1,
+                   torch.randn((cout,), generator=g, device="cuda") * 0.1)
+    before = codec.LAUNCHES[name]
+    got = getattr(codec, name)(x, p)
+    ref = codec.conv3x3_plain(x, p, relu=name == "rgb_to_relu1")
+    torch.cuda.synchronize()
+    assert codec.LAUNCHES[name] == before + 1
+    assert got.shape == ref.shape
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= REL_TOL * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["final_to_rgb", "rgb_to_relu1"])
+def test_edge_convs_repeated_launches_agree(name):
+    """Each output sums in a fixed order whichever block takes its tile, so
+    100 launches at 512^2 equal the first bit for bit (a race in
+    final_to_rgb's TMA ring or rgb_to_relu1's double-buffered staging would
+    show as a launch that does not)."""
+    _need_gpu()
+    cin, cout = (64, 3) if name == "final_to_rgb" else (3, 64)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.rand((1, 512, 512, cin), generator=g, device="cuda")
+    p = codec.pack(torch.randn((cout, cin, 3, 3), generator=g, device="cuda") * 0.1,
+                   torch.randn((cout,), generator=g, device="cuda") * 0.1)
+    kern = getattr(codec, name)
+    first = kern(x, p)
+    differ = sum(not torch.equal(kern(x, p), first) for _ in range(100))
+    assert differ == 0
+
+
+@pytest.mark.cuda
+def test_final_to_rgb_refuses_a_misaligned_input():
+    """final_to_rgb reads its input by TMA, which needs a 16-byte-aligned
+    base: a contiguous view 4 bytes into its storage raises, launching
+    nothing and falling back to nothing."""
+    _need_gpu()
+    x = torch.rand(16 * 16 * 64 + 1, device="cuda")[1:].view(1, 16, 16, 64)
+    p = codec.pack(torch.rand((3, 64, 3, 3), device="cuda"), torch.rand(3, device="cuda"))
+    before = codec.LAUNCHES["final_to_rgb"]
+    with pytest.raises(ValueError, match="aligned"):
+        codec.final_to_rgb(x, p)
+    assert codec.LAUNCHES["final_to_rgb"] == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name,cin,cout", [("conv3x3_p2", 64, 64),
                                            ("conv3x3_full", 128, 128),
                                            ("upconv_p2", 64, 64)])
