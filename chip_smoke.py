@@ -11,7 +11,9 @@ Phases (each raises on failure; none catches its own):
      and spills (and any "Performance Loss" remark), and check in the SASS
      (cuobjdump) that conv64's kernel runs HGMMA (wgmma), the kernels of
      conv3x3_p2, conv3x3_full and upconv_p2 HMMA on TF32, final_to_rgb's
-     TMA loads (UTMALDG) and rgb_to_relu1's TMA stores (UTMASTG);
+     TMA loads (UTMALDG), rgb_to_relu1's TMA stores (UTMASTG), the
+     histogram's 128-bit loads and cluster barrier, and the remap's 128-bit
+     loads and stores;
   3. every codec kernel at its 512-px main-path shapes, on inputs made by a
      512-px decode->encode roundtrip of the real depth-3 weights: held
      against its plain PyTorch version (|kernel - plain| <= 2e-5 *
@@ -27,13 +29,20 @@ Phases (each raises on failure; none catches its own):
      R calls) beside the event-timed loop and the wrapper's host
      microseconds per call, with both bounds
      (optimaltextures_tpu_torch/tools/edge_convs.py);
-  4. the three cdf kernels at their main-path shapes: the rotated relu1
-     clouds of the 512-px pass at the C the PCA rule picks, and the rotated
-     512x512 pixel cloud of the color tail (C = 3). The histogram must
-     equal its plain version exactly, the remap and the legacy fused apply
-     (cdf_remap, on histograms from the histogram kernel) be within 1e-5 *
-     max|plain|; timed beside the plain versions and, for the histogram,
-     torch.histc called once per channel;
+  4. the three cdf kernels at the cdf step's shapes: the rotated relu1
+     clouds of the 512-px pass at the C the PCA rule picks (k1), the rotated
+     512x512 pixel clouds of the color tail (C = 3) and the rotated relu3
+     clouds of the 256-px pass (k3 there, N = 64^2). The histogram of both
+     clouds of a step (one launch) must equal its plain version and
+     torch.histc exactly, the remap equal its plain version bit for bit,
+     the legacy fused apply (cdf_remap, on the plain histograms) be within
+     1e-5 * max|plain|; each timed by the device's own record (the
+     profiler's kernel time over R calls) beside the event-timed loop, the
+     wrapper's host microseconds a call, its plain version and, for the
+     histogram, torch.histc called once per channel
+     (optimaltextures_tpu_torch/tools/cdf_kernels.py); prints the k of
+     every depth at every pass size and the bytes path A's cdf kernels
+     must move in a run;
   5. the conv64 prototype kernel against its plain version at the tool's
      check shape (64 px, B = 128, the TMA path) and a ragged one (37 x 45,
      B = 5, the masked path), within
@@ -54,6 +63,8 @@ Phases (each raises on failure; none catches its own):
          made from --seed, chol (no cdf launch), then once warm with
          hist_mode="cdf", whose histogram and remap counts are path A's
          plus the mixing's own cross-matching;
+     every cdf step launches the histogram once (both clouds) and the
+     remap once;
   7. 64-px runs on the GPU against the same runs on the CPU (the kernels'
      plain versions), with the same inputs, injected rotations and mixing
      masks: the main path and chol mixing (max |gpu - cpu| <= 1e-3), cdf
@@ -63,9 +74,10 @@ Phases (each raises on failure; none catches its own):
      Pillow).
 
 The last two lines of standard output are the {"kernels": [...]} line (all
-nine kernels, each with its "design": ffma+tma, simt, wgmma+tma or
-3xtf32-mma; final_to_rgb and rgb_to_relu1 also carry "device_ms", their
-profiler time at the 512^2 shape;
+nine kernels, each with its "design": ffma+tma, cluster-dsmem,
+smem-tables, simt, wgmma+tma or 3xtf32-mma; final_to_rgb and rgb_to_relu1
+also carry "device_ms", their profiler time at the 512^2 shape, and the
+three cdf kernels theirs summed over their three shapes;
 conv64 and cdf_remap are on no path of the program, so their launches are
 those of their own check phase, which the "phase" field names) and
 {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -107,23 +119,33 @@ SOURCES = {"batched_histogram": "cdf", "pwl_remap": "cdf", "cdf_remap": "cdf",
 
 # how each kernel computes: FFMA convs on the FP32 cores with their
 # 64-channel side moved by TMA, wgmma fed by TMA, three TF32 mma.sync
-# products (hi*hi + hi*lo + lo*hi), or scalar code on the CUDA cores (the
-# cdf kernels: counting, searching, interpolating)
+# products (hi*hi + hi*lo + lo*hi), a thread-block cluster per histogram
+# row reduced in distributed shared memory, the remap's segment tables
+# built once per block in shared memory, or scalar code on the CUDA cores
+# (cdf_remap: scans, searching, interpolating)
 TENSOR_CORE_CODEC = ("conv3x3_p2", "conv3x3_full", "upconv_p2")
 EDGE_CODEC = ("final_to_rgb", "rgb_to_relu1")
 DESIGNS = {"conv64": "wgmma+tma", **{k: "3xtf32-mma" for k in TENSOR_CORE_CODEC},
            **{k: "ffma+tma" for k in EDGE_CODEC},
-           "batched_histogram": "simt", "pwl_remap": "simt", "cdf_remap": "simt"}
+           "batched_histogram": "cluster-dsmem", "pwl_remap": "smem-tables",
+           "cdf_remap": "simt"}
 
 # per redesigned kernel: its symbol in the SASS (a regex over the mangled
-# name: conv3x3_tf32x3<CIN, COUT, ...>, upconv_tf32x3<C>), the instruction
-# and the operand type (or form) it must show
-SASS_CHECKS = (("conv64", r"conv64_wgmma", "HGMMA", "HGMMA"),
-               ("conv3x3_p2", r"conv3x3_tf32x3ILi\d+ELi64E", "HMMA", "TF32"),
-               ("conv3x3_full", r"conv3x3_tf32x3ILi\d+ELi128E", "HMMA", "TF32"),
-               ("upconv_p2", r"upconv_tf32x3ILi\d+E", "HMMA", "TF32"),
-               ("final_to_rgb", r"final_to_rgb_tma", "UTMALDG", "UTMALDG"),
-               ("rgb_to_relu1", r"rgb_to_relu1_tma", "UTMASTG", "UTMASTG"))
+# name: conv3x3_tf32x3<CIN, COUT, ...>, upconv_tf32x3<C>) and what the
+# design relies on: each instruction with the operand type (or form) it
+# must show (the cdf kernels' names as cuobjdump -sass prints them on the
+# H100: 128-bit loads LDG.E.128.CONSTANT, stores STG.E.128, the cluster
+# barrier UCGABAR_ARV / UCGABAR_WAIT)
+SASS_CHECKS = (("conv64", r"conv64_wgmma", (("HGMMA", "HGMMA"),)),
+               ("conv3x3_p2", r"conv3x3_tf32x3ILi\d+ELi64E", (("HMMA", "TF32"),)),
+               ("conv3x3_full", r"conv3x3_tf32x3ILi\d+ELi128E", (("HMMA", "TF32"),)),
+               ("upconv_p2", r"upconv_tf32x3ILi\d+E", (("HMMA", "TF32"),)),
+               ("final_to_rgb", r"final_to_rgb_tma", (("UTMALDG", "UTMALDG"),)),
+               ("rgb_to_relu1", r"rgb_to_relu1_tma", (("UTMASTG", "UTMASTG"),)),
+               ("batched_histogram", r"histogram_cluster",
+                (("LDG", "LDG.E.128"), ("UCGABAR", "UCGABAR_WAIT"))),
+               ("pwl_remap", r"pwl_tables", (("LDG", "LDG.E.128"),
+                                             ("STG", "STG.E.128"))))
 
 
 def _peaks(name: str, kind: str = "f32"):
@@ -136,8 +158,9 @@ def _peaks(name: str, kind: str = "f32"):
 
 def check_sass(libs) -> dict:
     """Disassemble the built libraries (cuobjdump beside nvcc) and count the
-    tensor-core and TMA instructions of the redesigned kernels
-    (SASS_CHECKS); raise unless each holds its instruction."""
+    instructions each redesigned kernel's design relies on (SASS_CHECKS:
+    tensor-core, TMA, 128-bit memory and cluster-barrier instructions);
+    raise unless each holds them."""
     from optimaltextures_tpu_torch.ops import cuda_build
 
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
@@ -148,15 +171,19 @@ def check_sass(libs) -> dict:
         for part in sass.split("Function : ")[1:]:
             funcs[part.split(None, 1)[0]] = part
     counts = {}
-    for kernel, symbol, op, want in SASS_CHECKS:
+    for kernel, symbol, needs in SASS_CHECKS:
         bodies = [b for f, b in funcs.items() if re.search(symbol, f)]
-        lines = [l for b in bodies for l in b.splitlines() if op in l]
-        n_op, n_want = len(lines), sum(want in l for l in lines)
-        print(f"sass {kernel}: {len(bodies)} kernel(s) {symbol}, {n_op} {op} "
-              f"instructions, {n_want} of them {want}", flush=True)
-        if not bodies or n_want == 0:
-            raise AssertionError(f"{kernel}: no {want} {op} in the SASS of {symbol}")
-        counts[kernel] = n_want
+        found = []
+        for op, want in needs:
+            lines = [l for b in bodies for l in b.splitlines() if op in l]
+            n_op, n_want = len(lines), sum(want in l for l in lines)
+            found.append(f"{n_op} {op} instructions, {n_want} of them {want}")
+            if not bodies or n_want == 0:
+                raise AssertionError(f"{kernel}: no {want} {op} in the SASS of "
+                                     f"{symbol}")
+            counts[(kernel, want)] = n_want
+        print(f"sass {kernel}: {len(bodies)} kernel(s) {symbol}, "
+              + "; ".join(found), flush=True)
     return counts
 
 
@@ -308,147 +335,25 @@ def _add_row(rows, name, err, ms, plain_ms, lib_ms, t_flops, t_bytes):
             r[k] += v
 
 
-def cdf_clouds(seed: int):
-    """The cdf kernels' main-path inputs: the 512-px pass's relu1 clouds
-    (pastiche features of a noise image and the style's samples, both
-    projected on the style's first k PCs and rotated, as the cdf stage
-    hands them over) and the color tail's rotated pixel clouds (a noise
-    pastiche and the lum target built from a content exemplar). Returns
-    [(label, target rows, source rows)] and k."""
-    import torch
-
-    from optimaltextures_tpu_torch import core
-    from optimaltextures_tpu_torch.config import OptexConfig
-    from optimaltextures_tpu_torch.models.vgg import encode
-    from optimaltextures_tpu_torch.ops import colors
-    from optimaltextures_tpu_torch.ops.rotation import (generator,
-                                                        random_rotation,
-                                                        stage_rotations)
-
-    dev = torch.device("cuda")
-    synth = core.Synthesizer(OptexConfig(size=512, seed=seed, hist_mode="cdf",
-                                         style=["smoke_style"]), device=dev)
-    style = torch.as_tensor(_style_exemplar(seed + 1), device=dev)
-    spectra = synth._dispatch_style_prep([style], 512, True)
-    ks = synth._choose_widths(spectra, [sv.cpu().numpy() for (_, sv, _) in spectra])
-    eigvecs, stats, _ = synth._finish_style_prep(spectra, ks)[-1]   # relu1
-    k = int(ks[-1])
-    gen = generator(dev, seed, 77)
-    noise = torch.rand((1, 512, 512, 3), generator=gen, device=dev)
-    feat = encode(synth.bank.enc_params[1], 1, noise) @ eigvecs
-    rot = stage_rotations(gen, 1, k, dev)[0]
-    clouds = [(f"relu1 C={k}, N=512^2", rot.T @ feat.reshape(-1, k).T,
-               rot.T @ stats.samples.T)]
-    content = torch.as_tensor(_style_exemplar(seed + 3), device=dev)
-    target = colors.swap_lightness(content, noise)
-    rot3 = random_rotation(gen, 3, dev)
-    clouds.append(("pixels C=3, N=512^2", rot3.T @ noise.reshape(-1, 3).T,
-                   rot3.T @ target.reshape(-1, 3).T))
-    return clouds, k
-
-
 def check_cdf_kernels(seed: int, reps: int, card: str):
-    """Phase 4: the three cdf kernels at their main-path shapes vs their
-    plain versions, with times and bounds. Returns (rows, relu1 k); the
-    cdf_remap row carries the launches of this phase."""
-    import torch
+    """Phase 4: the three cdf kernels at the cdf step's shapes (relu1 of the
+    512-px pass, the color tail's pixels, relu3 of the 256-px pass) vs
+    their plain versions, timed by the profiler's device time beside the
+    event-timed loop (tools/cdf_kernels.py). Returns the per-kernel summary
+    rows, summed over the three shapes; the cdf_remap row carries the
+    launches of this phase."""
+    from optimaltextures_tpu_torch.ops import cdf
+    from optimaltextures_tpu_torch.tools import cdf_kernels
 
-    from optimaltextures_tpu_torch.ops import cdf, histmatch
-
-    peak_flops, peak_bw = _peaks(card)
-    clouds, k = cdf_clouds(seed)
     cdf.reset_launches()
+    timed, _, _ = cdf_kernels.time_cdf_kernels(seed, reps, card)
     rows = {}
-    for label, t, s in clouds:
-        c, n = t.shape
-        lo = torch.minimum(t.min(dim=1).values, s.min(dim=1).values)
-        hi = torch.maximum(t.max(dim=1).values, s.max(dim=1).values)
-        lo_f, hi_f = lo.tolist(), hi.tolist()
-
-        # batched_histogram: one launch per cloud side, as the cdf step does
-        for side, x in (("pastiche", t), ("style", s)):
-            got = cdf.batched_histogram(x, lo, hi)
-            ref = cdf.histogram_plain(x, lo, hi)
-            histc = torch.stack([torch.histc(x[i], 256, lo_f[i], hi_f[i])
-                                 for i in range(c)])
-            torch.cuda.synchronize()
-            if not torch.equal(got, ref):
-                raise AssertionError(f"batched_histogram [{label}, {side}] "
-                                     "differs from its plain version")
-            degenerate = [i for i in range(c) if hi_f[i] <= lo_f[i]]
-            keep = [i for i in range(c) if i not in degenerate]
-            if not torch.equal(got[keep], histc[keep]):
-                raise AssertionError(f"batched_histogram [{label}, {side}] "
-                                     "differs from torch.histc")
-            ms = _time_ms(lambda: cdf.batched_histogram(x, lo, hi), reps)
-            plain_ms = _time_ms(lambda: cdf.histogram_plain(x, lo, hi), reps)
-            lib_ms = _time_ms(lambda: [torch.histc(x[i], 256, lo_f[i], hi_f[i])
-                                       for i in range(c)], reps)
-            # bytes: the samples, lo/hi once, the (C, 256) counts once;
-            # operations: subtract, multiply, divide per sample (f32)
-            t_bytes = 4.0 * (c * n + 2 * c + c * 256) / peak_bw * 1e3
-            t_flops = 3.0 * c * n / peak_flops * 1e3
-            print(f"kernel batched_histogram {label:22s} {side:8s} exact  "
-                  f"{ms:.4f} ms  plain {plain_ms:.4f} ms  torch.histc x{c} "
-                  f"{lib_ms:.4f} ms  bound {max(t_flops, t_bytes):.4f} ms "
-                  f"({'operations' if t_flops >= t_bytes else 'bytes'})",
-                  flush=True)
-            _add_row(rows, "batched_histogram", 0.0, ms, plain_ms, lib_ms,
-                     t_flops, t_bytes)
-
-        # pwl_remap on the remap tables of this cloud's histograms
-        t_cdf, s_cdf = histmatch.cdf_cdfs_rows(cdf.histogram_plain(t, lo, hi),
-                                               cdf.histogram_plain(s, lo, hi))
-        remapped = histmatch._remap_table_rows(
-            t_cdf, s_cdf, histmatch._edges_rows(lo, hi, 256))
-        got = cdf.pwl_remap(t, remapped, lo, hi)
-        ref = cdf.pwl_remap_plain(t, remapped, lo, hi)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        scale = float(ref.abs().max())
-        if not (torch.isfinite(got).all() and err <= 1e-5 * scale):
-            raise AssertionError(f"pwl_remap [{label}]: max|kernel - plain| = "
-                                 f"{err:.3e} over max|plain| = {scale:.3e}")
-        ms = _time_ms(lambda: cdf.pwl_remap(t, remapped, lo, hi), reps)
-        plain_ms = _time_ms(lambda: cdf.pwl_remap_plain(t, remapped, lo, hi),
-                            reps)
-        # bytes: samples in and out, the tables and the ranges once;
-        # operations: ~12 f32 operations per sample (index, segment, lerp)
-        t_bytes = 4.0 * (2 * c * n + c * 256 + 2 * c) / peak_bw * 1e3
-        t_flops = 12.0 * c * n / peak_flops * 1e3
-        print(f"kernel pwl_remap {label:22s} err {err:.2e} (max|plain| "
-              f"{scale:.3e})  {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
-              f"call: none  bound {max(t_flops, t_bytes):.4f} ms "
-              f"({'operations' if t_flops >= t_bytes else 'bytes'})", flush=True)
-        _add_row(rows, "pwl_remap", err, ms, plain_ms, None, t_flops, t_bytes)
-
-        # cdf_remap, the legacy fused apply, on the histogram kernel's counts
-        t_hist = cdf.batched_histogram(t, lo, hi)
-        s_hist = cdf.batched_histogram(s, lo, hi)
-        got = cdf.cdf_remap(t, t_hist, s_hist, lo, hi)
-        ref = cdf.cdf_remap_plain(t, t_hist, s_hist, lo, hi)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        scale = float(ref.abs().max())
-        if not (torch.isfinite(got).all() and err <= 1e-5 * scale):
-            raise AssertionError(f"cdf_remap [{label}]: max|kernel - plain| = "
-                                 f"{err:.3e} over max|plain| = {scale:.3e}")
-        ms = _time_ms(lambda: cdf.cdf_remap(t, t_hist, s_hist, lo, hi), reps)
-        plain_ms = _time_ms(
-            lambda: cdf.cdf_remap_plain(t, t_hist, s_hist, lo, hi), reps)
-        # bytes: samples in and out, both histograms and the ranges once;
-        # operations: ~20 f32 operations per sample (8 compares of the
-        # binary search, the lerp and its checks)
-        t_bytes = 4.0 * (2 * c * n + 2 * c * 256 + 2 * c) / peak_bw * 1e3
-        t_flops = 20.0 * c * n / peak_flops * 1e3
-        print(f"kernel cdf_remap {label:22s} err {err:.2e} (max|plain| "
-              f"{scale:.3e})  {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
-              f"call: none  bound {max(t_flops, t_bytes):.4f} ms "
-              f"({'operations' if t_flops >= t_bytes else 'bytes'})", flush=True)
-        _add_row(rows, "cdf_remap", err, ms, plain_ms, None, t_flops, t_bytes)
+    for (name, _), r in timed.items():
+        _add_row(rows, name, r["err"], r["ms"], r["plain_ms"], r["lib_ms"],
+                 r["t_flops"], r["t_bytes"])
+        rows[name]["device_ms"] = rows[name].get("device_ms", 0.0) + r["device_ms"]
     rows["cdf_remap"]["launches"] = cdf.LAUNCHES["cdf_remap"]
-    print(f"relu1 C at the 512-px pass (PCA 90% rule): {k}", flush=True)
-    return rows, k
+    return rows
 
 
 def check_conv64(reps: int, card: str):
@@ -563,10 +468,10 @@ def mixing_matches(cfg) -> int:
 
 def expected_counts(cfg) -> dict:
     """Every kernel's launches in one run of ``cfg``: the codec's per stage
-    roundtrip, two histograms and one remap per cdf step (each sliced-OT
-    iteration of hist_mode "cdf", each step of the opt color tail, and each
-    cross-matching of cdf-mode mixing); cdf_remap and conv64 are on no
-    path."""
+    roundtrip, one histogram launch (both clouds) and one remap per cdf
+    step (each sliced-OT iteration of hist_mode "cdf", each step of the opt
+    color tail, and each cross-matching of cdf-mode mixing); cdf_remap and
+    conv64 are on no path."""
     from optimaltextures_tpu_torch import core
     from optimaltextures_tpu_torch.utils import schedule
 
@@ -579,7 +484,7 @@ def expected_counts(cfg) -> dict:
     if cfg.color_transfer == "opt":
         steps += core.COLOR_STEPS
     return {**_expected_launches(depths, cfg.passes),
-            "batched_histogram": 2 * steps, "pwl_remap": steps,
+            "batched_histogram": steps, "pwl_remap": steps,
             "cdf_remap": 0, "conv64": 0}
 
 
@@ -649,14 +554,14 @@ def paths(seed: int, profile: bool):
     mix_cdf_counts, _ = drive_path("path C, cdf mixing", mix_cdf_cfg, pair,
                                    labels=("warm",))
     own = mixing_matches(mix_cdf_cfg)
-    for name, per_match in (("batched_histogram", 2), ("pwl_remap", 1)):
-        if mix_cdf_counts[name] != cdf_counts[name] + per_match * own:
+    for name in ("batched_histogram", "pwl_remap"):
+        if mix_cdf_counts[name] != cdf_counts[name] + own:
             raise AssertionError(
                 f"path C (cdf): {name} {mix_cdf_counts[name]} != path A's "
-                f"{cdf_counts[name]} + the mixing's {per_match * own}")
+                f"{cdf_counts[name]} + the mixing's {own}")
     print(f"path C (cdf): the mixing's own cross-matching: {own} hist_match "
-          f"calls, {2 * own} histograms and {own} remaps on top of path A's",
-          flush=True)
+          f"calls, {own} histogram launches (both clouds each) and {own} "
+          f"remaps on top of path A's", flush=True)
     if profile:
         for name, cfg, sty, cont in (("main", main_cfg, [style], None),
                                      ("cdf", cdf_cfg, [style], None),
@@ -693,8 +598,10 @@ def profile_run(name, cfg, styles, content=None):
           f"{part('conv3x3_tf32x3'):.1f}, upconv_p2 {part('upconv_tf32x3'):.1f}; "
           f"final_to_rgb {part('final_to_rgb_tma'):.3f}, rgb_to_relu1 "
           f"{part('rgb_to_relu1_tma'):.3f}), "
-          f"histogram kernel {part('histogram_kernel'):.1f} ms, pwl kernel "
-          f"{part('pwl_kernel'):.1f} ms", flush=True)
+          f"histogram kernel {part('histogram_cluster'):.2f} ms, pwl kernel "
+          f"{part('pwl_tables'):.2f} ms; memset/fill kernels "
+          f"{sum(e.count for e in kernels if 'Memset' in e.key or 'Fill' in e.key)}"
+          f" launches", flush=True)
     for e in sorted(kernels, key=dev_us, reverse=True)[:15]:
         print(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
@@ -856,8 +763,7 @@ def main() -> int:
     check_sass(libs)
 
     rows = check_kernels(args.seed, args.reps, card)
-    cdf_rows, _ = check_cdf_kernels(args.seed, args.reps, card)
-    rows.update(cdf_rows)
+    rows.update(check_cdf_kernels(args.seed, args.reps * 10, card))
     rows.update(check_conv64(args.reps, card))
     main_counts, cdf_counts = paths(args.seed, args.profile)
     small_agreement(args.seed)

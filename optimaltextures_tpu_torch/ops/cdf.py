@@ -4,12 +4,13 @@ histogram.py``, ``pwl_remap.py`` and ``cdf_remap.py``.
 Every cdf-mode OT iteration (and each of the three pixel-space steps of
 ``color_transfer="opt"``, and each cross-matching of texture mixing in cdf
 mode) bins the rotated target and style clouds into 256-bin shared-range
-histograms (:func:`batched_histogram`, two launches) and maps every target
-sample through the piecewise-linear remap built from them
-(:func:`pwl_remap`, one launch). :func:`cdf_remap` is the legacy fused
-apply (cdfs, remap table and per-sample map in one launch); as in the JAX
-package, no path of the program calls it. All take (C, N) rows, one
-channel per row, as the JAX functions do.
+histograms (:func:`histogram_pair`, one launch for both clouds;
+:func:`batched_histogram` is the one-cloud case and the counterpart of the
+JAX function) and maps every target sample through the piecewise-linear
+remap built from them (:func:`pwl_remap`, one launch). :func:`cdf_remap`
+is the legacy fused apply (cdfs, remap table and per-sample map in one
+launch); as in the JAX package, no path of the program calls it. All take
+(C, N) rows, one channel per row, as the JAX functions do.
 
 Each wrapper below:
 
@@ -24,13 +25,17 @@ What bounds them on the H100: all three are bytes-bound (a few dozen operations
 per 4-byte sample against 3.35 TB/s). The TPU kernels turn the bin lookups
 into one-hot contractions on the MXU (nibble one-hots, 8-channel blocks,
 pad-with-lo then subtract); none of that carries over. Here the histogram
-counts with shared-memory atomics into per-warp sub-histograms and flushes
-each block's counts with float atomics (exact: counts stay below 2^24),
-and the remap reads its channel's 256-entry table from shared memory, one
-thread per sample; the fused apply builds its channel's cdfs, edges and
-remap table in shared memory in every block and finds each sample's
-segment by a binary search over the monotone edges. Each reads its samples
-once and writes its result once.
+gives each (cloud, channel) row a thread-block cluster, counts with
+shared-memory atomics into per-warp sub-histograms and sums the cluster's
+tables through distributed shared memory into plain float stores (exact:
+counts stay below 2^24; no zeroed output, no global atomics). The remap
+builds its channel's segment table (edges, values, slopes) once per block
+in shared memory and costs one division and one table read a sample. Both
+split each row over as many blocks as fill the card and read it with
+16-byte loads. The fused apply builds its channel's cdfs, edges and remap
+table in shared memory in every block and finds each sample's segment by
+a binary search over the monotone edges. Each reads its samples once and
+writes its result once.
 """
 
 from __future__ import annotations
@@ -71,8 +76,9 @@ def histogram_plain(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
 
 
 def pwl_step(lo: torch.Tensor, hi: torch.Tensor, bins: int = BINS) -> torch.Tensor:
-    """The uniform bin step ``(hi - lo) / bins`` the kernel and the plain
-    version both bin with (one f32 value per channel)."""
+    """The uniform bin step ``(hi - lo) / bins`` the plain version bins
+    with (one f32 value per channel); the kernel computes the same two
+    rounded f32 operations itself."""
     return (hi - lo) / bins
 
 
@@ -91,23 +97,28 @@ def pwl_remap_plain(t: torch.Tensor, remapped: torch.Tensor, lo: torch.Tensor,
     remapped)`` per channel, with the segment index of
     :func:`pwl_bin_index` (the JAX package's ``_pwl_apply_rows``). The last
     segment maps to ``remapped[:, -1]``; a width <= 0 maps to
-    ``remapped[:, 0]``."""
+    ``remapped[:, 0]``.
+
+    In the kernel's order: per channel, the right edges ``xp[j] = lo +
+    (j+1)*step`` and the slopes ``(remapped[j+1] - remapped[j]) / (xp[j+1]
+    - xp[j])`` first, then per sample ``slope[j] * (t - xp[j]) +
+    remapped[j]`` by gathers. Each table entry is the same rounded f32
+    operations on the same operands as the per-sample form, so the two are
+    bit-equal (tests/test_torch_cdf_pair.py keeps that form as the oracle)."""
     bins = remapped.shape[1]
     width = hi - lo
     step = pwl_step(lo, hi, bins)
     step_safe = torch.where(step > 0, step, torch.ones_like(step))
+    jf = torch.arange(1, bins + 1, dtype=t.dtype, device=t.device)
+    xp = lo[:, None] + jf * step[:, None]                       # (C, bins)
+    slope = (remapped[:, 1:] - remapped[:, :-1]) / (xp[:, 1:] - xp[:, :-1])
     j = pwl_bin_index(t, lo, step_safe, bins).to(torch.int64)
-    rnext = torch.cat([remapped[:, 1:], remapped[:, -1:]], dim=1)
-    fp_i = torch.gather(remapped, 1, j)
-    fp_n = torch.gather(rnext, 1, j)
-    jf = (j + 1).to(t.dtype)
-    xp_i = lo[:, None] + jf * step[:, None]
-    xp_n = lo[:, None] + torch.clamp(jf + 1.0, max=float(bins)) * step[:, None]
-    slope = (fp_n - fp_i) / (xp_n - xp_i)
-    f = slope * (t - xp_i) + fp_i
-    # j == bins-1: xp_n == xp_i -> the reference's non-finite fallback
-    # chain lands on fp_i (the whole last bin maps to remapped[-1])
-    f = torch.where(j >= bins - 1, fp_i, f)
+    js = j.clamp(max=bins - 2)      # the last segment has no slope
+    f = (torch.gather(slope, 1, js) * (t - torch.gather(xp, 1, js))
+         + torch.gather(remapped, 1, js))
+    # j == bins-1: the reference's non-finite fallback chain lands on
+    # remapped[-1] (the whole last bin maps to it)
+    f = torch.where(j >= bins - 1, remapped[:, -1:], f)
     return torch.where((width > 0)[:, None], f, remapped[:, :1])
 
 
@@ -155,8 +166,8 @@ def cdf_remap_plain(t: torch.Tensor, t_hist: torch.Tensor, s_hist: torch.Tensor,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
-    "optex_batched_histogram": [_P, _P, _P, _P, _I, _I, _P],
-    "optex_pwl_remap": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "optex_batched_histogram": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "optex_pwl_remap": [_P, _P, _P, _P, _P, _I, _I, _P],
     "optex_cdf_remap": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 
@@ -218,15 +229,39 @@ def _launch(name: str, device, *args) -> None:
 def batched_histogram(x: torch.Tensor, lo: torch.Tensor,
                       hi: torch.Tensor) -> torch.Tensor:
     """(C, N) samples + (C,) lo/hi -> (C, 256) float32 counts (torch.histc
-    binning on the shared range [lo, hi])."""
+    binning on the shared range [lo, hi]): the one-cloud case of
+    :func:`histogram_pair`."""
     if _check("batched_histogram", x, lo, hi):
         return histogram_plain(x, lo, hi)
-    c, n = x.shape
-    x, lo, hi = x.contiguous(), lo.contiguous(), hi.contiguous()
-    out = torch.zeros((c, BINS), device=x.device, dtype=torch.float32)
-    _launch("batched_histogram", x.device, x.data_ptr(), lo.data_ptr(),
-            hi.data_ptr(), out.data_ptr(), c, n)
-    return out
+    return _histograms(lo, hi, x)[0]
+
+
+def histogram_pair(t: torch.Tensor, s: torch.Tensor, lo: torch.Tensor,
+                   hi: torch.Tensor):
+    """The two clouds of a cdf step, target (C, Nt) and source (C, Ns), on
+    their shared (C,) ranges -> (t counts, s counts), each (C, 256) float32:
+    :func:`batched_histogram` of each, in one launch on a GPU (counted in
+    ``LAUNCHES["batched_histogram"]``: the same kernel)."""
+    on_cpu = _check("histogram_pair", t, lo, hi)
+    _check("histogram_pair", s, lo, hi, t)
+    if on_cpu:
+        return histogram_plain(t, lo, hi), histogram_plain(s, lo, hi)
+    return _histograms(lo, hi, t, s)
+
+
+def _histograms(lo: torch.Tensor, hi: torch.Tensor, *clouds: torch.Tensor):
+    """One launch of the histogram kernel on one or two CUDA clouds."""
+    c = clouds[0].shape[0]
+    clouds = [x.contiguous() for x in clouds]
+    lo, hi = lo.contiguous(), hi.contiguous()
+    # every count is written (no zeroing): the kernel stores all 256 bins
+    outs = [torch.empty((c, BINS), device=lo.device, dtype=torch.float32)
+            for _ in clouds]
+    x1, out1 = (clouds[1], outs[1]) if len(clouds) == 2 else (clouds[0], outs[0])
+    _launch("batched_histogram", lo.device, clouds[0].data_ptr(), x1.data_ptr(),
+            lo.data_ptr(), hi.data_ptr(), outs[0].data_ptr(), out1.data_ptr(), c,
+            clouds[0].shape[1], x1.shape[1], len(clouds))
+    return tuple(outs)
 
 
 # ---------------------------------------------------------------------------
@@ -245,10 +280,13 @@ def pwl_remap(t: torch.Tensor, remapped: torch.Tensor, lo: torch.Tensor,
     c, n = t.shape
     t, remapped = t.contiguous(), remapped.contiguous()
     lo, hi = lo.contiguous(), hi.contiguous()
-    step = pwl_step(lo, hi)
-    out = torch.empty_like(t)
+    # out shares t's alignment modulo 16 bytes, so the kernel's 16-byte
+    # loads and stores line up on every row (t is aligned on the path; a
+    # view that is not gets an output with the same offset)
+    off = (t.data_ptr() % 16) // t.element_size()
+    out = torch.empty(c * n + off, device=t.device, dtype=t.dtype)[off:].view(c, n)
     _launch("pwl_remap", t.device, t.data_ptr(), remapped.data_ptr(),
-            lo.data_ptr(), hi.data_ptr(), step.data_ptr(), out.data_ptr(), c, n)
+            lo.data_ptr(), hi.data_ptr(), out.data_ptr(), c, n)
     return out
 
 

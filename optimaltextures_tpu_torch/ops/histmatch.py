@@ -261,8 +261,11 @@ def cdf_match_rows(t: torch.Tensor, s: torch.Tensor, bins: int = BINS,
     t_lo, t_hi = torch.aminmax(t, dim=1)
     s_lo, s_hi = torch.aminmax(s, dim=1)
     lo, hi = torch.minimum(t_lo, s_lo), torch.maximum(t_hi, s_hi)
-    t_hist = histogram_rows(t, lo, hi, bins, use_pallas)
-    s_hist = histogram_rows(s, lo, hi, bins, use_pallas)
+    if _on_kernels(use_pallas, bins, t.device):
+        t_hist, s_hist = cdf.histogram_pair(t, s, lo, hi)   # one launch
+    else:
+        t_hist = cdf.histogram_plain(t, lo, hi, bins)
+        s_hist = cdf.histogram_plain(s, lo, hi, bins)
     return cdf_apply_rows(t, t_hist, s_hist, lo, hi, use_pallas)
 
 

@@ -244,9 +244,13 @@ def test_gpu_refuses_the_conv2d_codec():
 # the cdf kernels (csrc/cdf.cu)
 
 
-def _rows(c, n, seed, pile=False, constant=None):
+def _rows(c, n, seed, pile=False, constant=None, offset=0):
+    """(C, N) rows of N(0.5, 2) samples with their ranges; ``offset`` > 0
+    makes them a contiguous view whose base is that many floats past a
+    16-byte boundary (so no row is aligned as the allocator aligns)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn((c, n), generator=g, device="cuda") * 2.0 + 0.5
+    x = (torch.randn((c * n + offset,), generator=g, device="cuda") * 2.0 + 0.5
+         )[offset:].view(c, n)
     if constant is not None:
         x[constant] = 1.25
     lo, hi = x.min(dim=1).values, x.max(dim=1).values
@@ -260,7 +264,8 @@ def _rows(c, n, seed, pile=False, constant=None):
 # and the 512-px relu1 shape
 @pytest.mark.parametrize("c,n,constant,pile", [
     (3, 262144, None, False), (3, 1001, None, True), (5, 4099, 2, False),
-    (13, 70001, None, True), (1, 300, 0, False), (32, 262144, 7, True)])
+    (13, 70001, None, True), (1, 300, 0, False), (32, 262144, 7, True),
+    (4, 1002, None, False), (96, 4096, 5, True), (3, 262144, 1, False)])
 def test_histogram_kernel_matches_plain_exactly(c, n, constant, pile):
     _need_gpu()
     x, lo, hi = _rows(c, n, c * n, pile, constant)
@@ -280,12 +285,54 @@ def test_histogram_kernel_matches_plain_exactly(c, n, constant, pile):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,n,const_t,const_s", [
-    (3, 262144, None, None), (3, 1001, 1, None), (5, 4099, None, 4),
-    (13, 70001, 3, 11), (32, 262144, None, None)])
-def test_pwl_kernel_matches_plain(c, n, const_t, const_s):
+# the cdf step's shapes (relu1 C = 24 and pixels C = 3 at 512^2, the 256-px
+# relu3 at C = 96 x 64^2), Nt != Ns, N % 4 in {1, 2, 3}, rows whose base is
+# not 16-byte aligned, constant channels of 512^2 samples
+@pytest.mark.parametrize("c,nt,ns,offset,constant", [
+    (24, 262144, 262144, 0, None), (3, 262144, 262144, 0, 2),
+    (96, 4096, 4096, 0, None), (5, 1001, 1002, 0, None),
+    (7, 4099, 4097, 1, 3), (13, 70001, 65538, 1, None),
+    (3, 262144, 262141, 2, 0), (2, 3, 9, 3, None)])
+def test_histogram_pair_kernel_matches_plain_exactly(c, nt, ns, offset, constant):
     _need_gpu()
-    t, _, _ = _rows(c, n, c + n, pile=True)
+    t, _, _ = _rows(c, nt, c * nt + 1, pile=True, constant=constant, offset=offset)
+    s, _, _ = _rows(c, ns, c * ns + 2, constant=constant, offset=(offset * 3) % 4)
+    lo = torch.minimum(t.min(dim=1).values, s.min(dim=1).values)
+    hi = torch.maximum(t.max(dim=1).values, s.max(dim=1).values)
+    before = cdf.LAUNCHES["batched_histogram"]
+    got_t, got_s = cdf.histogram_pair(t, s, lo, hi)
+    torch.cuda.synchronize()
+    assert cdf.LAUNCHES["batched_histogram"] == before + 1
+    for got, x, n in ((got_t, t, nt), (got_s, s, ns)):
+        assert torch.equal(got, cdf.histogram_plain(x, lo, hi))
+        assert float(got.sum()) == c * n
+        for i in range(c):
+            if i != constant:
+                assert torch.equal(got[i], torch.histc(x[i], 256, float(lo[i]),
+                                                       float(hi[i])))
+        if constant is not None:
+            assert float(got[constant, 0]) == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n", [(24, 262144), (3, 262144), (96, 4096)])
+def test_histogram_pair_repeated_launches_agree(c, n):
+    """The cluster sums its counts in integers and stores them: 100 launches
+    give the first launch's counts bit for bit."""
+    _need_gpu()
+    t, _, _ = _rows(c, n, 11, pile=True)
+    s, _, _ = _rows(c, n, 12)
+    lo = torch.minimum(t.min(dim=1).values, s.min(dim=1).values)
+    hi = torch.maximum(t.max(dim=1).values, s.max(dim=1).values)
+    first = cdf.histogram_pair(t, s, lo, hi)
+    differ = sum(not all(torch.equal(a, b) for a, b in
+                         zip(cdf.histogram_pair(t, s, lo, hi), first))
+                 for _ in range(100))
+    assert differ == 0
+
+
+def _pwl_case(c, n, const_t, const_s, offset=0):
+    t, _, _ = _rows(c, n, c + n, pile=True, offset=offset)
     s, _, _ = _rows(c, n + 57, c * 7 + n)
     if const_t is not None:
         t[const_t] = 0.75
@@ -299,6 +346,16 @@ def test_pwl_kernel_matches_plain(c, n, const_t, const_s):
     t_cdf, s_cdf = histmatch.cdf_cdfs_rows(t_hist, s_hist)
     remapped = histmatch._remap_table_rows(t_cdf, s_cdf,
                                            histmatch._edges_rows(lo, hi, 256))
+    return t, remapped, lo, hi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n,const_t,const_s", [
+    (3, 262144, None, None), (3, 1001, 1, None), (5, 4099, None, 4),
+    (13, 70001, 3, 11), (32, 262144, None, None)])
+def test_pwl_kernel_matches_plain(c, n, const_t, const_s):
+    _need_gpu()
+    t, remapped, lo, hi = _pwl_case(c, n, const_t, const_s)
     before = cdf.LAUNCHES["pwl_remap"]
     got = cdf.pwl_remap(t, remapped, lo, hi)
     ref = cdf.pwl_remap_plain(t, remapped, lo, hi)
@@ -306,8 +363,26 @@ def test_pwl_kernel_matches_plain(c, n, const_t, const_s):
     assert cdf.LAUNCHES["pwl_remap"] == before + 1
     assert bool(torch.isfinite(got).all())
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(got, ref)   # the same rounded operations, in order
     if const_s is not None:
         assert bool((got[const_s] == remapped[const_s, 0]).all())
+
+
+@pytest.mark.cuda
+# N % 4 in {1, 2, 3}, rows whose base is 1-3 floats past a 16-byte
+# boundary, the 256-px relu3 shape, and the relu1 shape unaligned
+@pytest.mark.parametrize("c,n,offset,const_s", [
+    (24, 262144, 1, None), (96, 4096, 0, 7), (5, 1002, 2, 1), (7, 4099, 3, None),
+    (13, 70001, 1, 4), (3, 262147, 0, None), (2, 3, 1, None)])
+def test_pwl_kernel_equals_plain_on_ragged_and_unaligned_rows(c, n, offset, const_s):
+    _need_gpu()
+    t, remapped, lo, hi = _pwl_case(c, n, None, const_s, offset)
+    assert t.data_ptr() % 16 == 4 * offset
+    got = cdf.pwl_remap(t, remapped, lo, hi)
+    ref = cdf.pwl_remap_plain(t, remapped, lo, hi)
+    torch.cuda.synchronize()
+    assert got.shape == t.shape and got.is_contiguous()
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.cuda
@@ -378,7 +453,7 @@ def test_small_sampled_run_on_gpu_matches_cpu(mode):
     gpu, cpu, launches = _gpu_vs_cpu(cfg)
     steps = sum(core.Synthesizer(cfg, device="cpu").iters_table[0])
     steps = steps if mode == "cdf" else 0
-    assert launches == {"batched_histogram": 2 * steps, "pwl_remap": steps,
+    assert launches == {"batched_histogram": steps, "pwl_remap": steps,
                         "cdf_remap": 0}
     assert np.isfinite(gpu).all()
     g, c = gpu.reshape(-1, 3), cpu.reshape(-1, 3)
@@ -399,7 +474,7 @@ def test_small_transfer_opt_run_on_gpu_matches_cpu():
                              seed=0, content="c.png", content_strength=0.2,
                              color_transfer="opt", style=["s.png"])
     gpu, cpu, launches = _gpu_vs_cpu(cfg, (1, 64, 96, 3))
-    assert launches == {"batched_histogram": 2 * core.COLOR_STEPS,
+    assert launches == {"batched_histogram": core.COLOR_STEPS,
                         "pwl_remap": core.COLOR_STEPS, "cdf_remap": 0}
     assert gpu.shape == cpu.shape == (1, 64, 96, 3)
     assert float(np.abs(gpu - cpu).mean()) <= 3e-3
@@ -488,7 +563,7 @@ def test_small_mixing_run_on_gpu_matches_cpu(mode):
     """Two-style mixing at 64 px, 1 pass, no PCA, injected rotations and
     mask draws: chol within 1e-3; cdf by distribution (as above), and its
     launches are the stages' plus the mixing's own: 2 hist_match x 3
-    depths, each 2 histograms and 1 remap."""
+    depths, each 1 histogram launch (both clouds) and 1 remap."""
     _need_gpu()
     cfg = config.OptexConfig(size=64, passes=1, iters=60, no_pca=True,
                              no_multires=True, seed=0, hist_mode=mode,
@@ -524,7 +599,7 @@ def test_small_mixing_run_on_gpu_matches_cpu(mode):
         return
     steps = sum(core.Synthesizer(cfg, device="cpu").iters_table[0])
     mix = 2 * 3
-    assert launches == {"batched_histogram": 2 * (steps + mix),
+    assert launches == {"batched_histogram": steps + mix,
                         "pwl_remap": steps + mix, "cdf_remap": 0}
     g, c = gpu.reshape(-1, 3), cpu.reshape(-1, 3)
     assert float(np.abs(g.mean(0) - c.mean(0)).max()) <= 3e-3
