@@ -10,10 +10,11 @@ Phases (each raises on failure; none catches its own):
      source, all started together, print ptxas's registers, shared memory
      and spills (and any "Performance Loss" remark), and check in the SASS
      (cuobjdump) that conv64's kernel runs HGMMA (wgmma), the kernels of
-     conv3x3_p2, conv3x3_full and upconv_p2 HMMA on TF32, final_to_rgb's
-     TMA loads (UTMALDG), rgb_to_relu1's TMA stores (UTMASTG), the
-     histogram's 128-bit loads and cluster barrier, and the remap's 128-bit
-     loads and stores;
+     conv3x3_p2, conv3x3_full and upconv_p2 HMMA on TF32 (and their bf16
+     kernels HMMA on BF16), final_to_rgb's TMA loads (UTMALDG) and
+     rgb_to_relu1's TMA stores (UTMASTG) in both dtypes, the histogram's
+     128-bit loads and cluster barrier, and the remap's 128-bit loads and
+     stores;
   3. every codec kernel at its 512-px main-path shapes, on inputs made by a
      512-px decode->encode roundtrip of the real depth-3 weights: held
      against its plain PyTorch version (|kernel - plain| <= 2e-5 *
@@ -29,6 +30,15 @@ Phases (each raises on failure; none catches its own):
      R calls) beside the event-timed loop and the wrapper's host
      microseconds per call, with both bounds
      (optimaltextures_tpu_torch/tools/edge_convs.py);
+  3b. the bf16 function of the five codec kernels (conv_dtype="bfloat16")
+     at the same eight 512-px roundtrip shapes (inputs from a bf16 bank's
+     roundtrip), at batch 1 and at batch 128 (128 distinct images, the
+     relu1-scale tensors 2^31 elements), each against its bf16 plain
+     version within 2^-7 x max|plain| (one bf16 rounding), with its signed
+     mean error, repeated launches bit-equal, timed by the profiler's
+     device time and by events beside its plain version, one cuDNN bf16
+     F.conv2d and its bound (operations at the dense bf16 rate, bytes at
+     the memory rate) (optimaltextures_tpu_torch/tools/bf16_codec.py);
   4. the three cdf kernels at the cdf step's shapes: the rotated relu1
      clouds of the 512-px pass at the C the PCA rule picks (k1), the rotated
      512x512 pixel clouds of the color tail (C = 3) and the rotated relu3
@@ -65,11 +75,21 @@ Phases (each raises on failure; none catches its own):
          plus the mixing's own cross-matching;
      every cdf step launches the histogram once (both clouds) and the
      remap once;
+  6b. the slice's path: the main path at batch 128 in bf16 (128 noise
+     images, conv_dtype="bfloat16"), cold then warm: the walls, images/s,
+     the peak device memory, the launches of every codec kernel (the bf16
+     ones, one a call: the batch-1 path's counts; no f32 codec launch), the
+     output (128, 512, 512, 3) finite, no two images equal, and its
+     per-channel means beside the batch-1 f32 main path's; then a 64-px
+     batch-8 bf16 run against the same run in f32 (same noise and injected
+     rotations), held to 0.1523, JAX's own bf16-vs-f32 gap on the CPU
+     parity test's inputs (tests/test_torch_batch.py);
   7. 64-px runs on the GPU against the same runs on the CPU (the kernels'
      plain versions), with the same inputs, injected rotations and mixing
      masks: the main path and chol mixing (max |gpu - cpu| <= 1e-3), cdf
      synthesis and cdf mixing (by distribution: cdf mode is chaotic at
-     pass granularity) and transfer + opt (mean <= 3e-3, max <= 5e-2);
+     pass granularity) and transfer + opt (mean <= 3e-3, max <= 5e-2); and
+     the main path at batch 2 in bf16 (max <= 0.1523, the bound of 6b);
   8. the CLI on a style file from docs/samples/, and mixing two (needs
      Pillow).
 
@@ -77,7 +97,10 @@ The last two lines of standard output are the {"kernels": [...]} line (all
 nine kernels, each with its "design": ffma+tma, cluster-dsmem,
 smem-tables, simt, wgmma+tma or 3xtf32-mma; final_to_rgb and rgb_to_relu1
 also carry "device_ms", their profiler time at the 512^2 shape, and the
-three cdf kernels theirs summed over their three shapes;
+three cdf kernels theirs summed over their three shapes; then the bf16
+function of kernels 1-5, "<name>_bf16" with "dtype": "bfloat16", designs
+bf16-mma and ffma+tma, their times summed over the eight shapes at batch
+128 and their launches those of the slice's path;
 conv64 and cdf_remap are on no path of the program, so their launches are
 those of their own check phase, which the "phase" field names) and
 {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -114,6 +137,8 @@ REPLACES = {
     "cdf_remap": "optimaltextures_tpu/ops/pallas/cdf_remap.py:97",
     "conv64": "tools/pallas_conv_proto.py:109",
 }
+REPLACES.update({k + "_bf16": REPLACES[k] for k in (
+    "rgb_to_relu1", "conv3x3_p2", "conv3x3_full", "upconv_p2", "final_to_rgb")})
 SOURCES = {"batched_histogram": "cdf", "pwl_remap": "cdf", "cdf_remap": "cdf",
            "conv64": "conv64"}   # else codec
 
@@ -125,10 +150,17 @@ SOURCES = {"batched_histogram": "cdf", "pwl_remap": "cdf", "cdf_remap": "cdf",
 # (cdf_remap: scans, searching, interpolating)
 TENSOR_CORE_CODEC = ("conv3x3_p2", "conv3x3_full", "upconv_p2")
 EDGE_CODEC = ("final_to_rgb", "rgb_to_relu1")
+_CODEC = TENSOR_CORE_CODEC + EDGE_CODEC
 DESIGNS = {"conv64": "wgmma+tma", **{k: "3xtf32-mma" for k in TENSOR_CORE_CODEC},
            **{k: "ffma+tma" for k in EDGE_CODEC},
+           **{k + "_bf16": "bf16-mma" for k in TENSOR_CORE_CODEC},
+           **{k + "_bf16": "ffma+tma" for k in EDGE_CODEC},
            "batched_histogram": "cluster-dsmem", "pwl_remap": "smem-tables",
            "cdf_remap": "simt"}
+# JAX's own max|bf16 - f32| gap on tests/test_torch_batch.py's inputs (64
+# px, batch 2, 2 passes, no PCA, injected rotations): the bound of every
+# bf16 run held against another run here
+BF16_RUN_GAP = 0.1523
 
 # per redesigned kernel: its symbol in the SASS (a regex over the mangled
 # name: conv3x3_tf32x3<CIN, COUT, ...>, upconv_tf32x3<C>) and what the
@@ -140,8 +172,15 @@ SASS_CHECKS = (("conv64", r"conv64_wgmma", (("HGMMA", "HGMMA"),)),
                ("conv3x3_p2", r"conv3x3_tf32x3ILi\d+ELi64E", (("HMMA", "TF32"),)),
                ("conv3x3_full", r"conv3x3_tf32x3ILi\d+ELi128E", (("HMMA", "TF32"),)),
                ("upconv_p2", r"upconv_tf32x3ILi\d+E", (("HMMA", "TF32"),)),
-               ("final_to_rgb", r"final_to_rgb_tma", (("UTMALDG", "UTMALDG"),)),
-               ("rgb_to_relu1", r"rgb_to_relu1_tma", (("UTMASTG", "UTMASTG"),)),
+               ("final_to_rgb", r"final_to_rgb_tmaIfE", (("UTMALDG", "UTMALDG"),)),
+               ("rgb_to_relu1", r"rgb_to_relu1_tmaIfE", (("UTMASTG", "UTMASTG"),)),
+               ("conv3x3_p2_bf16", r"conv3x3_bf16ILi\d+ELi64E", (("HMMA", "BF16"),)),
+               ("conv3x3_full_bf16", r"conv3x3_bf16ILi\d+ELi128E", (("HMMA", "BF16"),)),
+               ("upconv_p2_bf16", r"upconv_bf16ILi\d+E", (("HMMA", "BF16"),)),
+               ("final_to_rgb_bf16", r"final_to_rgb_tmaI13__nv_bfloat16E",
+                (("UTMALDG", "UTMALDG"),)),
+               ("rgb_to_relu1_bf16", r"rgb_to_relu1_tmaI13__nv_bfloat16E",
+                (("UTMASTG", "UTMASTG"),)),
                ("batched_histogram", r"histogram_cluster",
                 (("LDG", "LDG.E.128"), ("UCGABAR", "UCGABAR_WAIT"))),
                ("pwl_remap", r"pwl_tables", (("LDG", "LDG.E.128"),
@@ -335,6 +374,33 @@ def _add_row(rows, name, err, ms, plain_ms, lib_ms, t_flops, t_bytes):
             r[k] += v
 
 
+def check_bf16_kernels(seed: int, reps: int, card: str):
+    """Phase 3b: the bf16 function of every codec kernel at its eight 512-px
+    roundtrip shapes, at batch 1 and 128, vs its bf16 plain version, timed
+    (tools/bf16_codec.py). Returns the per-kernel summary rows
+    ("<name>_bf16"): the error the larger of both batches', every time
+    summed over the batch-128 shapes, the path's batch."""
+    from optimaltextures_tpu_torch.tools import bf16_codec
+
+    timed = bf16_codec.check_and_time(seed, reps, card, (1, 128))
+    rows, errs = {}, {}
+    for (name, _, batch), r in timed.items():
+        key = name + "_bf16"
+        errs[key] = max(errs.get(key, 0.0), r["err"])
+        if batch != 128:
+            continue
+        _add_row(rows, key, r["err"], r["ms"], r["plain_ms"], r["lib_ms"],
+                 r["t_flops"], r["t_bytes"])
+        rows[key]["device_ms"] = rows[key].get("device_ms", 0.0) + r["device_ms"]
+    for key, r in rows.items():
+        r["err"] = errs[key]
+        print(f"bf16 {key}: batch 128, eight shapes: device {r['device_ms']:.4f} ms, "
+              f"events {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, cuDNN bf16 "
+              f"{r['lib_ms']:.4f} ms, bound {r['bound']:.4f} ms; max err "
+              f"{r['err']:.3e} (batches 1 and 128)", flush=True)
+    return rows
+
+
 def check_cdf_kernels(seed: int, reps: int, card: str):
     """Phase 4: the three cdf kernels at the cdf step's shapes (relu1 of the
     512-px pass, the color tail's pixels, relu3 of the 256-px pass) vs
@@ -468,10 +534,11 @@ def mixing_matches(cfg) -> int:
 
 def expected_counts(cfg) -> dict:
     """Every kernel's launches in one run of ``cfg``: the codec's per stage
-    roundtrip, one histogram launch (both clouds) and one remap per cdf
-    step (each sliced-OT iteration of hist_mode "cdf", each step of the opt
-    color tail, and each cross-matching of cdf-mode mixing); cdf_remap and
-    conv64 are on no path."""
+    roundtrip (its bf16 kernels' in a bf16 run, whatever the batch; the
+    other dtype's none), one histogram launch (both clouds) and one remap
+    per cdf step (each sliced-OT iteration of hist_mode "cdf", each step of
+    the opt color tail, and each cross-matching of cdf-mode mixing);
+    cdf_remap and conv64 are on no path."""
     from optimaltextures_tpu_torch import core
     from optimaltextures_tpu_torch.utils import schedule
 
@@ -483,7 +550,10 @@ def expected_counts(cfg) -> dict:
         steps = sum(map(sum, table)) + mixing_matches(cfg)
     if cfg.color_transfer == "opt":
         steps += core.COLOR_STEPS
-    return {**_expected_launches(depths, cfg.passes),
+    codec_counts = _expected_launches(depths, cfg.passes)
+    suffix = "_bf16" if cfg.conv_dtype == "bfloat16" else ""
+    return {**{k: 0 for k in codec_counts}, **{k + "_bf16": 0 for k in codec_counts},
+            **{k + suffix: v for k, v in codec_counts.items()},
             "batched_histogram": steps, "pwl_remap": steps,
             "cdf_remap": 0, "conv64": 0}
 
@@ -491,19 +561,23 @@ def expected_counts(cfg) -> dict:
 def drive_path(name: str, cfg, styles, content=None, labels=("cold", "warm")):
     """Run ``cfg`` through core.synthesize once per label, each run's launch
     counts set to 0 just before it and checked just after. Returns the
-    last run's counts and the walls."""
+    last run's counts, the walls, the last output (numpy) and the peak
+    device memory of each run."""
     import torch
 
     from optimaltextures_tpu_torch import core
 
     expected = expected_counts(cfg)
-    launches, walls = None, []
-    shape = (1, 512, 512, 3)
+    launches, walls, peaks = None, [], []
+    shape = (1 if content is not None else cfg.batch, cfg.size, cfg.size, 3)
     for label in labels:
+        torch.cuda.reset_peak_memory_stats()
         _reset_counts()
         out, seconds = core.synthesize(cfg, styles, content, device="cuda")
         launches = _counts()
+        peaks.append(torch.cuda.max_memory_allocated())
         o = out.cpu().numpy()
+        del out
         walls.append(seconds)
         print(f"{name} ({label}): {seconds:.4f} s, output {o.shape}, range "
               f"[{o.min():.4f}, {o.max():.4f}], launches {launches}",
@@ -516,7 +590,7 @@ def drive_path(name: str, cfg, styles, content=None, labels=("cold", "warm")):
             raise AssertionError(f"{name}: launch counts {launches} != "
                                  f"expected {expected}")
         torch.cuda.synchronize()
-    return launches, walls
+    return launches, walls, o, peaks
 
 
 def paths(seed: int, profile: bool):
@@ -543,16 +617,16 @@ def paths(seed: int, profile: bool):
     mix_cdf_cfg = OptexConfig(size=512, seed=seed, mixing_alpha=0.5,
                               hist_mode="cdf",
                               style=["smoke_style", "smoke_style_b"])
-    main_counts, _ = drive_path("main path", main_cfg, [style])
-    cdf_counts, _ = drive_path("path A, cdf synthesis", cdf_cfg, [style])
+    main_counts, _, main_out, _ = drive_path("main path", main_cfg, [style])
+    cdf_counts, *_ = drive_path("path A, cdf synthesis", cdf_cfg, [style])
     drive_path("path B, transfer + opt", opt_cfg, [style], content)
     drive_path("path B, transfer + lum", lum_cfg, [style], content, ("warm",))
-    mix_counts, _ = drive_path("path C, mixing", mix_cfg, pair)
+    mix_counts, *_ = drive_path("path C, mixing", mix_cfg, pair)
     if mix_counts != main_counts:
         raise AssertionError(f"path C: launches {mix_counts} != the main "
                              f"path's {main_counts}")
-    mix_cdf_counts, _ = drive_path("path C, cdf mixing", mix_cdf_cfg, pair,
-                                   labels=("warm",))
+    mix_cdf_counts, *_ = drive_path("path C, cdf mixing", mix_cdf_cfg, pair,
+                                    labels=("warm",))
     own = mixing_matches(mix_cdf_cfg)
     for name in ("batched_histogram", "pwl_remap"):
         if mix_cdf_counts[name] != cdf_counts[name] + own:
@@ -568,7 +642,101 @@ def paths(seed: int, profile: bool):
                                      ("transfer_opt", opt_cfg, [style], content),
                                      ("mix", mix_cfg, pair, None)):
             profile_run(name, cfg, sty, cont)
-    return main_counts, cdf_counts
+    return main_counts, cdf_counts, main_out
+
+
+def slice_path(seed: int, main_counts, main_out, profile: bool):
+    """Phase 6b: the main path at batch 128 in bf16, cold then warm; its
+    launches must be the batch-1 f32 path's, on the bf16 kernels. Returns
+    the warm run's counts."""
+    import torch
+
+    from optimaltextures_tpu_torch.config import OptexConfig
+
+    style = _style_exemplar(seed + 1)
+    batch = 128
+    cfg = OptexConfig(size=512, seed=seed, batch=batch, conv_dtype="bfloat16",
+                      style=["smoke_style"])
+    counts, walls, out, peaks = drive_path("slice path, batch 128 bf16", cfg,
+                                           [style])
+    want = {k + "_bf16": v for k, v in main_counts.items() if k in _CODEC}
+    if ({k: counts[k] for k in want} != want
+            or any(counts[k] for k in _CODEC)):
+        raise AssertionError(f"slice path: launches {counts} are not the batch-1 "
+                             f"path's {main_counts} on the bf16 kernels")
+    distinct = len({image.tobytes() for image in out})
+    if distinct != batch:
+        raise AssertionError(f"slice path: only {distinct} of {batch} images "
+                             "differ")
+    means, ref = out.reshape(-1, 3).mean(0), main_out.reshape(-1, 3).mean(0)
+    print(f"slice path, batch {batch} bf16: walls cold {walls[0]:.4f} s, warm "
+          f"{walls[1]:.4f} s; {batch / walls[0]:.1f} and {batch / walls[1]:.1f} images/s; "
+          f"peak device memory {peaks[0] / 2**30:.2f} / {peaks[1] / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated); launches {want} (the batch-1 "
+          f"path's, one a call); output {out.shape}, finite, no two images "
+          f"equal; per-channel means {np.round(means, 4).tolist()} vs the "
+          f"batch-1 f32 main path's {np.round(ref, 4).tolist()}", flush=True)
+    if float(np.abs(means - ref).max()) > 0.05:
+        raise AssertionError(f"slice path: channel means {means} far from the "
+                             f"batch-1 path's {ref}")
+    del out
+    if profile:
+        profile_run("batch128_bf16", cfg, [style])
+    torch.cuda.empty_cache()
+    return counts
+
+
+def bf16_vs_f32_batch8():
+    """Phase 6b, second part: 64 px, batch 8, bf16 vs f32 on the same noise
+    and injected rotations (the CPU parity test's settings; its first two
+    images are that test's inputs), held to BF16_RUN_GAP."""
+    import torch
+
+    from optimaltextures_tpu_torch import core
+    from optimaltextures_tpu_torch.config import OptexConfig
+    from optimaltextures_tpu_torch.utils import imageio
+
+    style = imageio.load_image(SAMPLE_STYLE, 64)
+    noise = np.random.default_rng(5).uniform(size=(8, 64, 64, 3)).astype(np.float32)
+    rotations = _rotation_stream(17)
+    outs = {}
+    for dt in ("float32", "bfloat16"):
+        _reset_counts()
+        cfg = OptexConfig(size=64, passes=2, iters=60, no_multires=True, depth=3,
+                          seed=0, no_pca=True, batch=8, conv_dtype=dt,
+                          style=["graffiti.png"])
+        outs[dt] = core.Synthesizer(cfg, device="cuda").run(
+            noise, [style], rotations=rotations).cpu().numpy()
+        suffix = "_bf16" if dt == "bfloat16" else ""
+        if not all(_counts()[k + suffix] for k in _CODEC):
+            raise AssertionError(f"batch-8 {dt}: a codec kernel did not launch: "
+                                 f"{_counts()}")
+    gap = np.abs(outs["bfloat16"] - outs["float32"]).reshape(8, -1).max(1)
+    print(f"64-px batch 8, bf16 vs f32 on the GPU: max abs diff per image "
+          f"{np.round(gap, 4).tolist()} (bound {BF16_RUN_GAP})", flush=True)
+    if not (np.isfinite(outs["bfloat16"]).all() and gap.max() <= BF16_RUN_GAP):
+        raise AssertionError(f"batch-8 bf16 vs f32 gap {gap.max()} > {BF16_RUN_GAP}")
+    torch.cuda.synchronize()
+
+
+def _rotation_stream(seed: int):
+    """Deterministic SO(n) stacks per (pass, stage) from numpy (QR with the
+    sign fix), as tests/test_torch_slice.py's RotationStream draws them."""
+    cache = {}
+
+    def rotations(p, i, n_iters, n):
+        if (p, i) not in cache:
+            rng = np.random.default_rng([seed, p, i])
+            qs = []
+            for _ in range(n_iters):
+                q, r = np.linalg.qr(rng.standard_normal((n, n)))
+                q = q * np.sign(np.diag(r))[None, :]
+                if np.linalg.det(q) < 0:
+                    q[:, -1] *= -1
+                qs.append(q)
+            cache[(p, i)] = np.stack(qs).astype(np.float32)
+        return cache[(p, i)]
+    return rotations
 
 
 def profile_run(name, cfg, styles, content=None):
@@ -589,13 +757,15 @@ def profile_run(name, cfg, styles, content=None):
     kernels = [e for e in rows if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(dev_us(e) for e in kernels) / 1e3
     part = lambda key: sum(dev_us(e) for e in kernels if key in e.key) / 1e3
-    tc = part('conv3x3_tf32x3') + part('upconv_tf32x3')
+    convs = part('conv3x3_tf32x3') + part('conv3x3_bf16')
+    ups = part('upconv_tf32x3') + part('upconv_bf16')
+    tc = convs + ups
     edge = part('final_to_rgb_tma') + part('rgb_to_relu1_tma')
     print(f"profile {name} (warm run, profiler on): wall {wall * 1e3:.1f} ms, "
           f"device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% of the "
           f"wall), codec kernels {edge + tc:.1f} ms "
           f"(tensor-core {tc:.1f}: conv3x3_p2 + conv3x3_full "
-          f"{part('conv3x3_tf32x3'):.1f}, upconv_p2 {part('upconv_tf32x3'):.1f}; "
+          f"{convs:.1f}, upconv_p2 {ups:.1f}; "
           f"final_to_rgb {part('final_to_rgb_tma'):.3f}, rgb_to_relu1 "
           f"{part('rgb_to_relu1_tma'):.3f}), "
           f"histogram kernel {part('histogram_cluster'):.2f} ms, pwl kernel "
@@ -620,7 +790,7 @@ def _gpu_vs_cpu(cfg, seed: int, content_shape=None):
     from optimaltextures_tpu_torch.ops.rotation import polar_rotations
 
     rng = np.random.default_rng(seed)
-    shape = content_shape or (1, cfg.size, cfg.size, 3)
+    shape = content_shape or (cfg.batch, cfg.size, cfg.size, 3)
     noise = rng.uniform(size=shape).astype(np.float32)
     styles = [_style_exemplar(seed + 2 + 5 * i, 64) for i in range(len(cfg.style))]
     content = (np.ascontiguousarray(_style_exemplar(seed + 4, 96)[:, :shape[1],
@@ -693,6 +863,9 @@ def small_agreement(seed: int):
     pair = ["smoke_style", "smoke_style_b"]
     _hold_max("64-px two-style mixing", *_gpu_vs_cpu(OptexConfig(
         passes=2, iters=48, style=pair, **kw), seed))
+    _hold_max("64-px main path, batch 2, bf16", *_gpu_vs_cpu(OptexConfig(
+        passes=2, iters=48, batch=2, conv_dtype="bfloat16",
+        style=["smoke_style"], **kw), seed), BF16_RUN_GAP)
     _hold_distribution("64-px two-style cdf mixing", *_gpu_vs_cpu(OptexConfig(
         passes=1, iters=60, hist_mode="cdf", style=pair, **kw), seed))
 
@@ -765,7 +938,10 @@ def main() -> int:
     rows = check_kernels(args.seed, args.reps, card)
     rows.update(check_cdf_kernels(args.seed, args.reps * 10, card))
     rows.update(check_conv64(args.reps, card))
-    main_counts, cdf_counts = paths(args.seed, args.profile)
+    rows.update(check_bf16_kernels(args.seed, args.reps, card))
+    main_counts, cdf_counts, main_out = paths(args.seed, args.profile)
+    slice_counts = slice_path(args.seed, main_counts, main_out, args.profile)
+    bf16_vs_f32_batch8()
     small_agreement(args.seed)
     try:
         import PIL  # noqa: F401
@@ -781,6 +957,8 @@ def main() -> int:
     for name, r in rows.items():
         if "launches" in r:     # on no path: its own check phase's launches
             launches, phase = r["launches"], f"{name} check phase"
+        elif name.endswith("_bf16"):
+            launches, phase = slice_counts[name], "slice path (batch 128, bf16)"
         elif name in SOURCES:
             launches, phase = cdf_counts[name], "path A (cdf synthesis)"
         else:
@@ -795,7 +973,8 @@ def main() -> int:
             "bound_ms": r["bound"],
             "bound_by": "operations" if r["t_flops"] >= r["t_bytes"] else "bytes",
             "library_ms": r["lib_ms"],
-            **({"device_ms": r["device_ms"]} if "device_ms" in r else {})})
+            **({"device_ms": r["device_ms"]} if "device_ms" in r else {}),
+            **({"dtype": "bfloat16"} if name.endswith("_bf16") else {})})
     print(f"device: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

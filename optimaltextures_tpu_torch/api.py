@@ -18,7 +18,13 @@ def run_files(cfg: OptexConfig, verbose: bool = False, device=None
               ) -> Tuple[np.ndarray, float, List[str]]:
     """Load the style (and content) per cfg, run, save PNG(s). Returns
     (output array NHWC, seconds, written paths). ``device`` None = the GPU."""
-    cfg = require_ported(cfg.validate())
+    cfg.validate()
+    if cfg.init is not None and cfg.batch > 1:
+        # every batch element would start identical AND share the run's
+        # rotation stream -> N identical outputs for N x the device work
+        raise ValueError("batch > 1 with --init produces identical images; "
+                         "run batch=1")
+    cfg = require_ported(cfg)
     styles = imageio.load_styles(cfg.style, cfg.size, cfg.style_scale)
     content = imageio.maybe_load_content(cfg.content, cfg.size)
     out, seconds = core.synthesize(cfg, styles, content, verbose=verbose,

@@ -25,6 +25,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="style exemplar image (two or more: mixing)")
     p.add_argument("-c", "--content", type=str, default=None,
                    help="content image for style transfer")
+    p.add_argument("--batch", type=int, default=1,
+                   help="number of noise pastiches to synthesize at once")
     p.add_argument("--size", type=int, default=512, help="output size")
     p.add_argument("--passes", type=int, default=5,
                    help="loops over the VGG layer stack")
@@ -59,6 +61,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="depth<5 content-matching rule: 'index' = the "
                         "reference's literal l<=2 positions, 'depth' = "
                         "anchor at VGG depths >= 3 (identical at depth 5)")
+    p.add_argument("--conv_dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="conv stack compute dtype (bfloat16 = faster tensor "
+                        "cores; statistics and OT stay float32)")
     p.add_argument("--no_schedule_quirk", action="store_true",
                    help="fix the reference's [l-1] schedule indexing quirk")
     p.add_argument("--no_pallas", action="store_true",

@@ -101,9 +101,7 @@ class OptexConfig:
 
 # (condition, feature, ROADMAP.md queue-1 item that ports it)
 _NOT_PORTED = [
-    (lambda c: c.conv_dtype != "float32", "conv_dtype bfloat16", 13),
     (lambda c: c.tileable, "tileable output", 13),
-    (lambda c: c.batch != 1, "batch > 1", 13),
     (lambda c: c.out_width is not None, "out_width", 13),
     (lambda c: c.init is not None, "init image", 13),
     (lambda c: c.pca_bucket != 0 or c.pca_traced_k, "pca_bucket / pca_traced_k", 13),

@@ -22,7 +22,17 @@ relu1/relu2-scale convs of every stage roundtrip run on the codec kernels
 
 Precision: the f32 path runs matmuls and convs in full f32 —
 :func:`full_f32_precision` turns TF32 off for cuBLAS and cuDNN, the
-counterpart of the JAX package's ``precision=HIGHEST``.
+counterpart of the JAX package's ``precision=HIGHEST``. With
+``conv_dtype="bfloat16"`` the convs (the bank, the codec kernels and
+``F.conv2d``) run in bf16 while the statistics, the PCA and the OT stay in
+f32: features widen to f32 after every encode (exactly) and the OT's output
+rounds to bf16 before every decode, as in the JAX package.
+
+Batch: a synthesis run takes B noise pastiches (B, H, W, 3); the style
+statistics are shared, every stage's moments are taken over B*H*W samples
+(per-image means, pooled covariance, as the JAX package's) and one
+rotation stack per stage serves the whole batch. Style transfer runs one
+image.
 """
 
 from __future__ import annotations
@@ -91,10 +101,13 @@ def _style_spectra_pass(enc_params, style_tens, *, depth: int, use_pca: bool):
     """Multi-tap style encode at every depth + each depth's PCA spectrum
     (scalar-mean centering, Gram, eigh). Returns [(sf, s_vals, v)] ordered
     deepest first."""
-    per_style = [encode_taps(enc_params, depth, s) for s in style_tens]
+    conv_dtype = enc_params[0][0].dtype
+    per_style = [encode_taps(enc_params, depth, s.to(conv_dtype))
+                 for s in style_tens]
     out = []
     for d in range(depth, 0, -1):
-        sf = torch.cat([t[d - 1] for t in per_style], dim=0)
+        # bf16 -> f32 widening is exact: the mean, Gram and eigh run in f32
+        sf = torch.cat([t[d - 1] for t in per_style], dim=0).float()
         if use_pca:
             out.append((sf, *transport.pca_spectrum(sf)))
         else:
@@ -177,10 +190,10 @@ def _content_prep_pass(enc_params, cont, eigvecs_list, style_means, *,
     """Multi-tap content encode, each depth projected into the style's PC
     space and re-centred at the style's scalar mean: ``cf - mean(cf) +
     mean(style)``, scalar means (deepest first)."""
-    taps = encode_taps(enc_params, depth, cont)
+    taps = encode_taps(enc_params, depth, cont.to(enc_params[0][0].dtype))
     out = []
     for i, d in enumerate(range(depth, 0, -1)):
-        cf = taps[d - 1]
+        cf = taps[d - 1].float()
         if use_pca:
             cf = cf @ eigvecs_list[i]
         out.append(cf - cf.mean() + style_means[i])
@@ -197,9 +210,10 @@ def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
                       pass_idx: int = 0, use_pallas: bool = True,
                       rotations: Optional[RotationSource] = None):
     """All of a pass's layer stages: the multires resize (``resize_mats``:
-    the (wh, ww) weights, or None), then for each depth (deepest first)
-    encode -> project -> OT (pulled toward ``targets[i].content`` at
-    ``strengths[i]``) -> unproject -> decode. Takes and returns f32 NHWC.
+    the (wh, ww) weights, or None) in f32, the cast to the conv dtype, then
+    for each depth (deepest first) encode -> widen to f32 -> project -> OT
+    (pulled toward ``targets[i].content`` at ``strengths[i]``) -> unproject
+    -> cast back -> decode. Takes and returns f32 NHWC.
     ``stage_codecs`` (fastcodec.pack_stages) routes the roundtrips through
     the codec kernels; None keeps the F.conv2d codec (CPU only).
 
@@ -207,8 +221,10 @@ def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
     (run_key, p, i), or takes them from ``rotations(p, i, n_iters, C)``."""
     if resize_mats is not None:
         pastiche = apply_resample(pastiche, *resize_mats)
+    pastiche = pastiche.to(enc_params[0][0][0].dtype)
 
     def ot_stage(i, feat):
+        feat = feat.float()
         tgt = targets[i]
         if pca_flags[i]:
             feat = feat @ tgt.eigvecs
@@ -238,8 +254,8 @@ def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
 
     for i, d in enumerate(depths):
         feat = ot_stage(i, encode(enc_params[i], d, pastiche))
-        pastiche = decode(dec_params[i], d, feat)
-    return pastiche
+        pastiche = decode(dec_params[i], d, feat.to(pastiche.dtype))
+    return pastiche.float()
 
 
 def _run_stages_impl(enc_params, dec_params, pastiche, targets_all, run_key,
@@ -297,8 +313,10 @@ class Synthesizer:
             raise ValueError("use_pallas=False runs the cdf kernels' plain "
                              "versions, a CPU reference; on a GPU the cdf "
                              "steps run on the CUDA kernels")
-        self.bank = (bank.to(self.device) if bank is not None
-                     else VGGBank(cfg.depth, device=self.device))
+        conv_dtype = getattr(torch, cfg.conv_dtype)
+        self.bank = (bank.to(self.device, conv_dtype) if bank is not None
+                     else VGGBank(cfg.depth, device=self.device,
+                                  dtype=conv_dtype))
         self.depth = self.bank.max_depth
         self.iters_table, self.sizes = schedule.iters_and_sizes(
             cfg.size, cfg.iters, cfg.passes, not cfg.no_multires,
@@ -469,9 +487,10 @@ class Synthesizer:
             color_rotations=None,
             mix_draws: Optional[MixDrawSource] = None) -> torch.Tensor:
         """Synthesis, or style transfer when ``content`` (1, Hc, Wc, 3) is
-        given; two or more ``styles`` mix. ``pastiche`` (1, H, W, 3) and
-        ``styles`` [(1, h, w, 3)] are NHWC float32 arrays or tensors;
-        returns the float32 result on this synthesizer's device.
+        given; two or more ``styles`` mix. ``pastiche`` (B, H, W, 3; B = 1
+        with a content image) and ``styles`` [(1, h, w, 3)] are NHWC float32
+        arrays or tensors; returns the float32 (B, ...) result on this
+        synthesizer's device.
 
         ``key`` overrides the run key (default :meth:`next_run_key`);
         ``rotations`` injects every stage's rotation stack,
@@ -490,9 +509,10 @@ class Synthesizer:
             content = torch.as_tensor(content, dtype=torch.float32).to(dev)
         elif cfg.color_transfer is not None:
             raise ValueError("Color transfer requires content image")
-        if pastiche.shape[0] != 1:
-            raise NotImplementedError("batch > 1 is not ported yet "
-                                      "(ROADMAP.md, queue 1 item 13)")
+        if content is not None and pastiche.shape[0] != 1:
+            # the reference ignores --batch with a content image
+            raise ValueError("style transfer runs one image; got a pastiche "
+                             f"batch of {pastiche.shape[0]}")
 
         # phase A: every distinct pass's style prep, ahead of the stages
         plan = self._plan_passes(

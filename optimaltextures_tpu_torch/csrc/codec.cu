@@ -2,23 +2,28 @@
 // kernels in optimaltextures_tpu/ops/pallas/codec.py.
 //
 // All five compute one operation: a 3x3 convolution with 1-px reflect
-// padding and a bias, on NHWC float32 tensors, with an optional nearest-x2
+// padding and a bias, on NHWC tensors, with an optional nearest-x2
 // upsample in front, and an optional ReLU and 2x2 max-pool (taken after the
-// ReLU, ceil mode) behind. What bounds each on the H100 sets its design:
+// ReLU, ceil mode) behind. Each in two functions: float32 throughout, and
+// the bf16 one the Pallas kernels compute on the TPU (bf16 activations and
+// weights, f32 accumulate, f32 bias, one rounding to bf16 at the store;
+// rgb_to_relu1 rounds its f32 RGB input to bf16 first, final_to_rgb writes
+// f32 RGB). What bounds each on the H100 sets its design:
 //
-//   rgb_to_relu1  rgb_to_relu1_tma                           bytes
-//   final_to_rgb  final_to_rgb_tma                           bytes
-//   conv3x3_p2    conv3x3_tf32x3<64|128, 64, RELU, POOL>     operations
-//   conv3x3_full  conv3x3_tf32x3<64|128, 128, RELU, POOL>    operations
-//   upconv_p2     upconv_tf32x3<64|128>                      operations
+//   rgb_to_relu1  rgb_to_relu1_tma<float|bf16>                  bytes
+//   final_to_rgb  final_to_rgb_tma<float|bf16>                  bytes
+//   conv3x3_p2    conv3x3_tf32x3|bf16<64|128, 64, RELU, POOL>   operations
+//   conv3x3_full  conv3x3_tf32x3|bf16<64|128, 128, RELU, POOL>  operations
+//   upconv_p2     upconv_tf32x3|bf16<64|128>                    operations
 //
 // The narrow entry and final convs do 54 / 1152 FLOPs per 4+256 / 256+12
 // bytes of pixel traffic, below the card's ridge: FFMA direct convolutions
 // that read their input once and write their output once, with the 64-channel
 // side moved by TMA so the bytes stay in flight while the FMAs run. The
 // wide convs do 2 x 9 x Cin multiply-adds per output value (upconv, folded:
-// 2 x 4 x Cin) against 8 bytes of traffic, far above it: implicit GEMMs on
-// the tensor cores, three TF32 products per f32 product.
+// 2 x 4 x Cin) against 8 bytes of traffic (4 in bf16), far above it:
+// implicit GEMMs on the tensor cores, three TF32 products per f32 product,
+// or one bf16 product.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (or cudaErrorInvalidValue for a configuration
@@ -26,6 +31,7 @@
 // base is not 16-byte aligned).
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -96,6 +102,18 @@ __device__ __forceinline__ int reflect1(int i, int n) {
 //   (TMA clips the ragged edge), and the staging is double-buffered: tile
 //   k's stores run while tile k + 1 computes, and a buffer is rewritten
 //   only after cp.async.bulk.wait_group.read says its stores have read it.
+//
+// The bf16 function (template argument __nv_bfloat16) moves 128 bytes a
+// pixel on the 64-channel side, half the bytes: a 128-byte line holds all
+// 64 channels, 8 to a 16-byte chunk, so one TMA box of the same size
+// carries a whole tile. final_to_rgb_tma<bf16> takes one ring item a tile
+// (41,472 bytes, as an f32 half) and its warps compute both halves from it,
+// widening 4 channels (8 bytes) at a time; rgb_to_relu1_tma<bf16> rounds
+// its f32 input to bf16 as it stages it (the Pallas kernel's
+// p0.astype(dt)), rounds each output once, and stores a tile with one TMA
+// box. The arithmetic is the f32 kernels' FFMAs on the widened values.
+// At batch 128 and 512^2 a relu1 tensor holds 2^31 elements: every offset
+// is 64-bit (size_t), TMA takes per-dimension coordinates.
 
 constexpr int kEdgeTile = 16;                              // output pixels a tile side
 constexpr int kEdgeHalo = kEdgeTile + 2;                   // 18
@@ -224,13 +242,24 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
 
+// widen four bf16 (an 8-byte load) to f32
+__device__ __forceinline__ float4 widen4(uint2 q) {
+  return make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xffff0000u),
+                     __uint_as_float(q.y << 16), __uint_as_float(q.y & 0xffff0000u));
+}
+
+template <class T>
 __global__ void __launch_bounds__(kFinThreads, 1)
 final_to_rgb_tma(const __grid_constant__ CUtensorMap xmap, const float* __restrict__ w,
                  const float* __restrict__ bias, float* __restrict__ y, int n, int H,
                  int W) {
-  // xmap: x (N, H, W, 64), boxes of {32 channels, 18 columns, 18 rows, 1};
-  // w: (3, 3, 64, 3) HWIO; y: (N, H, W, 3). Item i: half i & 1 of this
-  // block's tile i >> 1, in ring slot i % 3.
+  // xmap: x (N, H, W, 64) of T, boxes of {128 bytes of channels, 18 columns,
+  // 18 rows, 1}: 32 f32 channels (half a tile) or all 64 bf16 ones (a whole
+  // tile); w: (3, 3, 64, 3) HWIO float32; y: (N, H, W, 3) float32. Item i:
+  // f32 half i & 1 of this block's tile i >> 1, bf16 its tile i; in ring
+  // slot i % 3.
+  constexpr int kHalves = sizeof(T) == 4 ? 1 : 2;        // halves an item holds
+  constexpr int kItems = 2 / kHalves;                    // items a tile
   extern __shared__ uint8_t fin_smem[];
   uint8_t* sm = fin_smem + ((1024u - (saddr(fin_smem) & 1023u)) & 1023u);
   float* ws = reinterpret_cast<float*>(sm + kFinOffW);
@@ -241,7 +270,7 @@ final_to_rgb_tma(const __grid_constant__ CUtensorMap xmap, const float* __restri
   const int tiles_y = (H + kEdgeTile - 1) / kEdgeTile;
   const int tiles = n * tiles_x * tiles_y;
   const int mine = (tiles - 1 - static_cast<int>(blockIdx.x)) / static_cast<int>(gridDim.x) + 1;
-  const int items = 2 * mine;
+  const int items = kItems * mine;
 
   if (tid == 0) {
     for (int s = 0; s < kFinStages; ++s) {
@@ -260,10 +289,10 @@ final_to_rgb_tma(const __grid_constant__ CUtensorMap xmap, const float* __restri
       for (int i = 0; i < items; ++i) {
         const int slot = i % kFinStages;
         if (i >= kFinStages) mbar_wait(s_empty + 8 * slot, ((i / kFinStages) - 1) & 1);
-        const EdgeTile e = edge_tile(blockIdx.x + (i >> 1) * gridDim.x, tiles_x, tiles_y);
+        const EdgeTile e = edge_tile(blockIdx.x + (i / kItems) * gridDim.x, tiles_x, tiles_y);
         mbar_expect_tx(s_full + 8 * slot, kFinBox);
-        tma_load_4d(s_ring + slot * kFinSlot, &xmap, s_full + 8 * slot, 32 * (i & 1),
-                    e.x0 - 1, e.y0 - 1, e.n);
+        tma_load_4d(s_ring + slot * kFinSlot, &xmap, s_full + 8 * slot,
+                    kHalves == 1 ? 32 * (i & 1) : 0, e.x0 - 1, e.y0 - 1, e.n);
       }
     }
     return;
@@ -272,8 +301,8 @@ final_to_rgb_tma(const __grid_constant__ CUtensorMap xmap, const float* __restri
   const int cx = lane & 15, rg = lane >> 4;
   float acc[8][3];
   for (int i = 0; i < items; ++i) {
-    const int slot = i % kFinStages, half = i & 1;
-    const EdgeTile e = edge_tile(blockIdx.x + (i >> 1) * gridDim.x, tiles_x, tiles_y);
+    const int slot = i % kFinStages;
+    const EdgeTile e = edge_tile(blockIdx.x + (i / kItems) * gridDim.x, tiles_x, tiles_y);
     uint8_t* st = sm + slot * kFinSlot;
     mbar_wait(s_full + 8 * slot, (i / kFinStages) & 1);
     // reflect repair: halo column 0 (image column -1) takes halo column 2,
@@ -302,45 +331,56 @@ final_to_rgb_tma(const __grid_constant__ CUtensorMap xmap, const float* __restri
       }
       consumer_sync();
     }
-    // this warp's 4 input channels of the half: weights [tap][ci][co]
-    const int c0 = 32 * half + 4 * warp;
-    float wr[9][12];
+    int half = i & 1;
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const float4* wp = reinterpret_cast<const float4*>(ws + (tap * 64 + c0) * 3);
+    for (int h = 0; h < kHalves; ++h) {
+      if (kHalves == 2) half = h;
+      // this warp's 4 input channels of the half: weights [tap][ci][co]
+      const int c0 = 32 * half + 4 * warp;
+      float wr[9][12];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float4 v = wp[k];
-        wr[tap][4 * k] = v.x; wr[tap][4 * k + 1] = v.y;
-        wr[tap][4 * k + 2] = v.z; wr[tap][4 * k + 3] = v.w;
+      for (int tap = 0; tap < 9; ++tap) {
+        const float4* wp = reinterpret_cast<const float4*>(ws + (tap * 64 + c0) * 3);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const float4 v = wp[k];
+          wr[tap][4 * k] = v.x; wr[tap][4 * k + 1] = v.y;
+          wr[tap][4 * k + 2] = v.z; wr[tap][4 * k + 3] = v.w;
+        }
       }
-    }
-    if (half == 0) {
+      if (half == 0) {
 #pragma unroll
-      for (int oy = 0; oy < 8; ++oy)
+        for (int oy = 0; oy < 8; ++oy)
 #pragma unroll
-        for (int co = 0; co < 3; ++co) acc[oy][co] = 0.f;
-    }
-#pragma unroll
-    for (int iy = 0; iy < 10; ++iy) {
-      float v[3][4];
-#pragma unroll
-      for (int kw = 0; kw < 3; ++kw) {
-        const float4 q = *reinterpret_cast<const float4*>(
-            st + sw128((8 * rg + iy) * kEdgeHalo + cx + kw, warp));
-        v[kw][0] = q.x; v[kw][1] = q.y; v[kw][2] = q.z; v[kw][3] = q.w;
+          for (int co = 0; co < 3; ++co) acc[oy][co] = 0.f;
       }
 #pragma unroll
-      for (int kh = 0; kh < 3; ++kh) {
-        const int oy = iy - kh;
-        if (oy < 0 || oy >= 8) continue;
+      for (int iy = 0; iy < 10; ++iy) {
+        float v[3][4];
 #pragma unroll
-        for (int kw = 0; kw < 3; ++kw)
+        for (int kw = 0; kw < 3; ++kw) {
+          const int px = (8 * rg + iy) * kEdgeHalo + cx + kw;
+          // f32: 16-byte chunk `warp` of the half's line; bf16: channels
+          // c0..c0 + 3, half of 16-byte chunk c0 / 8 of the tile's line
+          const float4 q =
+              kHalves == 1
+                  ? *reinterpret_cast<const float4*>(st + sw128(px, warp))
+                  : widen4(*reinterpret_cast<const uint2*>(
+                        st + sw128(px, 4 * half + (warp >> 1)) + 8 * (warp & 1)));
+          v[kw][0] = q.x; v[kw][1] = q.y; v[kw][2] = q.z; v[kw][3] = q.w;
+        }
 #pragma unroll
-          for (int ci = 0; ci < 4; ++ci)
+        for (int kh = 0; kh < 3; ++kh) {
+          const int oy = iy - kh;
+          if (oy < 0 || oy >= 8) continue;
 #pragma unroll
-            for (int co = 0; co < 3; ++co)
-              acc[oy][co] = fmaf(v[kw][ci], wr[3 * kh + kw][3 * ci + co], acc[oy][co]);
+          for (int kw = 0; kw < 3; ++kw)
+#pragma unroll
+            for (int ci = 0; ci < 4; ++ci)
+#pragma unroll
+              for (int co = 0; co < 3; ++co)
+                acc[oy][co] = fmaf(v[kw][ci], wr[3 * kh + kw][3 * ci + co], acc[oy][co]);
+        }
       }
     }
     // this warp is done with the slot (its repair writes included)
@@ -351,7 +391,7 @@ final_to_rgb_tma(const __grid_constant__ CUtensorMap xmap, const float* __restri
       // the 8 warps' partial sums -> one thread per pixel: bias, store. The
       // buffer alternates by tile: a warp rewrites it two tiles on, past the
       // next tile's barrier, which every reader of this one has reached
-      float* red = reinterpret_cast<float*>(sm + kFinOffRed + ((i >> 1) & 1) * kFinRedBuf);
+      float* red = reinterpret_cast<float*>(sm + kFinOffRed + ((i / kItems) & 1) * kFinRedBuf);
 #pragma unroll
       for (int oy = 0; oy < 8; ++oy)
 #pragma unroll
@@ -375,12 +415,21 @@ final_to_rgb_tma(const __grid_constant__ CUtensorMap xmap, const float* __restri
   }
 }
 
+// x rounded to the output dtype's precision (bf16 multiplies bf16 inputs)
+__device__ __forceinline__ float round_as(float v, float) { return v; }
+__device__ __forceinline__ float round_as(float v, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <class T>
 __global__ void __launch_bounds__(kThreads, 1)
 rgb_to_relu1_tma(const __grid_constant__ CUtensorMap ymap, const float* __restrict__ x,
                  const float* __restrict__ w, const float* __restrict__ bias, int n,
                  int H, int W) {
-  // x: (N, H, W, 3); w: (3, 3, 3, 64) HWIO; ymap: y (N, H, W, 64), boxes of
-  // {32 channels, 16 columns, 16 rows, 1}
+  // x: (N, H, W, 3) float32 (rounded to T before it multiplies); w: (3, 3,
+  // 3, 64) HWIO float32; ymap: y (N, H, W, 64) of T, boxes of {128 bytes of
+  // channels, 16 columns, 16 rows, 1}: two boxes a tile in f32, one in bf16
+  constexpr bool F32 = sizeof(T) == 4;
   extern __shared__ uint8_t ent_smem[];
   uint8_t* sm = ent_smem + ((1024u - (saddr(ent_smem) & 1023u)) & 1023u);
   float* ws = reinterpret_cast<float*>(sm + kEntOffW);   // [27][64], then the bias
@@ -422,7 +471,7 @@ rgb_to_relu1_tma(const __grid_constant__ CUtensorMap ymap, const float* __restri
     float* in = reinterpret_cast<float*>(sm + kEntOffIn) + buf * kEntIn;
 #pragma unroll
     for (int l = 0; l < kEntLoads; ++l)
-      if (tid + l * kThreads < kEntIn) in[tid + l * kThreads] = pre[l];
+      if (tid + l * kThreads < kEntIn) in[tid + l * kThreads] = round_as(pre[l], T());
     // staging buffer buf last held tile k - 2: its stores must have read it
     if (tid == 0) bulk_wait_read<1>();
     __syncthreads();
@@ -440,7 +489,7 @@ rgb_to_relu1_tma(const __grid_constant__ CUtensorMap ymap, const float* __restri
     const float4* w4 = reinterpret_cast<const float4*>(ws);
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
-      const int j = 4 * q + g;            // 16-byte chunk of the pixel's 64 channels
+      const int j = 4 * q + g;            // 4-channel group of the pixel's 64 channels
       float acc[4][4];
 #pragma unroll
       for (int p = 0; p < 4; ++p)
@@ -466,17 +515,27 @@ rgb_to_relu1_tma(const __grid_constant__ CUtensorMap ymap, const float* __restri
         const float4 o = make_float4(
             fmaxf(acc[p][0] + b.x, 0.f), fmaxf(acc[p][1] + b.y, 0.f),
             fmaxf(acc[p][2] + b.z, 0.f), fmaxf(acc[p][3] + b.w, 0.f));
-        *reinterpret_cast<float4*>(st + (j >> 3) * kEntHalf +
-                                   sw128((ry + p) * kEdgeTile + cx, j & 7)) = o;
+        const int px = (ry + p) * kEdgeTile + cx;
+        if constexpr (F32) {
+          // group j is 16-byte chunk j & 7 of half j >> 3
+          *reinterpret_cast<float4*>(st + (j >> 3) * kEntHalf + sw128(px, j & 7)) = o;
+        } else {
+          // group j is half j & 1 of 16-byte chunk j >> 1 of the pixel's line
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(o.x, o.y);
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(o.z, o.w);
+          *reinterpret_cast<uint2*>(st + sw128(px, j >> 1) + 8 * (j & 1)) =
+              make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                         *reinterpret_cast<const uint32_t*>(&hi));
+        }
       }
     }
-    // the staged tile is complete: thread 0 stores both halves by TMA
+    // the staged tile is complete: thread 0 stores it by TMA
     fence_async_smem();
     __syncthreads();
     if (tid == 0) {
       const uint32_t src = saddr(st);
       tma_store_4d(&ymap, src, 0, e.x0, e.y0, e.n);
-      tma_store_4d(&ymap, src + kEntHalf, 32, e.x0, e.y0, e.n);
+      if (F32) tma_store_4d(&ymap, src + kEntHalf, 32, e.x0, e.y0, e.n);
       bulk_commit();
     }
   }
@@ -500,25 +559,31 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// the TMA map of an (n, h, w, 64) float32 tensor, boxes {32 channels, box_w,
-// box_h, 1}, 128-byte swizzled; 0 or a cudaError_t code
-int map_nhwc64(CUtensorMap* map, const float* base, int n, int h, int w, int box_w,
+// the TMA map of an (n, h, w, 64) float32 or bf16 tensor, boxes {128 bytes
+// of channels (32 f32 or 64 bf16), box_w, box_h, 1}, 128-byte swizzled; 0
+// or a cudaError_t code
+template <class T>
+int map_nhwc64(CUtensorMap* map, const T* base, int n, int h, int w, int box_w,
                int box_h) {
   if (reinterpret_cast<uintptr_t>(base) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
   const EncodeTiled encode = encode_tiled();
   if (!encode) return static_cast<int>(cudaErrorSymbolNotFound);
   std::memset(map, 0, sizeof *map);
-  const cuuint64_t px = 64 * sizeof(float);
+  const cuuint64_t px = 64 * sizeof(T);
   const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(w), static_cast<cuuint64_t>(h),
                               static_cast<cuuint64_t>(n)};
   const cuuint64_t strides[3] = {px, px * w, px * w * h};
-  const cuuint32_t box[4] = {32, static_cast<cuuint32_t>(box_w),
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / sizeof(T)),
+                             static_cast<cuuint32_t>(box_w),
                              static_cast<cuuint32_t>(box_h), 1};
   const cuuint32_t estride[4] = {1, 1, 1, 1};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(base), dims,
-             strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  if (encode(map,
+             sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             4, const_cast<T*>(base), dims, strides, box, estride,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
@@ -538,9 +603,45 @@ int edge_grid(int n, int h, int w, int* grid) {
   return 0;
 }
 
+// (N, H, W, 3) f32 -> relu(conv) (N, H, W, 64) of T; y 16-byte aligned (TMA stores)
+template <class T>
+int launch_entry(const float* x, const float* w, const float* b, T* y, int n, int h,
+                 int wd, void* stream) {
+  if (n <= 0 || n > 65535 || h < 2 || wd < 2) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ymap;
+  int grid = 0;
+  if (int rc = map_nhwc64(&ymap, y, n, h, wd, kEdgeTile, kEdgeTile)) return rc;
+  if (int rc = edge_grid(n, h, wd, &grid)) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      rgb_to_relu1_tma<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kEntSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rgb_to_relu1_tma<T><<<grid, kThreads, kEntSmem, static_cast<cudaStream_t>(stream)>>>(
+      ymap, x, w, b, n, h, wd);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// (N, H, W, 64) of T -> conv (N, H, W, 3) f32, no ReLU (the renorm is folded
+// into w, b); x 16-byte aligned (TMA loads)
+template <class T>
+int launch_final(const T* x, const float* w, const float* b, float* y, int n, int h,
+                 int wd, void* stream) {
+  if (n <= 0 || n > 65535 || h < 2 || wd < 2) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xmap;
+  int grid = 0;
+  if (int rc = map_nhwc64(&xmap, x, n, h, wd, kEdgeHalo, kEdgeHalo)) return rc;
+  if (int rc = edge_grid(n, h, wd, &grid)) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      final_to_rgb_tma<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kFinSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  final_to_rgb_tma<T><<<grid, kFinThreads, kFinSmem, static_cast<cudaStream_t>(stream)>>>(
+      xmap, w, b, y, n, h, wd);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---------------------------------------------------------------------------
 // conv3x3_p2, conv3x3_full and upconv_p2 on the tensor cores:
-// conv3x3_tf32x3 and upconv_tf32x3.
+// conv3x3_tf32x3 and upconv_tf32x3 (float32), conv3x3_bf16 and upconv_bf16
+// (bfloat16), one skeleton each, templated on the element type.
 //
 // Replace ops/pallas/codec.py:282 conv3x3_p2 (body _conv_p2_kernel :244),
 // :376 conv3x3_full (_conv_full_kernel :340) and :449 upconv_p2
@@ -553,21 +654,31 @@ int edge_grid(int n, int h, int w, int* grid) {
 // lo*hi; the dropped lo*lo term is ~2^-22 relative. Their least time is the
 // 3xTF32 work at the 495 TF/s TF32 rate.
 //
-// Both are implicit GEMMs on mma.sync.m16n8k8 (M = output pixels, N =
-// output channels, K = taps x Cin) with one skeleton:
-// * Input channels stream through shared memory 8 at a time (one k8 step),
-//   double-buffered with 16-byte cp.async so the next chunk loads while this
-//   one multiplies: the chunk's halo (indices resolved once per pixel, not
-//   per element; ci is contiguous in NHWC) and its weights for every tap. A
-//   halo pixel's two 16-byte halves swap places when bit 2 of its index is
-//   set, so the A-fragment loads of a warp (8 consecutive pixels x 4
-//   channels) hit 32 distinct banks.
+// The bf16 function (the one the Pallas kernels compute on the TPU: bf16
+// operands, f32 accumulate, f32 bias, ReLU and pool, one rounding to bf16 at
+// the store) needs no split: one mma.sync.m16n8k16 bf16 product per product,
+// its least time the work at the 989 TF/s dense bf16 rate. A chunk of 16
+// bf16 channels is 32 bytes a pixel, as a chunk of 8 f32 channels is, so
+// the halo staging, its swizzle and the A-fragment words are the same;
+// a lane's B fragments of two n8 tiles are one 16-byte load (ops/codec.py
+// _fragments_bf16), so a stage holds half the f32 weight bytes.
+//
+// Both are implicit GEMMs on mma.sync (M = output pixels, N = output
+// channels, K = taps x Cin) with one skeleton:
+// * Input channels stream through shared memory one k step at a time (8 f32
+//   or 16 bf16 channels, 32 bytes a pixel), double-buffered with 16-byte
+//   cp.async so the next chunk loads while this one multiplies: the chunk's
+//   halo (indices resolved once per pixel, not per element; ci is
+//   contiguous in NHWC) and its weights for every tap. A halo pixel's two
+//   16-byte halves swap places when bit 2 of its index is set, so the
+//   A-fragment loads of a warp (8 consecutive pixels x 4 words) hit 32
+//   distinct banks.
 // * A fragments are read from the halo at each tap's offset (the implicit
-//   im2col; a shifted 2-D window is why this is mma.sync and not wgmma) and
-//   split in registers. The weights are split once at pack time
-//   (ops/codec.py pack_tc, pack_up) and stored in fragment order, so a
-//   lane's {hi(k), hi(k+4), lo(k), lo(k+4)} for an n8 tile is one 16-byte
-//   load.
+//   im2col; a shifted 2-D window is why this is mma.sync and not wgmma); in
+//   f32 they are split in registers. The weights are split once at pack
+//   time (ops/codec.py pack_tc, pack_up) and stored in fragment order, so a
+//   lane's {hi(k), hi(k+4), lo(k), lo(k+4)} for an n8 tile (f32), or its
+//   {b0, b1} of two n8 tiles (bf16), is one 16-byte load.
 // * A warp holds two m16 tiles x eight n8 tiles (64 channels): 64 f32
 //   accumulators a thread. The tensor cores' f32 accumulate rounds toward
 //   zero: chained through every product of a conv it biased outputs by
@@ -575,7 +686,7 @@ int edge_grid(int n, int h, int w, int* grid) {
 //   more registers) that one rounded FADD adds to the total (bias ~5e-7).
 // * One block of 8 warps per SM, bounded by registers.
 //
-// conv3x3_tf32x3<CIN, COUT, RELU, POOL>, COUT in {64, 128}:
+// conv3x3_*<CIN, COUT, RELU, POOL>, COUT in {64, 128}:
 // * A block computes kRows x 16 output pixels for all COUT channels. Warp w
 //   owns rows 2(w % RP) and 2(w % RP) + 1 (one m16 tile each: the tile's
 //   row m is column m of the image row) and channels 64(w / RP)..+63: 8
@@ -584,51 +695,65 @@ int edge_grid(int n, int h, int w, int* grid) {
 // * Epilogue: bias, ReLU, then the ceil-mode 2x2 pool in registers: a
 //   thread holds both rows of a window (its two m16 tiles), and the
 //   horizontal neighbour is lane ^ 4, one shuffle away. Pixels past the
-//   image enter the max as -inf.
-// 158,976 (COUT 128) or 94,464 (COUT 64) bytes of dynamic shared memory.
+//   image enter the max as -inf. bf16 rounds once, after the pool.
+// 158,976 (COUT 128) or 94,464 (COUT 64) bytes of dynamic shared memory in
+// f32, 85,248 or 57,600 in bf16.
 //
-// upconv_tf32x3<C>, C in {64, 128}: relu(conv3x3_reflect(nearest_up_x2(x)))
+// upconv_*<C>, C in {64, 128}: relu(conv3x3_reflect(nearest_up_x2(x)))
 // from the coarse x. A fine-scale reflection of a nearest-upsampled image
 // is a coarse-scale edge pad, and the upsample folds into the conv: fine
 // pixel (2i + a, 2j + b) is a 2x2 conv of the edge-padded coarse image at
 // rows i + a - 1 + u and columns j + b - 1 + v (u, v in {0, 1}) with the
-// folded taps of phase (a, b) (ops/codec.py pack_up). 4 taps a fine pixel
-// where the fine-scale conv takes 9, and the upsampled tensor never exists.
+// folded taps of phase (a, b) (ops/codec.py pack_up; in bf16 the folded
+// sums are rounded to bf16, as pack_upconv_fold rounds them). 4 taps a
+// fine pixel where the fine-scale conv takes 9, and the upsampled tensor
+// never exists.
 // * An m16 tile is 16 coarse columns of one coarse row for one output phase
 //   (a, b): its outputs land at fine columns 2j + b of fine row 2i + a. A
 //   warp takes one coarse row and one row phase a, and the two column
 //   phases b = 0, 1 as its two m16 tiles. They read coarse column offsets
 //   {-1, 0} and {0, +1}: the three column-shifted A fragments of a coarse
-//   row are loaded and split once and feed 4 products.
+//   row are loaded (and split) once and feed 4 products.
 // * A block computes 4 coarse rows x 16 coarse columns. At C = 64 its warps
 //   are 4 rows x both row phases, and a stage holds all 16 tap-phases'
-//   weights. At C = 128 those would be 128 KB a stage, so a block takes one
-//   row phase (the grid doubles) and its warps are 4 rows x 2 channel
-//   halves. Either way a stage is 64 KB of weights plus a 6 x 18 coarse
-//   halo: 137,984 bytes of dynamic shared memory.
+//   weights. At C = 128 those would be 128 KB a stage in f32, so a block
+//   takes one row phase (the grid doubles) and its warps are 4 rows x 2
+//   channel halves. Either way a stage is 64 KB (f32) or 32 KB (bf16) of
+//   weights plus a 6 x 18 coarse halo: 137,984 or 72,448 bytes of dynamic
+//   shared memory.
 
 constexpr int kTcCols = 16;                 // output columns (m16 rows) per block
 constexpr int kTcHaloW = kTcCols + 2;
-constexpr int kTcChunk = 8;                 // input channels per stage
+constexpr int kTcChunk = 8;                 // 4-byte words a halo pixel holds a stage
 
-template <int COUT>
+// input channels a stage (one k step: k8 TF32, k16 bf16)
+template <class T>
+constexpr int kTcK = 32 / static_cast<int>(sizeof(T));
+
+template <class T, int COUT>
 struct TcConv {
   static_assert(COUT == 64 || COUT == 128, "output channels");
   static constexpr int kRowPairsLog2 = COUT == 128 ? 2 : 3;
   static constexpr int kRowPairs = 1 << kRowPairsLog2;  // per block
   static constexpr int kRows = 2 * kRowPairs;           // output rows per block
   static constexpr int kHalo = (kRows + 2) * kTcHaloW;  // halo pixels
-  static constexpr int kW4 = 9 * (COUT / 8) * 32;       // float4s of weights a stage
-  static constexpr int kStage = 4 * kW4 + kHalo * kTcChunk;   // floats a stage
+  // 16-byte units of weights a stage: one per (tap, n8 tile, lane) in f32,
+  // one per (tap, pair of n8 tiles, lane) in bf16
+  static constexpr int kW4 = 9 * (COUT / 8) * 32 * static_cast<int>(sizeof(T)) / 4;
+  static constexpr int kStage = 4 * kW4 + kHalo * kTcChunk;   // words a stage
   static constexpr int kSmem = 2 * kStage * 4;          // bytes
   static constexpr int kLoads = (2 * kHalo + kThreads - 1) / kThreads;  // halo halves a thread
 };
 
 constexpr int kUpRows = 4;                           // coarse rows per block
 constexpr int kUpHalo = (kUpRows + 2) * kTcHaloW;    // 108 coarse halo pixels
-constexpr int kUpW4 = 8 * 16 * 32;                   // float4s of weights a stage
-constexpr int kUpStage = 4 * kUpW4 + kUpHalo * kTcChunk;
-constexpr int kUpSmem = 2 * kUpStage * 4;
+
+template <class T>
+struct UpConv {
+  static constexpr int kW4 = 8 * 16 * 32 * static_cast<int>(sizeof(T)) / 4;  // 16-byte units of weights a stage
+  static constexpr int kStage = 4 * kW4 + kUpHalo * kTcChunk;
+  static constexpr int kSmem = 2 * kStage * 4;
+};
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -663,6 +788,15 @@ __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // d += a * b in 3xTF32, the small terms first; b is a lane's packed
 // {hi(k), hi(k+4), lo(k), lo(k+4)}
 __device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* ahi,
@@ -673,7 +807,7 @@ __device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* ahi,
   mma_tf32(d, ahi, bh0, bh1);
 }
 
-// word of channel k (0..7) of halo pixel p
+// word k (0..7) of halo pixel p
 __device__ __forceinline__ int halo_slot(int p, int k) {
   return p * kTcChunk + (k ^ (((p >> 2) & 1) << 2));
 }
@@ -692,15 +826,36 @@ __device__ __forceinline__ void load_a(const float* xs, int p0, int g, int t4,
   }
 }
 
-template <int CIN, int COUT, bool RELU, bool POOL>
-__global__ void __launch_bounds__(kThreads, 1)
-conv3x3_tf32x3(const float* __restrict__ x, const float4* __restrict__ wtc,
-               const float* __restrict__ bias, float* __restrict__ y, int H,
-               int W) {
-  // x: (N, H, W, CIN); wtc: (CIN/8, 9, COUT/8, 32) float4 (ops/codec.py
-  // pack_tc); y: (N, H, W, COUT), or (N, ceil(H/2), ceil(W/2), COUT) when POOL
-  using S = TcConv<COUT>;
-  constexpr int NCH = CIN / kTcChunk, NJ = COUT / 8;
+// the same for bf16: word t4 of a pixel holds channels 2 t4, 2 t4 + 1, word
+// t4 + 4 channels 2 t4 + 8, 2 t4 + 9, as the m16n8k16 A registers want them
+__device__ __forceinline__ void load_a_bf16(const uint32_t* xs, int p0, int g, int t4,
+                                            uint32_t* a) {
+  a[0] = xs[halo_slot(p0 + g, t4)];
+  a[1] = xs[halo_slot(p0 + g + 8, t4)];
+  a[2] = xs[halo_slot(p0 + g, t4 + 4)];
+  a[3] = xs[halo_slot(p0 + g + 8, t4 + 4)];
+}
+
+// two neighbouring outputs (channels co, co + 1) of a thread, rounded once
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+template <class T, int CIN, int COUT, bool RELU, bool POOL>
+__device__ __forceinline__ void conv3x3_tc(const T* __restrict__ x,
+                                           const float4* __restrict__ wtc,
+                                           const float* __restrict__ bias,
+                                           T* __restrict__ y, int H, int W) {
+  // x: (N, H, W, CIN); wtc: (CIN/8, 9, COUT/8, 32) float4 (f32) or (CIN/16,
+  // 9, COUT/16, 32) 16-byte units (bf16) (ops/codec.py pack_tc); y: (N, H,
+  // W, COUT), or (N, ceil(H/2), ceil(W/2), COUT) when POOL
+  using S = TcConv<T, COUT>;
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int NCH = CIN / kTcK<T>, NJ = COUT / 8;
   extern __shared__ float4 tc_smem[];
   float* sm = reinterpret_cast<float*>(tc_smem);
 
@@ -711,7 +866,7 @@ conv3x3_tf32x3(const float* __restrict__ x, const float4* __restrict__ wtc,
   const int rp = warp & (S::kRowPairs - 1), nh = warp >> S::kRowPairsLog2;
   const int n = blockIdx.z;
   const int ty0 = blockIdx.y * S::kRows, tx0 = blockIdx.x * kTcCols;
-  const float* xn = x + static_cast<size_t>(n) * H * W * CIN;
+  const T* xn = x + static_cast<size_t>(n) * H * W * CIN;
 
   // thread t copies 16-byte half t & 1 of halo pixels t / 2 + 128 i; each
   // source pixel is resolved once. Rows/cols past the image (a ragged last
@@ -738,7 +893,8 @@ conv3x3_tf32x3(const float* __restrict__ x, const float4* __restrict__ wtc,
     for (int i = 0; i < S::kLoads; ++i)
       if (tid + i * kThreads < 2 * S::kHalo)
         cp_async16(xs + dst0 + i * (kThreads / 2) * kTcChunk,
-                   xn + static_cast<size_t>(src[i]) * CIN + c * kTcChunk + 4 * half);
+                   xn + static_cast<size_t>(src[i]) * CIN + c * kTcK<T> +
+                       (kTcK<T> / 2) * half);
     cp_async_commit();
   };
 
@@ -756,10 +912,9 @@ conv3x3_tf32x3(const float* __restrict__ x, const float4* __restrict__ wtc,
     cp_async_wait(c + 1 < NCH);
     __syncthreads();
     const float* base = sm + (c & 1) * S::kStage;
-    const float4* ws = reinterpret_cast<const float4*>(base);
     const float* xs = base + 4 * S::kW4;
-    // the chunk's 27 products per output sum into a fresh partial, added to
-    // the total with one rounded FADD
+    // the chunk's products per output (27 in f32, 9 in bf16) sum into a
+    // fresh partial, added to the total with one rounded FADD
     float part[2][8][4];
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -770,15 +925,34 @@ conv3x3_tf32x3(const float* __restrict__ x, const float4* __restrict__ wtc,
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
       const int r = tap / 3, s = tap % 3;
-      uint32_t ahi[2][4], alo[2][4];
+      if constexpr (F32) {
+        const float4* ws = reinterpret_cast<const float4*>(base);
+        uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        load_a(xs, (2 * rp + mt + r) * kTcHaloW + s, g, t4, ahi[mt], alo[mt]);
+        for (int mt = 0; mt < 2; ++mt)
+          load_a(xs, (2 * rp + mt + r) * kTcHaloW + s, g, t4, ahi[mt], alo[mt]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 b = ws[(tap * NJ + nh * 8 + j) * 32 + lane];
+        for (int j = 0; j < 8; ++j) {
+          const float4 b = ws[(tap * NJ + nh * 8 + j) * 32 + lane];
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_3xtf32(part[mt][j], ahi[mt], alo[mt], b);
+          for (int mt = 0; mt < 2; ++mt) mma_3xtf32(part[mt][j], ahi[mt], alo[mt], b);
+        }
+      } else {
+        const uint4* ws = reinterpret_cast<const uint4*>(base);
+        uint32_t a[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          load_a_bf16(reinterpret_cast<const uint32_t*>(xs),
+                      (2 * rp + mt + r) * kTcHaloW + s, g, t4, a[mt]);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const uint4 b = ws[(tap * (NJ / 2) + nh * 4 + jj) * 32 + lane];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_bf16(part[mt][2 * jj], a[mt], b.x, b.y);
+            mma_bf16(part[mt][2 * jj + 1], a[mt], b.z, b.w);
+          }
+        }
       }
     }
 #pragma unroll
@@ -809,7 +983,7 @@ conv3x3_tf32x3(const float* __restrict__ x, const float4* __restrict__ wtc,
     const int PH = (H + 1) / 2, PW = (W + 1) / 2;
     const int PY = ty0 / 2 + rp;
     const bool in_y1 = ty0 + 2 * rp + 1 < H;
-    float* yp = y + (static_cast<size_t>(n) * PH + PY) * PW * COUT;
+    T* yp = y + (static_cast<size_t>(n) * PH + PY) * PW * COUT;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int co = nh * 64 + 8 * j + 2 * t4;
@@ -823,12 +997,8 @@ conv3x3_tf32x3(const float* __restrict__ x, const float4* __restrict__ wtc,
         m[e] = fmaxf(m[e], __shfl_xor_sync(0xffffffffu, m[e], 4));
       }
       if ((g & 1) == 0 && PY < PH) {
-        if (X0 / 2 < PW)
-          *reinterpret_cast<float2*>(yp + static_cast<size_t>(X0 / 2) * COUT + co) =
-              make_float2(m[0], m[1]);
-        if (X1 / 2 < PW)
-          *reinterpret_cast<float2*>(yp + static_cast<size_t>(X1 / 2) * COUT + co) =
-              make_float2(m[2], m[3]);
+        if (X0 / 2 < PW) store2(yp + static_cast<size_t>(X0 / 2) * COUT + co, m[0], m[1]);
+        if (X1 / 2 < PW) store2(yp + static_cast<size_t>(X1 / 2) * COUT + co, m[2], m[3]);
       }
     }
   } else {
@@ -836,31 +1006,47 @@ conv3x3_tf32x3(const float* __restrict__ x, const float4* __restrict__ wtc,
     for (int mt = 0; mt < 2; ++mt) {
       const int Y = ty0 + 2 * rp + mt;
       if (Y >= H) continue;
-      float* yp = y + (static_cast<size_t>(n) * H + Y) * W * COUT;
+      T* yp = y + (static_cast<size_t>(n) * H + Y) * W * COUT;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int co = nh * 64 + 8 * j + 2 * t4;
         if (X0 < W)
-          *reinterpret_cast<float2*>(yp + static_cast<size_t>(X0) * COUT + co) =
-              make_float2(acc[mt][j][0], acc[mt][j][1]);
+          store2(yp + static_cast<size_t>(X0) * COUT + co, acc[mt][j][0], acc[mt][j][1]);
         if (X1 < W)
-          *reinterpret_cast<float2*>(yp + static_cast<size_t>(X1) * COUT + co) =
-              make_float2(acc[mt][j][2], acc[mt][j][3]);
+          store2(yp + static_cast<size_t>(X1) * COUT + co, acc[mt][j][2], acc[mt][j][3]);
       }
     }
   }
 }
 
-template <int C>
+template <int CIN, int COUT, bool RELU, bool POOL>
 __global__ void __launch_bounds__(kThreads, 1)
-upconv_tf32x3(const float* __restrict__ x, const float4* __restrict__ wup,
-              const float* __restrict__ bias, float* __restrict__ y, int Hc,
-              int Wc) {
-  // x: (N, Hc, Wc, C) coarse; wup: (C/8, 16, C/8, 32) float4 (ops/codec.py
-  // pack_up: chunk, tap-phase 8a + 4u + 2b + v, n8 tile, lane);
-  // y: (N, 2Hc, 2Wc, C)
+conv3x3_tf32x3(const float* __restrict__ x, const float4* __restrict__ wtc,
+               const float* __restrict__ bias, float* __restrict__ y, int H,
+               int W) {
+  conv3x3_tc<float, CIN, COUT, RELU, POOL>(x, wtc, bias, y, H, W);
+}
+
+template <int CIN, int COUT, bool RELU, bool POOL>
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_bf16(const __nv_bfloat16* __restrict__ x, const float4* __restrict__ wtc,
+             const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int H,
+             int W) {
+  conv3x3_tc<__nv_bfloat16, CIN, COUT, RELU, POOL>(x, wtc, bias, y, H, W);
+}
+
+template <class T, int C>
+__device__ __forceinline__ void upconv_tc(const T* __restrict__ x,
+                                          const float4* __restrict__ wup,
+                                          const float* __restrict__ bias,
+                                          T* __restrict__ y, int Hc, int Wc) {
+  // x: (N, Hc, Wc, C) coarse; wup: (C/8, 16, C/8, 32) float4 (f32) or
+  // (C/16, 16, C/16, 32) 16-byte units (bf16) (ops/codec.py pack_up: chunk,
+  // tap-phase 8a + 4u + 2b + v, n8 tile or pair, lane); y: (N, 2Hc, 2Wc, C)
   static_assert(C == 64 || C == 128, "channels");
-  constexpr int NCH = C / kTcChunk, NJ = C / 8;
+  using S = UpConv<T>;
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int NCH = C / kTcK<T>, NJ = C / 8;
   constexpr bool BOTH = C == 64;       // a block takes both row phases
   extern __shared__ float4 tc_smem[];
   float* sm = reinterpret_cast<float*>(tc_smem);
@@ -874,7 +1060,7 @@ upconv_tf32x3(const float* __restrict__ x, const float4* __restrict__ wup,
   const int i0 = (BOTH ? blockIdx.y : blockIdx.y >> 1) * kUpRows;
   const int j0 = blockIdx.x * kTcCols;
   const int n = blockIdx.z;
-  const float* xn = x + static_cast<size_t>(n) * Hc * Wc * C;
+  const T* xn = x + static_cast<size_t>(n) * Hc * Wc * C;
 
   // thread t < 216 copies 16-byte half t & 1 of halo pixel t / 2: coarse row
   // i0 - 1 + t / 2 / 18, column j0 - 1 + t / 2 % 18, clamped into the image
@@ -883,15 +1069,15 @@ upconv_tf32x3(const float* __restrict__ x, const float4* __restrict__ wup,
   const bool copies = tid < 2 * kUpHalo;
   const int gy = min(max(i0 - 1 + hp / kTcHaloW, 0), Hc - 1);
   const int gx = min(max(j0 - 1 + hp % kTcHaloW, 0), Wc - 1);
-  const float* src = xn + (static_cast<size_t>(gy) * Wc + gx) * C + 4 * half;
+  const T* src = xn + (static_cast<size_t>(gy) * Wc + gx) * C + (kTcK<T> / 2) * half;
   const int dst = hp * kTcChunk + 4 * (half ^ ((hp >> 2) & 1));
 
   auto load_chunk = [&](int c, int stage) {
-    float* base = sm + stage * kUpStage;
-    const float4* wsrc = wup + static_cast<size_t>(BOTH ? c : 2 * c + a) * kUpW4;
+    float* base = sm + stage * S::kStage;
+    const float4* wsrc = wup + static_cast<size_t>(BOTH ? c : 2 * c + a) * S::kW4;
     float4* wdst = reinterpret_cast<float4*>(base);
-    for (int i = tid; i < kUpW4; i += kThreads) cp_async16(wdst + i, wsrc + i);
-    if (copies) cp_async16(base + 4 * kUpW4 + dst, src + c * kTcChunk);
+    for (int i = tid; i < S::kW4; i += kThreads) cp_async16(wdst + i, wsrc + i);
+    if (copies) cp_async16(base + 4 * S::kW4 + dst, src + c * kTcK<T>);
     cp_async_commit();
   };
 
@@ -908,10 +1094,9 @@ upconv_tf32x3(const float* __restrict__ x, const float4* __restrict__ wup,
     if (c + 1 < NCH) load_chunk(c + 1, (c + 1) & 1);
     cp_async_wait(c + 1 < NCH);
     __syncthreads();
-    const float* base = sm + (c & 1) * kUpStage;
-    const float4* ws = reinterpret_cast<const float4*>(base) + wa * 8 * NJ * 32;
-    const float* xs = base + 4 * kUpW4;
-    // the chunk's 12 products per output (4 taps x 3) sum into a fresh
+    const float* base = sm + (c & 1) * S::kStage;
+    const float* xs = base + 4 * S::kW4;
+    // the chunk's products per output (4 taps, x 3 in f32) sum into a fresh
     // partial, added to the total with one rounded FADD
     float part[2][8][4];
 #pragma unroll
@@ -924,19 +1109,40 @@ upconv_tf32x3(const float* __restrict__ x, const float4* __restrict__ wup,
     for (int u = 0; u < 2; ++u) {
       // halo row r + a + u is coarse row i0 + r + a - 1 + u; its fragments at
       // coarse column offsets -1, 0, +1 (halo slots 0, 1, 2)
-      uint32_t ahi[3][4], alo[3][4];
+      if constexpr (F32) {
+        const float4* ws = reinterpret_cast<const float4*>(base) + wa * 8 * NJ * 32;
+        uint32_t ahi[3][4], alo[3][4];
 #pragma unroll
-      for (int s = 0; s < 3; ++s)
-        load_a(xs, (r + a + u) * kTcHaloW + s, g, t4, ahi[s], alo[s]);
+        for (int s = 0; s < 3; ++s)
+          load_a(xs, (r + a + u) * kTcHaloW + s, g, t4, ahi[s], alo[s]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int b = 0; b < 2; ++b)
+          for (int b = 0; b < 2; ++b)
 #pragma unroll
-          for (int v = 0; v < 2; ++v) {
-            const float4 w = ws[((4 * u + 2 * b + v) * NJ + nh * 8 + j) * 32 + lane];
-            mma_3xtf32(part[b][j], ahi[b + v], alo[b + v], w);
-          }
+            for (int v = 0; v < 2; ++v) {
+              const float4 w = ws[((4 * u + 2 * b + v) * NJ + nh * 8 + j) * 32 + lane];
+              mma_3xtf32(part[b][j], ahi[b + v], alo[b + v], w);
+            }
+      } else {
+        const uint4* ws = reinterpret_cast<const uint4*>(base) + wa * 8 * (NJ / 2) * 32;
+        uint32_t av[3][4];
+#pragma unroll
+        for (int s = 0; s < 3; ++s)
+          load_a_bf16(reinterpret_cast<const uint32_t*>(xs), (r + a + u) * kTcHaloW + s,
+                      g, t4, av[s]);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int b = 0; b < 2; ++b)
+#pragma unroll
+            for (int v = 0; v < 2; ++v) {
+              const uint4 w =
+                  ws[((4 * u + 2 * b + v) * (NJ / 2) + nh * 4 + jj) * 32 + lane];
+              mma_bf16(part[b][2 * jj], av[b + v], w.x, w.y);
+              mma_bf16(part[b][2 * jj + 1], av[b + v], w.z, w.w);
+            }
+      }
     }
 #pragma unroll
     for (int b = 0; b < 2; ++b)
@@ -963,24 +1169,38 @@ upconv_tf32x3(const float* __restrict__ x, const float4* __restrict__ wup,
   const int i = i0 + r;
   if (i >= Hc) return;
   const int J0 = j0 + g, J1 = j0 + g + 8;
-  float* yp = y + ((static_cast<size_t>(n) * Hc + i) * 2 + a) * 2 * Wc * C;
+  T* yp = y + ((static_cast<size_t>(n) * Hc + i) * 2 + a) * 2 * Wc * C;
 #pragma unroll
   for (int b = 0; b < 2; ++b)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int co = nh * 64 + 8 * j + 2 * t4;
       if (J0 < Wc)
-        *reinterpret_cast<float2*>(yp + static_cast<size_t>(2 * J0 + b) * C + co) =
-            make_float2(acc[b][j][0], acc[b][j][1]);
+        store2(yp + static_cast<size_t>(2 * J0 + b) * C + co, acc[b][j][0], acc[b][j][1]);
       if (J1 < Wc)
-        *reinterpret_cast<float2*>(yp + static_cast<size_t>(2 * J1 + b) * C + co) =
-            make_float2(acc[b][j][2], acc[b][j][3]);
+        store2(yp + static_cast<size_t>(2 * J1 + b) * C + co, acc[b][j][2], acc[b][j][3]);
     }
 }
 
-template <class Kernel>
-int launch_dyn(Kernel kern, dim3 grid, int smem, void* stream, const float* x,
-               const float* w, const float* b, float* y, int h, int wd) {
+template <int C>
+__global__ void __launch_bounds__(kThreads, 1)
+upconv_tf32x3(const float* __restrict__ x, const float4* __restrict__ wup,
+              const float* __restrict__ bias, float* __restrict__ y, int Hc,
+              int Wc) {
+  upconv_tc<float, C>(x, wup, bias, y, Hc, Wc);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, 1)
+upconv_bf16(const __nv_bfloat16* __restrict__ x, const float4* __restrict__ wup,
+            const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int Hc,
+            int Wc) {
+  upconv_tc<__nv_bfloat16, C>(x, wup, bias, y, Hc, Wc);
+}
+
+template <class T, class Kernel>
+int launch_dyn(Kernel kern, dim3 grid, int smem, void* stream, const T* x,
+               const void* w, const float* b, T* y, int h, int wd) {
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -989,41 +1209,56 @@ int launch_dyn(Kernel kern, dim3 grid, int smem, void* stream, const float* x,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int CIN, int COUT, bool RELU, bool POOL>
-int launch_tc(const float* x, const float* wtc, const float* b, float* y, int n,
-              int h, int wd, void* stream) {
-  using S = TcConv<COUT>;
+template <class T, int CIN, int COUT, bool RELU, bool POOL>
+int launch_tc(const T* x, const void* wtc, const float* b, T* y, int n, int h,
+              int wd, void* stream) {
+  using S = TcConv<T, COUT>;
   const dim3 grid((wd + kTcCols - 1) / kTcCols, (h + S::kRows - 1) / S::kRows, n);
-  return launch_dyn(conv3x3_tf32x3<CIN, COUT, RELU, POOL>, grid, S::kSmem,
-                    stream, x, wtc, b, y, h, wd);
+  if constexpr (sizeof(T) == 4)
+    return launch_dyn(conv3x3_tf32x3<CIN, COUT, RELU, POOL>, grid, S::kSmem, stream,
+                      x, wtc, b, y, h, wd);
+  else
+    return launch_dyn(conv3x3_bf16<CIN, COUT, RELU, POOL>, grid, S::kSmem, stream,
+                      x, wtc, b, y, h, wd);
 }
 
-template <int CIN, int COUT>
-int launch_tc_rp(const float* x, const float* wtc, const float* b, float* y,
-                 int n, int h, int wd, int relu, int pool, void* stream) {
-  if (relu && pool) return launch_tc<CIN, COUT, true, true>(x, wtc, b, y, n, h, wd, stream);
-  if (relu) return launch_tc<CIN, COUT, true, false>(x, wtc, b, y, n, h, wd, stream);
-  if (pool) return launch_tc<CIN, COUT, false, true>(x, wtc, b, y, n, h, wd, stream);
-  return launch_tc<CIN, COUT, false, false>(x, wtc, b, y, n, h, wd, stream);
+template <class T, int CIN, int COUT>
+int launch_tc_rp(const T* x, const void* wtc, const float* b, T* y, int n, int h,
+                 int wd, int relu, int pool, void* stream) {
+  if (relu && pool) return launch_tc<T, CIN, COUT, true, true>(x, wtc, b, y, n, h, wd, stream);
+  if (relu) return launch_tc<T, CIN, COUT, true, false>(x, wtc, b, y, n, h, wd, stream);
+  if (pool) return launch_tc<T, CIN, COUT, false, true>(x, wtc, b, y, n, h, wd, stream);
+  return launch_tc<T, CIN, COUT, false, false>(x, wtc, b, y, n, h, wd, stream);
 }
 
 // the wide convs at 64 or 128 input channels, ReLU and pool chosen at run time
-template <int COUT>
-int launch_tc_conv(const float* x, const float* wtc, const float* b, float* y,
-                   int n, int h, int wd, int cin, int relu, int pool,
-                   void* stream) {
+template <class T, int COUT>
+int launch_tc_conv(const T* x, const void* wtc, const float* b, T* y, int n, int h,
+                   int wd, int cin, int relu, int pool, void* stream) {
   if (n <= 0 || n > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (cin == 64) return launch_tc_rp<64, COUT>(x, wtc, b, y, n, h, wd, relu, pool, stream);
-  if (cin == 128) return launch_tc_rp<128, COUT>(x, wtc, b, y, n, h, wd, relu, pool, stream);
+  if (cin == 64) return launch_tc_rp<T, 64, COUT>(x, wtc, b, y, n, h, wd, relu, pool, stream);
+  if (cin == 128) return launch_tc_rp<T, 128, COUT>(x, wtc, b, y, n, h, wd, relu, pool, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int C>
-int launch_up(const float* x, const float* wup, const float* b, float* y, int n,
-              int hc, int wc, void* stream) {
+template <class T, int C>
+int launch_up(const T* x, const void* wup, const float* b, T* y, int n, int hc, int wc,
+              void* stream) {
   const int blocks_y = (hc + kUpRows - 1) / kUpRows * (C == 64 ? 1 : 2);
   const dim3 grid((wc + kTcCols - 1) / kTcCols, blocks_y, n);
-  return launch_dyn(upconv_tf32x3<C>, grid, kUpSmem, stream, x, wup, b, y, hc, wc);
+  if constexpr (sizeof(T) == 4)
+    return launch_dyn(upconv_tf32x3<C>, grid, UpConv<T>::kSmem, stream, x, wup, b, y, hc, wc);
+  else
+    return launch_dyn(upconv_bf16<C>, grid, UpConv<T>::kSmem, stream, x, wup, b, y, hc, wc);
+}
+
+template <class T>
+int launch_up_c(const T* x, const void* wup, const float* b, T* y, int n, int hc, int wc,
+                int c, void* stream) {
+  if (n <= 0 || n > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (c == 64) return launch_up<T, 64>(x, wup, b, y, n, hc, wc, stream);
+  if (c == 128) return launch_up<T, 128>(x, wup, b, y, n, hc, wc, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -1033,17 +1268,7 @@ extern "C" {
 // (N, H, W, 3) -> relu(conv) (N, H, W, 64); y 16-byte aligned (TMA stores)
 int optex_rgb_to_relu1(const float* x, const float* w, const float* b, float* y,
                        int n, int h, int wd, void* stream) {
-  if (n <= 0 || n > 65535 || h < 2 || wd < 2) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap ymap;
-  int grid = 0;
-  if (int rc = map_nhwc64(&ymap, y, n, h, wd, kEdgeTile, kEdgeTile)) return rc;
-  if (int rc = edge_grid(n, h, wd, &grid)) return rc;
-  cudaError_t err = cudaFuncSetAttribute(
-      rgb_to_relu1_tma, cudaFuncAttributeMaxDynamicSharedMemorySize, kEntSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  rgb_to_relu1_tma<<<grid, kThreads, kEntSmem, static_cast<cudaStream_t>(stream)>>>(
-      ymap, x, w, b, n, h, wd);
-  return static_cast<int>(cudaGetLastError());
+  return launch_entry(x, w, b, y, n, h, wd, stream);
 }
 
 // (N, H, W, cin) -> (N, H, W, 64), or (N, ceil(H/2), ceil(W/2), 64) when
@@ -1051,7 +1276,7 @@ int optex_rgb_to_relu1(const float* x, const float* w, const float* b, float* y,
 int optex_conv3x3_p2(const float* x, const float* wtc, const float* b, float* y,
                      int n, int h, int wd, int cin, int relu, int pool,
                      void* stream) {
-  return launch_tc_conv<64>(x, wtc, b, y, n, h, wd, cin, relu, pool, stream);
+  return launch_tc_conv<float, 64>(x, wtc, b, y, n, h, wd, cin, relu, pool, stream);
 }
 
 // (N, H, W, cin) -> (N, H, W, 128), or (N, ceil(H/2), ceil(W/2), 128) when
@@ -1059,34 +1284,55 @@ int optex_conv3x3_p2(const float* x, const float* wtc, const float* b, float* y,
 int optex_conv3x3_full(const float* x, const float* wtc, const float* b, float* y,
                        int n, int h, int wd, int cin, int relu, int pool,
                        void* stream) {
-  return launch_tc_conv<128>(x, wtc, b, y, n, h, wd, cin, relu, pool, stream);
+  return launch_tc_conv<float, 128>(x, wtc, b, y, n, h, wd, cin, relu, pool, stream);
 }
 
 // coarse (N, Hc, Wc, c) -> relu(conv(nearest_up_x2)) (N, 2Hc, 2Wc, c); wup:
 // the folded per-phase taps, split, in fragment order (ops/codec.py pack_up)
 int optex_upconv_p2(const float* x, const float* wup, const float* b, float* y,
                     int n, int hc, int wc, int c, void* stream) {
-  if (n <= 0 || n > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (c == 64) return launch_up<64>(x, wup, b, y, n, hc, wc, stream);
-  if (c == 128) return launch_up<128>(x, wup, b, y, n, hc, wc, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_up_c<float>(x, wup, b, y, n, hc, wc, c, stream);
 }
 
 // (N, H, W, 64) -> conv (N, H, W, 3), no ReLU (the renorm is folded into w, b);
 // x 16-byte aligned (TMA loads)
 int optex_final_to_rgb(const float* x, const float* w, const float* b, float* y,
                        int n, int h, int wd, void* stream) {
-  if (n <= 0 || n > 65535 || h < 2 || wd < 2) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap xmap;
-  int grid = 0;
-  if (int rc = map_nhwc64(&xmap, x, n, h, wd, kEdgeHalo, kEdgeHalo)) return rc;
-  if (int rc = edge_grid(n, h, wd, &grid)) return rc;
-  cudaError_t err = cudaFuncSetAttribute(
-      final_to_rgb_tma, cudaFuncAttributeMaxDynamicSharedMemorySize, kFinSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  final_to_rgb_tma<<<grid, kFinThreads, kFinSmem, static_cast<cudaStream_t>(stream)>>>(
-      xmap, w, b, y, n, h, wd);
-  return static_cast<int>(cudaGetLastError());
+  return launch_final(x, w, b, y, n, h, wd, stream);
+}
+
+// The bf16 function of the same five, with the same arguments: bf16
+// activations (rgb_to_relu1's input and final_to_rgb's output stay f32),
+// f32 biases, the FFMA kernels' weights HWIO f32 (widened from bf16), the
+// tensor-core kernels' in bf16 fragment order (ops/codec.py _fragments_bf16).
+
+int optex_rgb_to_relu1_bf16(const float* x, const float* w, const float* b,
+                            __nv_bfloat16* y, int n, int h, int wd, void* stream) {
+  return launch_entry(x, w, b, y, n, h, wd, stream);
+}
+
+int optex_conv3x3_p2_bf16(const __nv_bfloat16* x, const void* wtc, const float* b,
+                          __nv_bfloat16* y, int n, int h, int wd, int cin, int relu,
+                          int pool, void* stream) {
+  return launch_tc_conv<__nv_bfloat16, 64>(x, wtc, b, y, n, h, wd, cin, relu, pool,
+                                           stream);
+}
+
+int optex_conv3x3_full_bf16(const __nv_bfloat16* x, const void* wtc, const float* b,
+                            __nv_bfloat16* y, int n, int h, int wd, int cin, int relu,
+                            int pool, void* stream) {
+  return launch_tc_conv<__nv_bfloat16, 128>(x, wtc, b, y, n, h, wd, cin, relu, pool,
+                                            stream);
+}
+
+int optex_upconv_p2_bf16(const __nv_bfloat16* x, const void* wup, const float* b,
+                         __nv_bfloat16* y, int n, int hc, int wc, int c, void* stream) {
+  return launch_up_c<__nv_bfloat16>(x, wup, b, y, n, hc, wc, c, stream);
+}
+
+int optex_final_to_rgb_bf16(const __nv_bfloat16* x, const float* w, const float* b,
+                            float* y, int n, int h, int wd, void* stream) {
+  return launch_final(x, w, b, y, n, h, wd, stream);
 }
 
 const char* optex_error_string(int code) {

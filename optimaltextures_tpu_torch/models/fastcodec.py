@@ -14,7 +14,10 @@ convs at 64 and 128 channels of those roundtrips run on the kernels of
 Between stages the image lives as post-renorm RGB, NHWC float32 (the JAX
 package pads it to 8 channels in a (H, W, C, 128) layout for the TPU's
 lanes; here it stays (N, H, W, 3)). Each stage's kernel weights are packed
-once per synthesizer (:func:`pack_stages`).
+once per synthesizer (:func:`pack_stages`), in the bank's dtype: with
+bfloat16 weights every conv here computes the bf16 function (the JAX
+package's ``conv_dtype="bfloat16"``): the features are bf16, the RGB
+between stages stays float32.
 """
 
 from __future__ import annotations
@@ -32,12 +35,15 @@ from .vgg import _run_stack
 def eligible(fast_codec: bool, device) -> bool:
     """The port's gate: whether the stage roundtrips run on this module.
 
-    The kernels take any batch, any size (reflect padding needs >= 2 px at
-    every level, as on the F.conv2d path) and float32, so the JAX gate's
-    batch == 128, bfloat16 and multiple-of-32 conditions do not apply. On a
-    GPU the roundtrips always run on the kernels; ``fast_codec=False``
-    (the F.conv2d codec, the reference the CPU tests hold this module
-    against) is for the CPU only."""
+    The JAX gate (``optimaltextures_tpu/models/fastcodec.eligible``) sends a
+    run to the Pallas kernels only at batch == 128, bfloat16 and sizes that
+    are multiples of 32: the TPU's lane width and tiling. The port's kernels
+    take any batch, any size (reflect padding needs >= 2 px at every level,
+    as on the F.conv2d path) and either float32 or bfloat16, so none of
+    those conditions applies. On a GPU every roundtrip runs on the kernels,
+    in the bank's dtype; ``fast_codec=False`` (the F.conv2d codec, the
+    reference the CPU tests hold this module against) is for the CPU
+    only."""
     if fast_codec:
         return True
     if torch.device(device).type != "cpu":
@@ -48,13 +54,18 @@ def eligible(fast_codec: bool, device) -> bool:
 
 
 class StageCodec(NamedTuple):
-    """One stage's codec weights at relu{depth}_1, packed once."""
+    """One stage's codec weights at relu{depth}_1, packed once, in the conv
+    dtype (:attr:`dtype`)."""
     depth: int
     head: Tuple[codec.Packed, ...]   # encoder convs [1]..[4] (as the depth has)
     enc_rest: List                   # encoder (w, b) [5:], on F.conv2d
     dec_rest: List                   # decoder (w, b) [:-4], on F.conv2d
     tail: Tuple[codec.Packed, ...]   # decoder convs [-4]..[-2] (as the depth has)
     final: codec.Packed              # decoder [-1], next renorm folded in
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.final.w.dtype
 
 
 def pack_stage(enc_params, dec_params, depth: int,
@@ -81,14 +92,17 @@ def pack_stages(enc_params, dec_params, depths) -> List[StageCodec]:
 
 
 def pixels_to_rgb(renorm_params, pastiche: torch.Tensor) -> torch.Tensor:
-    """NHWC pixels -> post-renorm RGB: the encoder's 1x1 renorm conv, applied
-    once per pass (decode_tail folds the later ones into the final conv)."""
+    """NHWC pixels (conv dtype) -> post-renorm RGB, float32: the encoder's
+    1x1 renorm conv, applied once per pass (decode_tail folds the later ones
+    into the final conv), in the conv dtype, then widened (JAX's
+    ``pixels_to_rgb8``)."""
     w0, b0 = renorm_params
-    return conv2d_nhwc(pastiche, w0, b0)
+    return conv2d_nhwc(pastiche, w0, b0).float()
 
 
 def encode_head(sc: StageCodec, rgb: torch.Tensor) -> torch.Tensor:
-    """Post-renorm RGB -> relu{depth}_1 features, NHWC.
+    """Post-renorm RGB (float32) -> relu{depth}_1 features, NHWC, in the
+    conv dtype.
 
     Kernel-covered encoder prefix (arch._ENCODER_FULL indices): [1] entry
     3->64, [2] conv1_2 + [3]'s pre-pool, [3] 64->128, [4] 128->128 + [5]'s
@@ -109,12 +123,13 @@ def encode_head(sc: StageCodec, rgb: torch.Tensor) -> torch.Tensor:
 
 
 def decode_tail(sc: StageCodec, feat: torch.Tensor) -> torch.Tensor:
-    """relu{depth}_1 features (NHWC) -> RGB (NHWC): post-renorm for the next
-    stage, or raw pixels after the pass's last stage.
+    """relu{depth}_1 features (NHWC; the OT's float32, cast to the conv
+    dtype here) -> RGB (NHWC, float32): post-renorm for the next stage, or
+    raw pixels after the pass's last stage.
 
     Kernel-covered decoder suffix: [-4] 128->128 upconv, [-3] 128->64, [-2]
     64->64 upconv, [-1] final; F.conv2d above 128 channels."""
-    x = feat
+    x = feat.to(sc.dtype)
     if sc.depth > 2:
         x = _run_stack(sc.dec_rest, arch.decoder_specs(sc.depth)[:-4], x,
                        "reflect")

@@ -3,9 +3,11 @@
 The counterpart of ``optimaltextures_tpu/models/vgg.py``: plain functions over a
 list of OIHW ``(w, b)`` tensors, driven by the spec tables in :mod:`.arch`.
 Images enter as (N, H, W, 3) float in [0, 1]; features come out
-(N, H/2^{d-1}, W/2^{d-1}, C_d). The convs here are ``F.conv2d`` (the JAX
-package leaves them to XLA too); the relu1/relu2-scale convs of the stage
-roundtrips run on the CUDA kernels instead, through :mod:`.fastcodec`.
+(N, H/2^{d-1}, W/2^{d-1}, C_d), in the bank's dtype (float32, or bfloat16
+for ``conv_dtype="bfloat16"``: activations in the dtype of the weights
+they meet). The convs here are ``F.conv2d`` (the JAX package leaves them to
+XLA too); the relu1/relu2-scale convs of the stage roundtrips run on the
+CUDA kernels instead, through :mod:`.fastcodec`.
 """
 
 from __future__ import annotations
@@ -75,11 +77,20 @@ def decode(params, depth: int, feature: torch.Tensor,
     return _run_stack(params, arch.decoder_specs(depth), feature, pad_mode)
 
 
+def _cast(params, device, dtype):
+    """(w, b) pairs onto ``device`` in ``dtype``: the weights AND the biases,
+    as the JAX bank casts both (a bf16 bank rounds its biases to bf16)."""
+    return [(w.to(device=device, dtype=dtype), b.to(device=device, dtype=dtype))
+            for w, b in params]
+
+
 class VGGBank:
-    """Encoder/decoder params for depths 1..max_depth, on one device."""
+    """Encoder/decoder params for depths 1..max_depth, on one device, in one
+    dtype (the conv dtype: float32 or bfloat16)."""
 
     def __init__(self, max_depth: Optional[int] = None,
-                 directory: Optional[str] = None, device="cpu"):
+                 directory: Optional[str] = None, device="cpu",
+                 dtype=torch.float32):
         avail = weights.available_depths(directory)
         if not avail:
             raise FileNotFoundError(
@@ -90,10 +101,14 @@ class VGGBank:
         if self.max_depth not in avail:
             raise ValueError(f"depth {self.max_depth} unavailable; have {avail}")
         depths = range(1, self.max_depth + 1)
-        self.enc_params = {d: weights.load_encoder_params(d, directory, device)
-                           for d in depths}
-        self.dec_params = {d: weights.load_decoder_params(d, directory, device)
-                           for d in depths}
+        self.enc_params = {d: _cast(weights.load_encoder_params(
+            d, directory), device, dtype) for d in depths}
+        self.dec_params = {d: _cast(weights.load_decoder_params(
+            d, directory), device, dtype) for d in depths}
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.enc_params[self.max_depth][0][0].dtype
 
     @classmethod
     def from_params(cls, enc_params: Dict, dec_params: Dict) -> "VGGBank":
@@ -103,18 +118,20 @@ class VGGBank:
         bank.dec_params = dict(dec_params)
         return bank
 
-    def to(self, device) -> "VGGBank":
-        move = lambda ps: [(w.to(device), b.to(device)) for w, b in ps]
+    def to(self, device, dtype=None) -> "VGGBank":
+        dtype = dtype or self.dtype
         return VGGBank.from_params(
-            {d: move(p) for d, p in self.enc_params.items()},
-            {d: move(p) for d, p in self.dec_params.items()})
+            {d: _cast(p, device, dtype) for d, p in self.enc_params.items()},
+            {d: _cast(p, device, dtype) for d, p in self.dec_params.items()})
 
 
-def synthetic_bank(max_depth: int = 5, seed: int = 0, device="cpu") -> VGGBank:
+def synthetic_bank(max_depth: int = 5, seed: int = 0, device="cpu",
+                   dtype=torch.float32) -> VGGBank:
     """He-scaled random weights for every depth 1..max_depth.
 
     Draws the same numbers in the same order as the JAX package's
-    ``synthetic_bank(max_depth, seed=seed)``, so the two banks are equal."""
+    ``synthetic_bank(max_depth, dtype, seed=seed)``, so the two banks are
+    equal in either dtype."""
     rng = np.random.default_rng(seed)
 
     def params_for(specs):
@@ -126,4 +143,4 @@ def synthetic_bank(max_depth: int = 5, seed: int = 0, device="cpu") -> VGGBank:
 
     enc = {d: params_for(arch.encoder_specs(d)) for d in range(1, max_depth + 1)}
     dec = {d: params_for(arch.decoder_specs(d)) for d in range(1, max_depth + 1)}
-    return VGGBank.from_params(enc, dec)
+    return VGGBank.from_params(enc, dec).to(device, dtype)

@@ -5,7 +5,16 @@ conv with bias, differing in channel counts, an optional nearest-x2 prologue
 and an optional ReLU / 2x2 max-pool epilogue — in a TPU layout (batch in the
 128 lanes, 2-pixel M-packing, 8-channel padded RGB, DMA-then-repair halos).
 None of that layout carries over: here every kernel takes and returns NHWC
-float32 at any batch (``csrc/codec.cu``).
+at any batch (``csrc/codec.cu``), in one of two functions, chosen by the
+dtype of the packed weights:
+
+* float32 (the reference's precision): float32 in and out;
+* bfloat16 (``conv_dtype="bfloat16"``, the function the Pallas kernels
+  compute on the TPU): bf16 activations and weights, f32 accumulation, an
+  f32 bias, ReLU and pool in f32, one rounding to bf16 at the store.
+  ``rgb_to_relu1`` reads f32 RGB and rounds it to bf16 before multiplying;
+  ``final_to_rgb`` reads bf16 features and writes f32 RGB. The bf16
+  kernels count their launches under ``<name>_bf16``.
 
 Each wrapper below:
 
@@ -61,8 +70,9 @@ import torch.nn.functional as F
 from . import cuda_build
 from .convops import to_nchw, to_nhwc
 
-LAUNCHES = {"rgb_to_relu1": 0, "conv3x3_p2": 0, "conv3x3_full": 0,
-            "upconv_p2": 0, "final_to_rgb": 0}
+KERNELS = ("rgb_to_relu1", "conv3x3_p2", "conv3x3_full", "upconv_p2",
+           "final_to_rgb")
+LAUNCHES = {**{k: 0 for k in KERNELS}, **{k + "_bf16": 0 for k in KERNELS}}
 
 
 def reset_launches() -> None:
@@ -71,16 +81,20 @@ def reset_launches() -> None:
 
 
 class Packed(NamedTuple):
-    """One conv's weights: ``w`` (Cout, Cin, 3, 3) OIHW and ``b`` (Cout,) for
-    the plain version, ``w_hwio`` (3, 3, Cin, Cout) for the FFMA kernels, and
-    for the tensor-core kernels the TF32 hi/lo split in fragment order:
-    ``w_tc`` for a 64|128 -> 64|128 conv (:func:`pack_tc`), ``w_up`` for an
-    upconv's folded taps (:func:`pack_up`); None where the conv has none."""
+    """One conv's weights: ``w`` (Cout, Cin, 3, 3) OIHW in the conv dtype
+    and ``b`` (Cout,) float32 (a bf16 bias widens exactly) for the plain
+    version, ``w_hwio`` (3, 3, Cin, Cout) float32 (widened exactly from
+    bf16) for the FFMA kernels, and for the tensor-core kernels the weights
+    in fragment order: ``w_tc`` for a 64|128 -> 64|128 conv (:func:`pack_tc`),
+    ``w_up`` for an upconv's folded taps (:func:`pack_up`); None where the
+    conv has none. ``w_fold``: an upconv's folded taps (:func:`fold_up`) in
+    the conv dtype, which the bf16 plain version computes with."""
     w: torch.Tensor
     b: torch.Tensor
     w_hwio: torch.Tensor
     w_tc: Optional[torch.Tensor] = None
     w_up: Optional[torch.Tensor] = None
+    w_fold: Optional[torch.Tensor] = None
 
 
 def pack(w: torch.Tensor, b: torch.Tensor) -> Packed:
@@ -88,16 +102,17 @@ def pack(w: torch.Tensor, b: torch.Tensor) -> Packed:
     it: ``w_tc`` when Cin and Cout are both 64 or 128."""
     w_hwio = w.permute(2, 3, 1, 0).contiguous()
     tc = w.shape[0] in (64, 128) and w.shape[1] in (64, 128)
-    return Packed(w, b, w_hwio, pack_tc(w_hwio) if tc else None)
+    return Packed(w, b.float(), w_hwio.float(), pack_tc(w_hwio) if tc else None)
 
 
 def pack_up(w: torch.Tensor, b: torch.Tensor) -> Packed:
     """An upconv's weights (nearest-x2 then this conv, C -> C): ``w_up``, the
-    folded taps of :func:`fold_up` split into fragments, for ``upconv_p2``."""
+    folded taps of :func:`fold_up` in fragments, for ``upconv_p2``."""
     w_hwio = w.permute(2, 3, 1, 0).contiguous()
-    taps = fold_up(w_hwio).permute(0, 2, 1, 3, 4, 5)     # (a, u, b, v, ci, co)
-    return Packed(w, b, w_hwio,
-                  w_up=_fragments(taps.reshape(16, *w_hwio.shape[2:])))
+    fold = fold_up(w_hwio)
+    taps = fold.permute(0, 2, 1, 3, 4, 5).reshape(16, *w_hwio.shape[2:])
+    frag = _fragments_bf16 if w.dtype == torch.bfloat16 else _fragments
+    return Packed(w, b.float(), w_hwio.float(), w_up=frag(taps), w_fold=fold)
 
 
 def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -127,10 +142,30 @@ def _fragments(taps: torch.Tensor) -> torch.Tensor:
         cin // 8, n, cout // 8, 32, 4).contiguous()
 
 
+def _fragments_bf16(taps: torch.Tensor) -> torch.Tensor:
+    """(T, Cin, Cout) bfloat16 taps -> (Cin/16, T, Cout/16, 32, 8), the B
+    operands of ``mma.sync.m16n8k16`` in the bf16 kernels: per input-channel
+    chunk c of 16 (one k16 step), tap, pair jj of n8 tiles and lane (g =
+    lane // 4, t = lane % 4) the lane's two registers {b0, b1} of tile 2jj,
+    then of tile 2jj + 1: b0 holds k = 2t, 2t + 1 and b1 k = 2t + 8, 2t + 9
+    (lower k in the lower half) of ``taps[tap, 16c + k, 8j + g]``, so a
+    lane's fragments of two tiles are one 16-byte load."""
+    n, cin, cout = taps.shape
+    t = taps.reshape(n, cin // 16, 2, 4, 2, cout // 16, 2, 8)
+    # (tap, c, k-half, t, pair, jj, j-half, g) -> (c, tap, jj, g, t, j-half,
+    # k-half, pair)
+    return t.permute(1, 0, 5, 7, 3, 6, 2, 4).reshape(
+        cin // 16, n, cout // 16, 32, 8).contiguous()
+
+
 def pack_tc(w_hwio: torch.Tensor) -> torch.Tensor:
-    """(3, 3, Cin, Cout) HWIO -> (Cin/8, 9, Cout/8, 32, 4), the weights of
-    ``conv3x3_p2`` (Cout 64) and ``conv3x3_full`` (Cout 128), tap 3r + s."""
+    """(3, 3, Cin, Cout) HWIO -> the weights of ``conv3x3_p2`` (Cout 64) and
+    ``conv3x3_full`` (Cout 128) in fragment order, tap 3r + s: float32 ->
+    (Cin/8, 9, Cout/8, 32, 4) split (:func:`_fragments`), bfloat16 ->
+    (Cin/16, 9, Cout/16, 32, 8) (:func:`_fragments_bf16`)."""
     _, _, cin, cout = w_hwio.shape
+    if w_hwio.dtype == torch.bfloat16:
+        return _fragments_bf16(w_hwio.reshape(9, cin, cout))
     return _fragments(w_hwio.reshape(9, cin, cout))
 
 
@@ -142,8 +177,9 @@ def fold_up(w_hwio: torch.Tensor) -> torch.Tensor:
     nearest-upsampled image is a coarse-scale edge pad). Row phase a = 0
     takes coarse rows (i - 1, i) with weight rows (W0, W1 + W2), a = 1
     takes (i, i + 1) with (W0 + W1, W2); columns fold the same way. Summed
-    in the dtype given, rows first, then columns: in float32 the folded
-    taps are bit-equal to JAX's ``pack_upconv_fold``."""
+    in the dtype given, rows first, then columns: the folded taps are
+    bit-equal to JAX's ``pack_upconv_fold`` in float32, and in bfloat16,
+    where each sum rounds to bf16 as it does there."""
     w = w_hwio
     rows = (torch.stack([w[0], w[1] + w[2]]),        # a = 0: (u, s, ci, co)
             torch.stack([w[0] + w[1], w[2]]))        # a = 1
@@ -159,7 +195,9 @@ def pack_final(w_fin: torch.Tensor, b_fin: torch.Tensor,
     stage's encoder 1x1 RGB renorm (w (3, 3, 1, 1), b (3,)) folded in: both
     are linear with nothing between them in a stage roundtrip (the math of
     the JAX package's ``pack_final_rgb``). ``None`` (the pass's last decode)
-    leaves the final conv as it is."""
+    leaves the final conv as it is. In bfloat16 the fold rounds as
+    the JAX package's does: the einsum's result, ``rn @ b_fin`` and the sum
+    each round to bf16 (the bias then widens to float32)."""
     if renorm is not None:
         rn = renorm[0][:, :, 0, 0]                     # (out, in)
         w_fin, b_fin = (torch.einsum("ok,kirc->oirc", rn, w_fin),
@@ -179,6 +217,7 @@ _ARGTYPES = {
     "optex_upconv_p2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "optex_final_to_rgb": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
+_ARGTYPES.update({k + "_bf16": v for k, v in _ARGTYPES.items()})
 
 
 def _lib() -> ctypes.CDLL:
@@ -199,9 +238,24 @@ def build() -> None:
 
 
 def conv3x3_plain(x: torch.Tensor, p: Packed, relu: bool = False,
-                  pool: bool = False, up: bool = False) -> torch.Tensor:
+                  pool: bool = False, up: bool = False,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The plain PyTorch version of every kernel here: NHWC x ->
-    [2x2 ceil max-pool] [relu] conv3x3_reflect([nearest_up_x2] x), NHWC."""
+    [2x2 ceil max-pool] [relu] conv3x3_reflect([nearest_up_x2] x), NHWC.
+    bfloat16 weights take :func:`conv3x3_plain_bf16` (``out_dtype``: its
+    result's dtype, default bfloat16). A batch whose padded activations
+    would pass 2^31 elements runs in pieces of images (PyTorch's reflect pad
+    takes 32-bit index math only)."""
+    n, h, w, _ = x.shape
+    per_image = (max(x.shape[-1], p.w.shape[0]) * (2 * h + 2 if up else h + 2)
+                 * (2 * w + 2 if up else w + 2))
+    if n > 1 and n * per_image >= 2 ** 31:
+        step = max(1, (2 ** 31 - 1) // per_image)
+        return torch.cat([conv3x3_plain(x[i:i + step], p, relu, pool, up,
+                                        out_dtype) for i in range(0, n, step)])
+    if p.w.dtype == torch.bfloat16:
+        return conv3x3_plain_bf16(x, p, relu, pool, up,
+                                  out_dtype or torch.bfloat16)
     t = to_nchw(x)
     if up:
         t = F.interpolate(t, scale_factor=2, mode="nearest")
@@ -211,6 +265,35 @@ def conv3x3_plain(x: torch.Tensor, p: Packed, relu: bool = False,
     if pool:
         t = F.max_pool2d(t, 2, 2, ceil_mode=True)
     return to_nhwc(t)
+
+
+def conv3x3_plain_bf16(x: torch.Tensor, p: Packed, relu: bool = False,
+                       pool: bool = False, up: bool = False,
+                       out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The bf16 kernels' function, as the Pallas kernels compute it: x
+    rounded to bf16 (a no-op on bf16 features; ``rgb_to_relu1``'s f32 RGB
+    rounds here), x and the bf16 weights widened to f32, the conv in f32
+    plus the f32 bias, [relu], [pool], then one rounding to ``out_dtype``.
+    The upconv convolves with its folded bf16 taps (``p.w_fold``: the sums
+    rounded to bf16, as ``pack_upconv_fold`` rounds them) on the
+    edge-padded coarse image, per output phase."""
+    t = to_nchw(x.to(torch.bfloat16).float())
+    if up:
+        n, _, hc, wc = t.shape
+        tp = F.pad(t, (1, 1, 1, 1), mode="replicate")
+        taps = p.w_fold.float()                        # (a, b, u, v, ci, co)
+        t = torch.stack([torch.stack([
+            F.conv2d(tp[:, :, a:a + hc + 1, b:b + wc + 1],
+                     taps[a, b].permute(3, 2, 0, 1)) for b in (0, 1)], -1)
+            for a in (0, 1)], 3)                       # (n, co, hc, a, wc, b)
+        t = t.reshape(n, -1, 2 * hc, 2 * wc) + p.b[:, None, None]
+    else:
+        t = F.conv2d(F.pad(t, (1, 1, 1, 1), mode="reflect"), p.w.float(), p.b)
+    if relu:
+        t = torch.relu(t)
+    if pool:
+        t = F.max_pool2d(t, 2, 2, ceil_mode=True)
+    return to_nhwc(t).to(out_dtype)
 
 
 # per kernel: the Packed field it takes, its taps (fragment-packed weights
@@ -225,8 +308,9 @@ def _conv(name: str, x: torch.Tensor, p: Packed, cins, cout: int,
           relu: bool = False, pool: bool = False, up: bool = False,
           args=()) -> torch.Tensor:
     """Validate the operands, then run the plain version on a CPU tensor or
-    launch the kernel ``optex_<name>(x, w, b, y, N, H, W, *args, stream)``
-    on a CUDA one (H, W: the input's)."""
+    launch the kernel ``optex_<name>[_bf16](x, w, b, y, N, H, W, *args,
+    stream)`` on a CUDA one (H, W: the input's); the weights' dtype picks
+    the function."""
     if x.dim() != 4 or x.shape[-1] not in cins:
         raise ValueError(f"{name}: x must be NHWC with C in {cins}, got "
                          f"{tuple(x.shape)}")
@@ -242,18 +326,27 @@ def _conv(name: str, x: torch.Tensor, p: Packed, cins, cout: int,
                          "conv's resolution")
     if not (x.device == p.w.device == p.b.device):
         raise ValueError(f"{name}: operands on different devices")
+    bf16 = p.w.dtype == torch.bfloat16
+    out_dtype = (torch.bfloat16 if bf16 and name != "final_to_rgb"
+                 else torch.float32)
     if x.device.type == "cpu":
-        return conv3x3_plain(x, p, relu, pool, up)
+        return conv3x3_plain(x, p, relu, pool, up, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
+    if p.w.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: the kernels take float32 or bfloat16 "
+                        f"weights, got {p.w.dtype}")
+    in_dtype = torch.float32 if name == "rgb_to_relu1" else p.w.dtype
+    if x.dtype != in_dtype or p.b.dtype != torch.float32:
+        raise TypeError(f"{name}: {p.w.dtype} weights take a {in_dtype} input "
+                        f"and a float32 bias, got {x.dtype} and {p.b.dtype}")
     field, taps, packer = _WEIGHTS.get(name, ("w_hwio", None, "pack"))
     w = getattr(p, field)
-    if w is None or (taps is not None and tuple(w.shape) != (
-            x.shape[-1] // 8, taps, cout // 8, 32, 4)):
+    k = 16 if bf16 else 8        # input channels of one mma k step
+    if w is None or (taps is not None and (w.dtype != p.w.dtype or tuple(
+            w.shape) != (x.shape[-1] // k, taps, cout // k, 32, 8 if bf16 else 4))):
         raise ValueError(f"{name}: the kernel's weights ({field}) are missing "
                          f"or of another shape; pack them with codec.{packer}")
-    if not (x.dtype == w.dtype == p.b.dtype == torch.float32):
-        raise TypeError(f"{name}: the kernel takes float32 only")
     if up:
         oh, ow = 2 * h, 2 * wd
     elif pool:
@@ -264,7 +357,9 @@ def _conv(name: str, x: torch.Tensor, p: Packed, cins, cout: int,
     if name in _TMA_INPUT and x.data_ptr() % 16:
         raise ValueError(f"{name}: TMA needs a 16-byte-aligned input, got "
                          f"address {x.data_ptr():#x}")
-    y = torch.empty((n, oh, ow, cout), device=x.device, dtype=torch.float32)
+    y = torch.empty((n, oh, ow, cout), device=x.device, dtype=out_dtype)
+    if bf16:
+        name += "_bf16"
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = getattr(lib, "optex_" + name)(

@@ -27,7 +27,14 @@ def reflect_pad(x: torch.Tensor, pad: int = 1) -> torch.Tensor:
 
 
 def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """VALID 2-D conv, stride 1: NHWC activations, OIHW weights."""
+    """VALID 2-D conv, stride 1: NHWC activations, OIHW weights.
+
+    float32 fuses the bias into the conv. bfloat16 rounds twice, as the JAX
+    package's ``conv2d_nhwc`` does: the conv's output rounds to bf16, then
+    ``y + b`` is its own bf16 op."""
+    if x.dtype == torch.bfloat16:
+        y = to_nhwc(F.conv2d(to_nchw(x), w.to(x.dtype)))
+        return y + b.to(y.dtype)
     return to_nhwc(F.conv2d(to_nchw(x), w, b))
 
 

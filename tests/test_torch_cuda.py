@@ -225,7 +225,7 @@ def test_small_run_on_gpu_matches_cpu(size):
     codec.reset_launches()
     gpu = core.Synthesizer(cfg, device="cuda").run(noise, [style],
                                                    rotations=rotations)
-    assert min(codec.LAUNCHES.values()) > 0
+    assert min(codec.LAUNCHES[k] for k in codec.KERNELS) > 0
     cpu = core.Synthesizer(cfg, device="cpu").run(noise, [style],
                                                   rotations=rotations)
     assert gpu.shape == cpu.shape
@@ -605,3 +605,176 @@ def test_small_mixing_run_on_gpu_matches_cpu(mode):
     assert float(np.abs(g.mean(0) - c.mean(0)).max()) <= 3e-3
     assert float(np.abs(g.std(0) - c.std(0)).max()) <= 1e-2
     assert float(np.abs(np.sort(g, 0) - np.sort(c, 0)).mean()) <= 1e-2
+
+
+# --- the bf16 function of the codec kernels ----------------------------------
+
+# |kernel - plain| bound of the bf16 kernels: one bf16 rounding of the
+# output (both sum in f32 in their own order, then round once)
+BF16_TOL = 2.0 ** -7
+
+
+def _bf16_case(name, n, h, w, cin, g, wide=False):
+    """Inputs of one bf16 kernel call: x (bf16; rgb_to_relu1's f32) and
+    bf16 weights packed for it."""
+    cout = {"rgb_to_relu1": 64, "conv3x3_p2": 64, "conv3x3_full": 128,
+            "upconv_p2": cin, "final_to_rgb": 3}[name]
+    x = torch.rand((n, h, w, cin), generator=g, device="cuda")
+    if wide:
+        mag = 10.0 ** (6.0 * torch.rand(x.shape, generator=g, device="cuda") - 3.0)
+        x = torch.where(x < 0.5, -mag, mag)
+    if name != "rgb_to_relu1":
+        x = x.to(torch.bfloat16)
+    pack = codec.pack_up if name == "upconv_p2" else codec.pack
+    p = pack((torch.randn((cout, cin, 3, 3), generator=g, device="cuda") * 0.1
+              ).to(torch.bfloat16),
+             (torch.randn((cout,), generator=g, device="cuda") * 0.1
+              ).to(torch.bfloat16))
+    return x, p
+
+
+_PLAIN_KW = {"rgb_to_relu1": dict(relu=True), "upconv_p2": dict(relu=True, up=True),
+             "final_to_rgb": dict(out_dtype=torch.float32)}
+
+
+@pytest.mark.cuda
+# each kernel's main-path shapes (512^2 roundtrip sizes), ragged and odd
+# sizes, one coarse row, H or W = 2, batch 1-3 and 128, and a wide range
+@pytest.mark.parametrize("name,cin,kw,n,hw,wide", [
+    ("rgb_to_relu1", 3, {}, 1, (512, 512), False),
+    ("rgb_to_relu1", 3, {}, 2, (17, 33), True),
+    ("rgb_to_relu1", 3, {}, 128, (32, 32), False),
+    ("conv3x3_p2", 64, dict(relu=True, pool=True), 1, (512, 512), False),
+    ("conv3x3_p2", 128, dict(relu=True), 1, (256, 256), False),
+    ("conv3x3_p2", 64, dict(relu=True, pool=True), 3, (41, 57), True),
+    ("conv3x3_p2", 128, dict(relu=False, pool=True), 128, (32, 32), False),
+    ("conv3x3_p2", 64, dict(relu=False), 2, (35, 19), True),
+    ("conv3x3_full", 64, dict(relu=True), 1, (256, 256), False),
+    ("conv3x3_full", 128, dict(relu=True, pool=True), 1, (256, 256), False),
+    ("conv3x3_full", 128, dict(relu=True, pool=True), 2, (35, 19), True),
+    ("conv3x3_full", 64, dict(relu=False), 128, (16, 16), False),
+    ("upconv_p2", 128, {}, 1, (64, 64), False),
+    ("upconv_p2", 64, {}, 1, (128, 128), False),
+    ("upconv_p2", 64, {}, 2, (17, 23), True),
+    ("upconv_p2", 128, {}, 3, (1, 9), False),
+    ("upconv_p2", 64, {}, 128, (8, 8), False),
+    ("final_to_rgb", 64, {}, 1, (512, 512), False),
+    ("final_to_rgb", 64, {}, 2, (17, 33), True),
+    ("final_to_rgb", 64, {}, 3, (2, 37), False),
+    ("final_to_rgb", 64, {}, 128, (32, 32), False)])
+def test_bf16_kernels_match_plain(name, cin, kw, n, hw, wide):
+    """The bf16 kernels (one bf16 mma.sync product per product in kernels
+    1-3; bf16 TMA maps in 4-5): within 2^-7 x max|plain| of the bf16 plain
+    version, in the plain version's dtype, counted under <name>_bf16."""
+    _need_gpu()
+    g = torch.Generator(device="cuda").manual_seed(cin + 3 * hw[0] + hw[1] + n)
+    x, p = _bf16_case(name, n, *hw, cin, g, wide)
+    before = dict(codec.LAUNCHES)
+    got = getattr(codec, name)(x, p, **kw)
+    ref = codec.conv3x3_plain(x, p, **{**kw, **_PLAIN_KW.get(name, {})})
+    torch.cuda.synchronize()
+    assert codec.LAUNCHES[name + "_bf16"] == before[name + "_bf16"] + 1
+    assert codec.LAUNCHES[name] == before[name]
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert got.dtype == (torch.float32 if name == "final_to_rgb" else torch.bfloat16)
+    got, ref = got.float(), ref.float()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= BF16_TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cin,kw", [
+    ("rgb_to_relu1", 3, {}), ("conv3x3_p2", 64, dict(relu=True, pool=True)),
+    ("conv3x3_full", 128, dict(relu=True)), ("upconv_p2", 64, {}),
+    ("final_to_rgb", 64, {})])
+def test_bf16_kernels_repeated_launches_agree(name, cin, kw):
+    """Each output sums in a fixed order: 50 launches at 512^2 (the upconv's
+    256^2 coarse input) equal the first bit for bit."""
+    _need_gpu()
+    g = torch.Generator(device="cuda").manual_seed(17)
+    side = 256 if name == "upconv_p2" else 512
+    x, p = _bf16_case(name, 1, side, side, cin, g)
+    kern = getattr(codec, name)
+    first = kern(x, p, **kw)
+    differ = sum(not torch.equal(kern(x, p, **kw), first) for _ in range(50))
+    assert differ == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rgb_to_relu1", "conv3x3_p2"])
+def test_bf16_batch128_relu1_scale_past_2_31_elements(name):
+    """At batch 128 and 512^2 a relu1-scale tensor holds exactly 2^31
+    elements (rgb_to_relu1's output, conv3x3_p2's input): every offset must
+    be 64-bit. The first and the last image are held against the plain
+    version on those images alone."""
+    _need_gpu()
+    g = torch.Generator(device="cuda").manual_seed(23)
+    n, side = 128, 512
+    cin = 3 if name == "rgb_to_relu1" else 64
+    x, p = _bf16_case(name, n, side, side, cin, g)
+    kw = dict(relu=True, pool=True) if name == "conv3x3_p2" else {}
+    got = getattr(codec, name)(x, p, **kw)
+    torch.cuda.synchronize()
+    assert (x if name == "conv3x3_p2" else got).numel() == 2 ** 31
+    for i in (0, n - 1):
+        ref = codec.conv3x3_plain(x[i:i + 1], p, **{**kw, **_PLAIN_KW.get(name, {})})
+        err = float((got[i:i + 1].float() - ref.float()).abs().max())
+        assert err <= BF16_TOL * float(ref.float().abs().max())
+    del x, got
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+@pytest.mark.parametrize("name,cin", [("rgb_to_relu1", 3), ("conv3x3_p2", 64),
+                                      ("final_to_rgb", 64)])
+def test_kernels_refuse_f16_and_f64(name, cin, dtype):
+    """Only float32 and bfloat16 have kernels: f16 or f64 weights raise, and
+    so does a bf16 conv handed an input of another dtype."""
+    _need_gpu()
+    cout = {"rgb_to_relu1": 64, "conv3x3_p2": 64, "final_to_rgb": 3}[name]
+    x = torch.rand((1, 16, 16, cin), device="cuda", dtype=dtype)
+    w = torch.rand((cout, cin, 3, 3), device="cuda", dtype=dtype)
+    p = codec.Packed(w, torch.rand(cout, device="cuda", dtype=dtype),
+                     w.permute(2, 3, 1, 0))
+    before = dict(codec.LAUNCHES)
+    with pytest.raises(TypeError):
+        getattr(codec, name)(x, p)
+    pb = codec.pack(p.w.to(torch.bfloat16), p.b.to(torch.bfloat16))
+    if name != "rgb_to_relu1":
+        with pytest.raises(TypeError):
+            getattr(codec, name)(x, pb)
+    assert codec.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_small_bf16_batch_run_on_gpu_matches_cpu():
+    """64 px, batch 2, bf16, 2 passes, depth 3, no PCA, injected rotations:
+    the GPU run (every bf16 kernel, once a stage roundtrip) vs the CPU run
+    (their plain versions). Bound 0.1523: JAX's own bf16-vs-f32 gap on the
+    CPU parity test's inputs (tests/test_torch_batch.py), since the two
+    devices' bf16 convs round a few outputs the other way."""
+    _need_gpu()
+    cfg = config.OptexConfig(size=64, passes=2, iters=48, no_pca=True,
+                             no_multires=True, seed=0, batch=2,
+                             conv_dtype="bfloat16", style=["s.png"])
+    rng = np.random.default_rng(0)
+    noise = rng.uniform(size=(2, 64, 64, 3)).astype(np.float32)
+    style = rng.uniform(size=(1, 64, 64, 3)).astype(np.float32)
+    rots = {}
+
+    def rotations(p, i, n_iters, c):
+        if (p, i) not in rots:
+            g = torch.as_tensor(rng.standard_normal((n_iters, c, c)))
+            rots[(p, i)] = polar_rotations(g).float().numpy()
+        return rots[(p, i)]
+
+    codec.reset_launches()
+    gpu = core.Synthesizer(cfg, device="cuda").run(noise, [style],
+                                                   rotations=rotations)
+    assert min(codec.LAUNCHES[k + "_bf16"] for k in codec.KERNELS) > 0
+    assert max(codec.LAUNCHES[k] for k in codec.KERNELS) == 0
+    cpu = core.Synthesizer(cfg, device="cpu").run(noise, [style],
+                                                  rotations=rotations)
+    assert gpu.shape == cpu.shape == (2, 64, 64, 3) and gpu.dtype == torch.float32
+    assert float((gpu.cpu() - cpu).abs().max()) <= 0.1523

@@ -182,7 +182,9 @@ def test_ported_settings_run(override):
     # mixing is ported, and lifts no unported setting it is combined with
     dict(style=["a.png", "b.png", "c.png"], mixing_weights=[1.0, 2.0, 3.0],
          tileable=True),
-    dict(conv_dtype="bfloat16"), dict(tileable=True), dict(batch=2),
+    # so are bf16 convs and batch > 1, and neither lifts one either
+    dict(conv_dtype="bfloat16", tileable=True), dict(tileable=True),
+    dict(batch=2, out_width=64),
     dict(out_width=64), dict(init="i.png"), dict(pca_bucket=8),
     dict(pca_traced_k=True), dict(batch_chunk=1), dict(cov_propagation=False),
     dict(num_devices=2), dict(spatial_devices=2)])
