@@ -9,9 +9,11 @@ Phases (each raises on failure; none catches its own):
   2. build the CUDA kernels from csrc/ with nvcc (sm_90a), one nvcc per
      source, all started together, print ptxas's registers, shared memory
      and spills (and any "Performance Loss" remark), and check in the SASS
-     (cuobjdump) that conv64's kernel runs HGMMA (wgmma), the kernels of
-     conv3x3_p2, conv3x3_full and upconv_p2 HMMA on TF32 (and their bf16
-     kernels HMMA on BF16), final_to_rgb's TMA loads (UTMALDG) and
+     (cuobjdump) that conv64's kernel and the bf16 conv3x3_full's
+     (conv3x3_wg, csrc/conv_wg.cu) run HGMMA (wgmma) and no bf16 Cout-128
+     mma.sync kernel is left, the kernels of conv3x3_p2, conv3x3_full and
+     upconv_p2 HMMA on TF32 (and the bf16 conv3x3_p2 and upconv_p2 HMMA on
+     BF16), final_to_rgb's TMA loads (UTMALDG) and
      rgb_to_relu1's TMA stores (UTMASTG) in both dtypes, the histogram's
      128-bit loads and cluster barrier, and the remap's 128-bit loads and
      stores;
@@ -99,7 +101,8 @@ smem-tables, simt, wgmma+tma or 3xtf32-mma; final_to_rgb and rgb_to_relu1
 also carry "device_ms", their profiler time at the 512^2 shape, and the
 three cdf kernels theirs summed over their three shapes; then the bf16
 function of kernels 1-5, "<name>_bf16" with "dtype": "bfloat16", designs
-bf16-mma and ffma+tma, their times summed over the eight shapes at batch
+bf16-mma, wgmma-resident (conv3x3_full_bf16, csrc/conv_wg.cu) and
+ffma+tma, their times summed over the eight shapes at batch
 128 and their launches those of the slice's path;
 conv64 and cdf_remap are on no path of the program, so their launches are
 those of their own check phase, which the "phase" field names) and
@@ -110,6 +113,7 @@ result, when no GPU is present or the package is missing.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import re
@@ -140,7 +144,8 @@ REPLACES = {
 REPLACES.update({k + "_bf16": REPLACES[k] for k in (
     "rgb_to_relu1", "conv3x3_p2", "conv3x3_full", "upconv_p2", "final_to_rgb")})
 SOURCES = {"batched_histogram": "cdf", "pwl_remap": "cdf", "cdf_remap": "cdf",
-           "conv64": "conv64"}   # else codec
+           "conv64": "conv64", "conv3x3_full_bf16": "conv_wg"}   # else codec
+LIBRARIES = ("codec", "cdf", "conv64", "conv_wg")
 
 # how each kernel computes: FFMA convs on the FP32 cores with their
 # 64-channel side moved by TMA, wgmma fed by TMA, three TF32 mma.sync
@@ -155,6 +160,7 @@ DESIGNS = {"conv64": "wgmma+tma", **{k: "3xtf32-mma" for k in TENSOR_CORE_CODEC}
            **{k: "ffma+tma" for k in EDGE_CODEC},
            **{k + "_bf16": "bf16-mma" for k in TENSOR_CORE_CODEC},
            **{k + "_bf16": "ffma+tma" for k in EDGE_CODEC},
+           "conv3x3_full_bf16": "wgmma-resident",
            "batched_histogram": "cluster-dsmem", "pwl_remap": "smem-tables",
            "cdf_remap": "simt"}
 # JAX's own max|bf16 - f32| gap on tests/test_torch_batch.py's inputs (64
@@ -175,7 +181,7 @@ SASS_CHECKS = (("conv64", r"conv64_wgmma", (("HGMMA", "HGMMA"),)),
                ("final_to_rgb", r"final_to_rgb_tmaIfE", (("UTMALDG", "UTMALDG"),)),
                ("rgb_to_relu1", r"rgb_to_relu1_tmaIfE", (("UTMASTG", "UTMASTG"),)),
                ("conv3x3_p2_bf16", r"conv3x3_bf16ILi\d+ELi64E", (("HMMA", "BF16"),)),
-               ("conv3x3_full_bf16", r"conv3x3_bf16ILi\d+ELi128E", (("HMMA", "BF16"),)),
+               ("conv3x3_full_bf16", r"conv3x3_wgILi\d+E", (("HGMMA", "HGMMA"),)),
                ("upconv_p2_bf16", r"upconv_bf16ILi\d+E", (("HMMA", "BF16"),)),
                ("final_to_rgb_bf16", r"final_to_rgb_tmaI13__nv_bfloat16E",
                 (("UTMALDG", "UTMALDG"),)),
@@ -185,6 +191,8 @@ SASS_CHECKS = (("conv64", r"conv64_wgmma", (("HGMMA", "HGMMA"),)),
                 (("LDG", "LDG.E.128"), ("UCGABAR", "UCGABAR_WAIT"))),
                ("pwl_remap", r"pwl_tables", (("LDG", "LDG.E.128"),
                                              ("STG", "STG.E.128"))))
+# kernels a redesign replaced: no instantiation may be left in the libraries
+SASS_GONE = (("conv3x3_full_bf16 on mma.sync", r"conv3x3_bf16ILi\d+ELi128E"),)
 
 
 def _peaks(name: str, kind: str = "f32"):
@@ -223,6 +231,11 @@ def check_sass(libs) -> dict:
             counts[(kernel, want)] = n_want
         print(f"sass {kernel}: {len(bodies)} kernel(s) {symbol}, "
               + "; ".join(found), flush=True)
+    for what, symbol in SASS_GONE:
+        left = [f for f in funcs if re.search(symbol, f)]
+        if left:
+            raise AssertionError(f"{what} is still built: {left}")
+        print(f"sass {what}: none left ({symbol})", flush=True)
     return counts
 
 
@@ -757,7 +770,7 @@ def profile_run(name, cfg, styles, content=None):
     kernels = [e for e in rows if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(dev_us(e) for e in kernels) / 1e3
     part = lambda key: sum(dev_us(e) for e in kernels if key in e.key) / 1e3
-    convs = part('conv3x3_tf32x3') + part('conv3x3_bf16')
+    convs = part('conv3x3_tf32x3') + part('conv3x3_bf16') + part('conv3x3_wg')
     ups = part('upconv_tf32x3') + part('upconv_bf16')
     tc = convs + ups
     edge = part('final_to_rgb_tma') + part('rgb_to_relu1_tma')
@@ -924,8 +937,8 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.time()
-    libs = cuda_build.build("codec", "cdf", "conv64")
-    print(f"built csrc/codec.cu, csrc/cdf.cu and csrc/conv64.cu in "
+    libs = cuda_build.build(*LIBRARIES)
+    print(f"built {', '.join(f'csrc/{n}.cu' for n in LIBRARIES)} in "
           f"{time.time() - t0:.1f} s (sm_90a, in parallel)", flush=True)
     for lib in libs:
         with open(lib + ".log") as f:
@@ -933,6 +946,10 @@ def main() -> int:
                 if ("registers" in line or "spill" in line or "Compiling" in line
                         or "Performance Loss" in line):
                     print("  ptxas:", line.strip())
+    wg = ctypes.CDLL(libs[LIBRARIES.index("conv_wg")])
+    print("conv3x3_wg dynamic shared memory: "
+          + ", ".join(f"Cin {c} {wg.optex_conv3x3_full_bf16_smem(c)} B"
+                      for c in (64, 128)), flush=True)
     check_sass(libs)
 
     rows = check_kernels(args.seed, args.reps, card)

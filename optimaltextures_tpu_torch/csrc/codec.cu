@@ -13,7 +13,7 @@
 //   rgb_to_relu1  rgb_to_relu1_tma<float|bf16>                  bytes
 //   final_to_rgb  final_to_rgb_tma<float|bf16>                  bytes
 //   conv3x3_p2    conv3x3_tf32x3|bf16<64|128, 64, RELU, POOL>   operations
-//   conv3x3_full  conv3x3_tf32x3|bf16<64|128, 128, RELU, POOL>  operations
+//   conv3x3_full  conv3x3_tf32x3<64|128, 128, RELU, POOL>       operations
 //   upconv_p2     upconv_tf32x3|bf16<64|128>                    operations
 //
 // The narrow entry and final convs do 54 / 1152 FLOPs per 4+256 / 256+12
@@ -24,6 +24,8 @@
 // 2 x 4 x Cin) against 8 bytes of traffic (4 in bf16), far above it:
 // implicit GEMMs on the tensor cores, three TF32 products per f32 product,
 // or one bf16 product.
+//
+// The bf16 conv3x3_full is not here: it runs on wgmma in csrc/conv_wg.cu.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (or cudaErrorInvalidValue for a configuration
@@ -654,9 +656,10 @@ int launch_final(const T* x, const float* w, const float* b, float* y, int n, in
 // lo*hi; the dropped lo*lo term is ~2^-22 relative. Their least time is the
 // 3xTF32 work at the 495 TF/s TF32 rate.
 //
-// The bf16 function (the one the Pallas kernels compute on the TPU: bf16
-// operands, f32 accumulate, f32 bias, ReLU and pool, one rounding to bf16 at
-// the store) needs no split: one mma.sync.m16n8k16 bf16 product per product,
+// The bf16 function of conv3x3_p2 and upconv_p2 (the one the Pallas kernels
+// compute on the TPU: bf16 operands, f32 accumulate, f32 bias, ReLU and pool,
+// one rounding to bf16 at the store; conv3x3_full's runs on wgmma in
+// csrc/conv_wg.cu) needs no split: one mma.sync.m16n8k16 bf16 product per product,
 // its least time the work at the 989 TF/s dense bf16 rate. A chunk of 16
 // bf16 channels is 32 bytes a pixel, as a chunk of 8 f32 channels is, so
 // the halo staging, its swizzle and the A-fragment words are the same;
@@ -697,7 +700,7 @@ int launch_final(const T* x, const float* w, const float* b, float* y, int n, in
 //   horizontal neighbour is lane ^ 4, one shuffle away. Pixels past the
 //   image enter the max as -inf. bf16 rounds once, after the pool.
 // 158,976 (COUT 128) or 94,464 (COUT 64) bytes of dynamic shared memory in
-// f32, 85,248 or 57,600 in bf16.
+// f32, 57,600 in bf16 (COUT 64; the bf16 COUT-128 conv is csrc/conv_wg.cu's).
 //
 // upconv_*<C>, C in {64, 128}: relu(conv3x3_reflect(nearest_up_x2(x)))
 // from the coarse x. A fine-scale reflection of a nearest-upsampled image
@@ -1301,7 +1304,8 @@ int optex_final_to_rgb(const float* x, const float* w, const float* b, float* y,
   return launch_final(x, w, b, y, n, h, wd, stream);
 }
 
-// The bf16 function of the same five, with the same arguments: bf16
+// The bf16 function of the same five (conv3x3_full's is csrc/conv_wg.cu's
+// optex_conv3x3_full_bf16), with the same arguments: bf16
 // activations (rgb_to_relu1's input and final_to_rgb's output stay f32),
 // f32 biases, the FFMA kernels' weights HWIO f32 (widened from bf16), the
 // tensor-core kernels' in bf16 fragment order (ops/codec.py _fragments_bf16).
@@ -1316,13 +1320,6 @@ int optex_conv3x3_p2_bf16(const __nv_bfloat16* x, const void* wtc, const float* 
                           int pool, void* stream) {
   return launch_tc_conv<__nv_bfloat16, 64>(x, wtc, b, y, n, h, wd, cin, relu, pool,
                                            stream);
-}
-
-int optex_conv3x3_full_bf16(const __nv_bfloat16* x, const void* wtc, const float* b,
-                            __nv_bfloat16* y, int n, int h, int wd, int cin, int relu,
-                            int pool, void* stream) {
-  return launch_tc_conv<__nv_bfloat16, 128>(x, wtc, b, y, n, h, wd, cin, relu, pool,
-                                            stream);
 }
 
 int optex_upconv_p2_bf16(const __nv_bfloat16* x, const void* wup, const float* b,

@@ -39,7 +39,11 @@ does about it:
   once at pack time in the kernels' fragment order (:func:`pack_tc`). The
   upconv folds its nearest-x2 upsample into 2x2 taps per output phase on
   the edge-padded coarse image (:func:`pack_up`, the math of the JAX
-  package's ``pack_upconv_fold``): 4 taps per fine pixel, not 9.
+  package's ``pack_upconv_fold``): 4 taps per fine pixel, not 9. The bf16
+  ``conv3x3_full`` runs on ``wgmma`` instead (``csrc/conv_wg.cu``): each
+  block keeps one half of the output channels' weights resident in shared
+  memory (:func:`pack_wg`) and walks column strips of rows through a ring
+  of halo rows.
 * ``rgb_to_relu1`` (3 -> 64) and ``final_to_rgb`` (64 -> 3) do 54 / 1152
   FLOPs per 4+256 / 256+12 bytes of pixel traffic: bytes-bound (0.021 ms
   of bytes against 0.0135 ms of FMAs at 512^2). FFMA direct convs that
@@ -88,21 +92,29 @@ class Packed(NamedTuple):
     in fragment order: ``w_tc`` for a 64|128 -> 64|128 conv (:func:`pack_tc`),
     ``w_up`` for an upconv's folded taps (:func:`pack_up`); None where the
     conv has none. ``w_fold``: an upconv's folded taps (:func:`fold_up`) in
-    the conv dtype, which the bf16 plain version computes with."""
+    the conv dtype, which the bf16 plain version computes with. ``w_wg``:
+    a bf16 64|128 -> 128 conv's weights as the wgmma kernel's shared-memory
+    image (:func:`pack_wg`), in place of ``w_tc``."""
     w: torch.Tensor
     b: torch.Tensor
     w_hwio: torch.Tensor
     w_tc: Optional[torch.Tensor] = None
     w_up: Optional[torch.Tensor] = None
     w_fold: Optional[torch.Tensor] = None
+    w_wg: Optional[torch.Tensor] = None
 
 
 def pack(w: torch.Tensor, b: torch.Tensor) -> Packed:
     """A conv's weights for the plain version, and for the kernel that runs
-    it: ``w_tc`` when Cin and Cout are both 64 or 128."""
+    it when Cin and Cout are both 64 or 128: ``w_wg`` for a bf16 conv to 128
+    channels (``conv3x3_full``'s wgmma kernel), ``w_tc`` otherwise."""
     w_hwio = w.permute(2, 3, 1, 0).contiguous()
-    tc = w.shape[0] in (64, 128) and w.shape[1] in (64, 128)
-    return Packed(w, b.float(), w_hwio.float(), pack_tc(w_hwio) if tc else None)
+    cout, cin = w.shape[:2]
+    if cout not in (64, 128) or cin not in (64, 128):
+        return Packed(w, b.float(), w_hwio.float())
+    if w.dtype == torch.bfloat16 and cout == 128:
+        return Packed(w, b.float(), w_hwio.float(), w_wg=pack_wg(w_hwio))
+    return Packed(w, b.float(), w_hwio.float(), pack_tc(w_hwio))
 
 
 def pack_up(w: torch.Tensor, b: torch.Tensor) -> Packed:
@@ -169,6 +181,28 @@ def pack_tc(w_hwio: torch.Tensor) -> torch.Tensor:
     return _fragments(w_hwio.reshape(9, cin, cout))
 
 
+def pack_wg(w_hwio: torch.Tensor) -> torch.Tensor:
+    """(3, 3, Cin, 128) bf16 HWIO -> (2, 9, Cin/64, 64, 64) bf16: per output
+    channel half h, the A operand of ``conv3x3_full``'s wgmma kernel
+    (``csrc/conv_wg.cu``) byte for byte as it lies in shared memory:
+    [tap 3r + s][k-block kb][co][64 ci], K-major. Row co of block (tap, kb)
+    is 128 bytes, input channels 64 kb .. 64 kb + 63 of output channel
+    64 h + co; its 16-byte chunk c (channels 8c .. 8c + 7) is stored at chunk
+    c ^ (co % 8): the 128-byte swizzle a wgmma descriptor of layout type 1
+    reads, 8-row groups 1024 bytes apart."""
+    _, _, cin, cout = w_hwio.shape
+    if w_hwio.dtype != torch.bfloat16 or cout != 128 or cin not in (64, 128):
+        raise ValueError(f"pack_wg: bf16 (3, 3, 64|128, 128) weights only, got "
+                         f"{w_hwio.dtype} {tuple(w_hwio.shape)}")
+    # (tap, kb, c, e, h, co) -> (h, tap, kb, co, c, e)
+    t = w_hwio.reshape(9, cin // 64, 8, 8, 2, 64).permute(4, 0, 1, 5, 2, 3)
+    # stored chunk c' of row co holds chunk c' ^ (co % 8) (its own inverse)
+    co = torch.arange(64, device=w_hwio.device).reshape(64, 1)
+    chunk = torch.arange(8, device=w_hwio.device).reshape(1, 8) ^ (co % 8)
+    idx = chunk.reshape(1, 1, 1, 64, 8, 1).expand(2, 9, cin // 64, 64, 8, 8)
+    return t.gather(4, idx).reshape(2, 9, cin // 64, 64, 64).contiguous()
+
+
 def fold_up(w_hwio: torch.Tensor) -> torch.Tensor:
     """(3, 3, Cin, Cout) HWIO -> (2, 2, 2, 2, Cin, Cout) folded taps [a, b,
     u, v]: nearest-x2 upsample, reflect pad and this conv equal, at fine
@@ -218,14 +252,21 @@ _ARGTYPES = {
     "optex_final_to_rgb": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 _ARGTYPES.update({k + "_bf16": v for k, v in _ARGTYPES.items()})
+# the kernels whose entry point is in a library of its own
+# (csrc/<source>.cu); the others' are in csrc/codec.cu
+_SOURCES = {"conv3x3_full_bf16": "conv_wg"}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("codec")
+def _lib(name: str) -> ctypes.CDLL:
+    """The loaded library holding kernel ``name``'s entry point (each
+    library has its own ``optex_error_string``)."""
+    source = _SOURCES.get(name, "codec")
+    lib = cuda_build.load(source)
     if not getattr(lib, "_optex_typed", False):
         for fn, argtypes in _ARGTYPES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = _I
+            if _SOURCES.get(fn[len("optex_"):], "codec") == source:
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = _I
         lib.optex_error_string.argtypes = [_I]
         lib.optex_error_string.restype = ctypes.c_char_p
         lib._optex_typed = True
@@ -233,8 +274,11 @@ def _lib() -> ctypes.CDLL:
 
 
 def build() -> None:
-    """Build and load the kernels now (they otherwise build at first use)."""
-    _lib()
+    """Build and load the kernels now (they otherwise build at first use),
+    the libraries in parallel."""
+    cuda_build.build("codec", *set(_SOURCES.values()))
+    for name in ("conv3x3_p2", *_SOURCES):
+        _lib(name)
 
 
 def conv3x3_plain(x: torch.Tensor, p: Packed, relu: bool = False,
@@ -296,9 +340,11 @@ def conv3x3_plain_bf16(x: torch.Tensor, p: Packed, relu: bool = False,
     return to_nhwc(t).to(out_dtype)
 
 
-# per kernel: the Packed field it takes, its taps (fragment-packed weights
-# only) and the function that packs them
+# per kernel (the bf16 one where it differs): the Packed field it takes, its
+# taps (fragment-packed weights; None: HWIO, or the wgmma kernel's image)
+# and the function that packs them
 _WEIGHTS = {"conv3x3_p2": ("w_tc", 9, "pack"), "conv3x3_full": ("w_tc", 9, "pack"),
+            "conv3x3_full_bf16": ("w_wg", None, "pack"),
             "upconv_p2": ("w_up", 16, "pack_up")}
 # the kernels that read their input by TMA (the outputs are allocated here)
 _TMA_INPUT = ("final_to_rgb",)
@@ -340,11 +386,16 @@ def _conv(name: str, x: torch.Tensor, p: Packed, cins, cout: int,
     if x.dtype != in_dtype or p.b.dtype != torch.float32:
         raise TypeError(f"{name}: {p.w.dtype} weights take a {in_dtype} input "
                         f"and a float32 bias, got {x.dtype} and {p.b.dtype}")
-    field, taps, packer = _WEIGHTS.get(name, ("w_hwio", None, "pack"))
+    field, taps, packer = _WEIGHTS.get(name + "_bf16" * bf16, _WEIGHTS.get(
+        name, ("w_hwio", None, "pack")))
     w = getattr(p, field)
     k = 16 if bf16 else 8        # input channels of one mma k step
-    if w is None or (taps is not None and (w.dtype != p.w.dtype or tuple(
-            w.shape) != (x.shape[-1] // k, taps, cout // k, 32, 8 if bf16 else 4))):
+    if field == "w_wg":
+        shape = (2, 9, x.shape[-1] // 64, 64, 64)
+    elif taps is not None:
+        shape = (x.shape[-1] // k, taps, cout // k, 32, 8 if bf16 else 4)
+    if w is None or (field != "w_hwio" and (w.dtype != p.w.dtype
+                                           or tuple(w.shape) != shape)):
         raise ValueError(f"{name}: the kernel's weights ({field}) are missing "
                          f"or of another shape; pack them with codec.{packer}")
     if up:
@@ -360,7 +411,7 @@ def _conv(name: str, x: torch.Tensor, p: Packed, cins, cout: int,
     y = torch.empty((n, oh, ow, cout), device=x.device, dtype=out_dtype)
     if bf16:
         name += "_bf16"
-    lib = _lib()
+    lib = _lib(name)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = getattr(lib, "optex_" + name)(
         x.data_ptr(), w.data_ptr(), p.b.data_ptr(),
@@ -388,8 +439,10 @@ def conv3x3_p2(x, p: Packed, relu: bool = True, pool: bool = False):
 # ---------------------------------------------------------------------------
 # 2. conv3x3_full — replaces ops/pallas/codec.py:376 conv3x3_full (body
 #    _conv_full_kernel :340): the encoder 64->128 and 128->128 (+ pool)
-#    convs. Operations-bound: conv3x3_tf32x3 at 128 output channels, 8 x
-#    16-pixel blocks, with the weights of pack_tc.
+#    convs. Operations-bound. f32: conv3x3_tf32x3 at 128 output channels, 8 x
+#    16-pixel blocks, with the weights of pack_tc. bf16: conv3x3_wg
+#    (csrc/conv_wg.cu) on wgmma, one co half's weights resident a block
+#    (pack_wg), row pairs of a column strip over a ring of halo rows.
 
 def conv3x3_full(x, p: Packed, relu: bool = True, pool: bool = False):
     """x (N, H, W, Cin), Cin in {64, 128} -> [relu] conv3x3_reflect (N, H, W,

@@ -248,14 +248,18 @@ def test_bf16_fragments_read_back_as_the_conv_weights(cin, cout):
     """Every B operand the bf16 conv kernel reads, per chunk c and tap, is
     the (16, Cout) slice taps[tap, 16c:16c + 16, :] of the HWIO weights;
     the kernel's A words are input channels 16c + 2 t4 (+1) and + 8, so the
-    products rebuild the conv."""
+    products rebuild the conv. (A bf16 conv to 128 channels runs on the
+    wgmma kernel instead: ``pack`` gives it ``w_wg``, tests/test_torch_wg.py,
+    and these fragments come from ``pack_tc`` alone.)"""
     rng = np.random.default_rng(cin + cout)
     w = _bf(rng.normal(0, 0.1, (cout, cin, 3, 3)))
     p = codec.pack(w, _bf(rng.normal(0, 0.1, cout)))
-    assert p.w_tc.shape == (cin // 16, 9, cout // 16, 32, 8) and p.w_tc.dtype == BF
+    w_tc = codec.pack_tc(w.permute(2, 3, 1, 0).contiguous())
+    assert (p.w_tc is None) == (cout == 128)
+    assert w_tc.shape == (cin // 16, 9, cout // 16, 32, 8) and w_tc.dtype == BF
     taps = w.permute(2, 3, 1, 0).reshape(9, cin, cout).float()
     for c in range(cin // 16):
-        units = p.w_tc[c].reshape(-1, 8)
+        units = w_tc[c].reshape(-1, 8)
         for tap in (0, 4, 8):
             got = _b_from_units(units, 0, cout // 16, cout // 64, tap)
             assert torch.equal(got, taps[tap, 16 * c:16 * c + 16])

@@ -653,6 +653,13 @@ _PLAIN_KW = {"rgb_to_relu1": dict(relu=True), "upconv_p2": dict(relu=True, up=Tr
     ("conv3x3_full", 128, dict(relu=True, pool=True), 1, (256, 256), False),
     ("conv3x3_full", 128, dict(relu=True, pool=True), 2, (35, 19), True),
     ("conv3x3_full", 64, dict(relu=False), 128, (16, 16), False),
+    # the wgmma kernel's edges: one pixel past a 32-wide strip, W = 2, one
+    # row pair (H = 2) and a pair and a lone last row (H = 3) with the pool
+    ("conv3x3_full", 128, dict(relu=True, pool=True), 1, (20, 33), False),
+    ("conv3x3_full", 64, dict(relu=True), 2, (9, 2), False),
+    ("conv3x3_full", 128, dict(relu=False, pool=True), 3, (2, 19), True),
+    ("conv3x3_full", 64, dict(relu=True, pool=True), 2, (3, 35), False),
+    ("conv3x3_full", 128, dict(relu=True, pool=True), 2, (3, 70), False),
     ("upconv_p2", 128, {}, 1, (64, 64), False),
     ("upconv_p2", 64, {}, 1, (128, 128), False),
     ("upconv_p2", 64, {}, 2, (17, 23), True),
@@ -685,11 +692,13 @@ def test_bf16_kernels_match_plain(name, cin, kw, n, hw, wide):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,cin,kw", [
     ("rgb_to_relu1", 3, {}), ("conv3x3_p2", 64, dict(relu=True, pool=True)),
-    ("conv3x3_full", 128, dict(relu=True)), ("upconv_p2", 64, {}),
+    ("conv3x3_full", 128, dict(relu=True)), ("conv3x3_full", 64, dict(relu=True)),
+    ("conv3x3_full", 128, dict(relu=True, pool=True)), ("upconv_p2", 64, {}),
     ("final_to_rgb", 64, {})])
 def test_bf16_kernels_repeated_launches_agree(name, cin, kw):
     """Each output sums in a fixed order: 50 launches at 512^2 (the upconv's
-    256^2 coarse input) equal the first bit for bit."""
+    256^2 coarse input) equal the first bit for bit (a race in a kernel's
+    ring of halo rows shows so)."""
     _need_gpu()
     g = torch.Generator(device="cuda").manual_seed(17)
     side = 256 if name == "upconv_p2" else 512
@@ -722,6 +731,42 @@ def test_bf16_batch128_relu1_scale_past_2_31_elements(name):
         assert err <= BF16_TOL * float(ref.float().abs().max())
     del x, got
     torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_bf16_conv3x3_full_batch128_first_and_last_images():
+    """Batch 128 at 256^2, Cin 128, ReLU and pool (the path's shape): the
+    input holds 2^30 elements (2 GiB), whose byte offsets pass 2^31. The
+    first and the last image are held against the plain version on those
+    images alone."""
+    _need_gpu()
+    g = torch.Generator(device="cuda").manual_seed(29)
+    n, side, kw = 128, 256, dict(relu=True, pool=True)
+    x, p = _bf16_case("conv3x3_full", n, side, side, 128, g)
+    got = codec.conv3x3_full(x, p, **kw)
+    torch.cuda.synchronize()
+    assert x.numel() == 2 ** 30 and got.shape == (n, side // 2, side // 2, 128)
+    for i in (0, n - 1):
+        ref = codec.conv3x3_plain(x[i:i + 1], p, **kw)
+        err = float((got[i:i + 1].float() - ref.float()).abs().max())
+        assert err <= BF16_TOL * float(ref.float().abs().max())
+    del x, got
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_bf16_conv3x3_full_refuses_weights_without_the_wgmma_image():
+    """bf16 conv3x3_full takes pack's w_wg: a Packed with only mma.sync
+    fragments (or none) raises; nothing falls back."""
+    _need_gpu()
+    g = torch.Generator(device="cuda").manual_seed(31)
+    x, p = _bf16_case("conv3x3_full", 1, 16, 16, 64, g)
+    before = dict(codec.LAUNCHES)
+    for q in (p._replace(w_wg=None), p._replace(w_wg=None, w_tc=codec.pack_tc(
+            p.w.permute(2, 3, 1, 0).contiguous()))):
+        with pytest.raises(ValueError):
+            codec.conv3x3_full(x, q, relu=True)
+    assert codec.LAUNCHES == before
 
 
 @pytest.mark.cuda
