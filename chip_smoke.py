@@ -9,11 +9,11 @@ Phases (each raises on failure; none catches its own):
   2. build the CUDA kernels from csrc/ with nvcc (sm_90a), one nvcc per
      source, all started together, print ptxas's registers, shared memory
      and spills (and any "Performance Loss" remark), and check in the SASS
-     (cuobjdump) that conv64's kernel and the bf16 conv3x3_full's
-     (conv3x3_wg, csrc/conv_wg.cu) run HGMMA (wgmma) and no bf16 Cout-128
-     mma.sync kernel is left, the kernels of conv3x3_p2, conv3x3_full and
-     upconv_p2 HMMA on TF32 (and the bf16 conv3x3_p2 and upconv_p2 HMMA on
-     BF16), final_to_rgb's TMA loads (UTMALDG) and
+     (cuobjdump) that conv64's kernel and the bf16 conv3x3_p2's,
+     conv3x3_full's and upconv_p2's (conv3x3_wg<64|128, ...> and
+     upconv_wg<C>, csrc/conv_wg.cu) run HGMMA (wgmma) and no bf16 mma.sync
+     conv kernel is left, the f32 kernels of conv3x3_p2, conv3x3_full and
+     upconv_p2 HMMA on TF32, final_to_rgb's TMA loads (UTMALDG) and
      rgb_to_relu1's TMA stores (UTMASTG) in both dtypes, the histogram's
      128-bit loads and cluster barrier, and the remap's 128-bit loads and
      stores;
@@ -101,8 +101,8 @@ smem-tables, simt, wgmma+tma or 3xtf32-mma; final_to_rgb and rgb_to_relu1
 also carry "device_ms", their profiler time at the 512^2 shape, and the
 three cdf kernels theirs summed over their three shapes; then the bf16
 function of kernels 1-5, "<name>_bf16" with "dtype": "bfloat16", designs
-bf16-mma, wgmma-resident (conv3x3_full_bf16, csrc/conv_wg.cu) and
-ffma+tma, their times summed over the eight shapes at batch
+wgmma-resident (conv3x3_p2_bf16, conv3x3_full_bf16 and upconv_p2_bf16,
+csrc/conv_wg.cu) and ffma+tma, their times summed over the eight shapes at batch
 128 and their launches those of the slice's path;
 conv64 and cdf_remap are on no path of the program, so their launches are
 those of their own check phase, which the "phase" field names) and
@@ -144,7 +144,8 @@ REPLACES = {
 REPLACES.update({k + "_bf16": REPLACES[k] for k in (
     "rgb_to_relu1", "conv3x3_p2", "conv3x3_full", "upconv_p2", "final_to_rgb")})
 SOURCES = {"batched_histogram": "cdf", "pwl_remap": "cdf", "cdf_remap": "cdf",
-           "conv64": "conv64", "conv3x3_full_bf16": "conv_wg"}   # else codec
+           "conv64": "conv64", "conv3x3_p2_bf16": "conv_wg",
+           "conv3x3_full_bf16": "conv_wg", "upconv_p2_bf16": "conv_wg"}   # else codec
 LIBRARIES = ("codec", "cdf", "conv64", "conv_wg")
 
 # how each kernel computes: FFMA convs on the FP32 cores with their
@@ -152,15 +153,15 @@ LIBRARIES = ("codec", "cdf", "conv64", "conv_wg")
 # products (hi*hi + hi*lo + lo*hi), a thread-block cluster per histogram
 # row reduced in distributed shared memory, the remap's segment tables
 # built once per block in shared memory, or scalar code on the CUDA cores
-# (cdf_remap: scans, searching, interpolating)
+# (cdf_remap: scans, searching, interpolating); the bf16 tensor-core convs
+# run on wgmma with their weights resident in shared memory
 TENSOR_CORE_CODEC = ("conv3x3_p2", "conv3x3_full", "upconv_p2")
 EDGE_CODEC = ("final_to_rgb", "rgb_to_relu1")
 _CODEC = TENSOR_CORE_CODEC + EDGE_CODEC
 DESIGNS = {"conv64": "wgmma+tma", **{k: "3xtf32-mma" for k in TENSOR_CORE_CODEC},
            **{k: "ffma+tma" for k in EDGE_CODEC},
-           **{k + "_bf16": "bf16-mma" for k in TENSOR_CORE_CODEC},
+           **{k + "_bf16": "wgmma-resident" for k in TENSOR_CORE_CODEC},
            **{k + "_bf16": "ffma+tma" for k in EDGE_CODEC},
-           "conv3x3_full_bf16": "wgmma-resident",
            "batched_histogram": "cluster-dsmem", "pwl_remap": "smem-tables",
            "cdf_remap": "simt"}
 # JAX's own max|bf16 - f32| gap on tests/test_torch_batch.py's inputs (64
@@ -169,7 +170,8 @@ DESIGNS = {"conv64": "wgmma+tma", **{k: "3xtf32-mma" for k in TENSOR_CORE_CODEC}
 BF16_RUN_GAP = 0.1523
 
 # per redesigned kernel: its symbol in the SASS (a regex over the mangled
-# name: conv3x3_tf32x3<CIN, COUT, ...>, upconv_tf32x3<C>) and what the
+# name: conv3x3_tf32x3<CIN, COUT, ...>, upconv_tf32x3<C>, conv3x3_wg<COUT,
+# CIN, ...>, upconv_wg<C>) and what the
 # design relies on: each instruction with the operand type (or form) it
 # must show (the cdf kernels' names as cuobjdump -sass prints them on the
 # H100: 128-bit loads LDG.E.128.CONSTANT, stores STG.E.128, the cluster
@@ -180,9 +182,9 @@ SASS_CHECKS = (("conv64", r"conv64_wgmma", (("HGMMA", "HGMMA"),)),
                ("upconv_p2", r"upconv_tf32x3ILi\d+E", (("HMMA", "TF32"),)),
                ("final_to_rgb", r"final_to_rgb_tmaIfE", (("UTMALDG", "UTMALDG"),)),
                ("rgb_to_relu1", r"rgb_to_relu1_tmaIfE", (("UTMASTG", "UTMASTG"),)),
-               ("conv3x3_p2_bf16", r"conv3x3_bf16ILi\d+ELi64E", (("HMMA", "BF16"),)),
-               ("conv3x3_full_bf16", r"conv3x3_wgILi\d+E", (("HGMMA", "HGMMA"),)),
-               ("upconv_p2_bf16", r"upconv_bf16ILi\d+E", (("HMMA", "BF16"),)),
+               ("conv3x3_p2_bf16", r"conv3x3_wgILi64E", (("HGMMA", "HGMMA"),)),
+               ("conv3x3_full_bf16", r"conv3x3_wgILi128E", (("HGMMA", "HGMMA"),)),
+               ("upconv_p2_bf16", r"upconv_wgILi\d+E", (("HGMMA", "HGMMA"),)),
                ("final_to_rgb_bf16", r"final_to_rgb_tmaI13__nv_bfloat16E",
                 (("UTMALDG", "UTMALDG"),)),
                ("rgb_to_relu1_bf16", r"rgb_to_relu1_tmaI13__nv_bfloat16E",
@@ -192,7 +194,9 @@ SASS_CHECKS = (("conv64", r"conv64_wgmma", (("HGMMA", "HGMMA"),)),
                ("pwl_remap", r"pwl_tables", (("LDG", "LDG.E.128"),
                                              ("STG", "STG.E.128"))))
 # kernels a redesign replaced: no instantiation may be left in the libraries
-SASS_GONE = (("conv3x3_full_bf16 on mma.sync", r"conv3x3_bf16ILi\d+ELi128E"),)
+SASS_GONE = (("conv3x3_full_bf16 on mma.sync", r"conv3x3_bf16ILi\d+ELi128E"),
+             ("conv3x3_p2_bf16 on mma.sync", r"conv3x3_bf16ILi\d+ELi64E"),
+             ("upconv_p2_bf16 on mma.sync", r"upconv_bf16"))
 
 
 def _peaks(name: str, kind: str = "f32"):
@@ -770,8 +774,8 @@ def profile_run(name, cfg, styles, content=None):
     kernels = [e for e in rows if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(dev_us(e) for e in kernels) / 1e3
     part = lambda key: sum(dev_us(e) for e in kernels if key in e.key) / 1e3
-    convs = part('conv3x3_tf32x3') + part('conv3x3_bf16') + part('conv3x3_wg')
-    ups = part('upconv_tf32x3') + part('upconv_bf16')
+    convs = part('conv3x3_tf32x3') + part('conv3x3_wg')
+    ups = part('upconv_tf32x3') + part('upconv_wg')
     tc = convs + ups
     edge = part('final_to_rgb_tma') + part('rgb_to_relu1_tma')
     print(f"profile {name} (warm run, profiler on): wall {wall * 1e3:.1f} ms, "
@@ -947,8 +951,9 @@ def main() -> int:
                         or "Performance Loss" in line):
                     print("  ptxas:", line.strip())
     wg = ctypes.CDLL(libs[LIBRARIES.index("conv_wg")])
-    print("conv3x3_wg dynamic shared memory: "
-          + ", ".join(f"Cin {c} {wg.optex_conv3x3_full_bf16_smem(c)} B"
+    print("conv_wg dynamic shared memory: "
+          + ", ".join(f"{mode} Cin {c} {wg.optex_conv_wg_smem(up, c)} B"
+                      for up, mode in ((0, "conv3x3_wg"), (1, "upconv_wg"))
                       for c in (64, 128)), flush=True)
     check_sass(libs)
 

@@ -12,9 +12,9 @@
 //
 //   rgb_to_relu1  rgb_to_relu1_tma<float|bf16>                  bytes
 //   final_to_rgb  final_to_rgb_tma<float|bf16>                  bytes
-//   conv3x3_p2    conv3x3_tf32x3|bf16<64|128, 64, RELU, POOL>   operations
+//   conv3x3_p2    conv3x3_tf32x3<64|128, 64, RELU, POOL>        operations
 //   conv3x3_full  conv3x3_tf32x3<64|128, 128, RELU, POOL>       operations
-//   upconv_p2     upconv_tf32x3|bf16<64|128>                    operations
+//   upconv_p2     upconv_tf32x3<64|128>                         operations
 //
 // The narrow entry and final convs do 54 / 1152 FLOPs per 4+256 / 256+12
 // bytes of pixel traffic, below the card's ridge: FFMA direct convolutions
@@ -22,10 +22,10 @@
 // side moved by TMA so the bytes stay in flight while the FMAs run. The
 // wide convs do 2 x 9 x Cin multiply-adds per output value (upconv, folded:
 // 2 x 4 x Cin) against 8 bytes of traffic (4 in bf16), far above it:
-// implicit GEMMs on the tensor cores, three TF32 products per f32 product,
-// or one bf16 product.
+// implicit GEMMs on the tensor cores, three TF32 products per f32 product.
 //
-// The bf16 conv3x3_full is not here: it runs on wgmma in csrc/conv_wg.cu.
+// The bf16 function of those three is not here: it runs on wgmma in
+// csrc/conv_wg.cu.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (or cudaErrorInvalidValue for a configuration
@@ -641,9 +641,8 @@ int launch_final(const T* x, const float* w, const float* b, float* y, int n, in
 }
 
 // ---------------------------------------------------------------------------
-// conv3x3_p2, conv3x3_full and upconv_p2 on the tensor cores:
-// conv3x3_tf32x3 and upconv_tf32x3 (float32), conv3x3_bf16 and upconv_bf16
-// (bfloat16), one skeleton each, templated on the element type.
+// conv3x3_p2, conv3x3_full and upconv_p2 in float32 on the tensor cores:
+// conv3x3_tf32x3 and upconv_tf32x3, one skeleton each.
 //
 // Replace ops/pallas/codec.py:282 conv3x3_p2 (body _conv_p2_kernel :244),
 // :376 conv3x3_full (_conv_full_kernel :340) and :449 upconv_p2
@@ -656,32 +655,23 @@ int launch_final(const T* x, const float* w, const float* b, float* y, int n, in
 // lo*hi; the dropped lo*lo term is ~2^-22 relative. Their least time is the
 // 3xTF32 work at the 495 TF/s TF32 rate.
 //
-// The bf16 function of conv3x3_p2 and upconv_p2 (the one the Pallas kernels
-// compute on the TPU: bf16 operands, f32 accumulate, f32 bias, ReLU and pool,
-// one rounding to bf16 at the store; conv3x3_full's runs on wgmma in
-// csrc/conv_wg.cu) needs no split: one mma.sync.m16n8k16 bf16 product per product,
-// its least time the work at the 989 TF/s dense bf16 rate. A chunk of 16
-// bf16 channels is 32 bytes a pixel, as a chunk of 8 f32 channels is, so
-// the halo staging, its swizzle and the A-fragment words are the same;
-// a lane's B fragments of two n8 tiles are one 16-byte load (ops/codec.py
-// _fragments_bf16), so a stage holds half the f32 weight bytes.
+// The bf16 function of all three (one bf16 product per product, the one the
+// Pallas kernels compute on the TPU) runs on wgmma in csrc/conv_wg.cu.
 //
 // Both are implicit GEMMs on mma.sync (M = output pixels, N = output
 // channels, K = taps x Cin) with one skeleton:
-// * Input channels stream through shared memory one k step at a time (8 f32
-//   or 16 bf16 channels, 32 bytes a pixel), double-buffered with 16-byte
-//   cp.async so the next chunk loads while this one multiplies: the chunk's
-//   halo (indices resolved once per pixel, not per element; ci is
-//   contiguous in NHWC) and its weights for every tap. A halo pixel's two
-//   16-byte halves swap places when bit 2 of its index is set, so the
-//   A-fragment loads of a warp (8 consecutive pixels x 4 words) hit 32
-//   distinct banks.
+// * Input channels stream through shared memory one k8 step at a time (8
+//   channels, 32 bytes a pixel), double-buffered with 16-byte cp.async so
+//   the next chunk loads while this one multiplies: the chunk's halo
+//   (indices resolved once per pixel, not per element; ci is contiguous in
+//   NHWC) and its weights for every tap. A halo pixel's two 16-byte halves
+//   swap places when bit 2 of its index is set, so the A-fragment loads of a
+//   warp (8 consecutive pixels x 4 words) hit 32 distinct banks.
 // * A fragments are read from the halo at each tap's offset (the implicit
-//   im2col; a shifted 2-D window is why this is mma.sync and not wgmma); in
-//   f32 they are split in registers. The weights are split once at pack
-//   time (ops/codec.py pack_tc, pack_up) and stored in fragment order, so a
-//   lane's {hi(k), hi(k+4), lo(k), lo(k+4)} for an n8 tile (f32), or its
-//   {b0, b1} of two n8 tiles (bf16), is one 16-byte load.
+//   im2col) and split in registers. The weights are split once at pack time
+//   (ops/codec.py pack_tc, pack_up) and stored in fragment order, so a
+//   lane's {hi(k), hi(k+4), lo(k), lo(k+4)} for an n8 tile is one 16-byte
+//   load.
 // * A warp holds two m16 tiles x eight n8 tiles (64 channels): 64 f32
 //   accumulators a thread. The tensor cores' f32 accumulate rounds toward
 //   zero: chained through every product of a conv it biased outputs by
@@ -689,7 +679,7 @@ int launch_final(const T* x, const float* w, const float* b, float* y, int n, in
 //   more registers) that one rounded FADD adds to the total (bias ~5e-7).
 // * One block of 8 warps per SM, bounded by registers.
 //
-// conv3x3_*<CIN, COUT, RELU, POOL>, COUT in {64, 128}:
+// conv3x3_tf32x3<CIN, COUT, RELU, POOL>, COUT in {64, 128}:
 // * A block computes kRows x 16 output pixels for all COUT channels. Warp w
 //   owns rows 2(w % RP) and 2(w % RP) + 1 (one m16 tile each: the tile's
 //   row m is column m of the image row) and channels 64(w / RP)..+63: 8
@@ -698,19 +688,16 @@ int launch_final(const T* x, const float* w, const float* b, float* y, int n, in
 // * Epilogue: bias, ReLU, then the ceil-mode 2x2 pool in registers: a
 //   thread holds both rows of a window (its two m16 tiles), and the
 //   horizontal neighbour is lane ^ 4, one shuffle away. Pixels past the
-//   image enter the max as -inf. bf16 rounds once, after the pool.
-// 158,976 (COUT 128) or 94,464 (COUT 64) bytes of dynamic shared memory in
-// f32, 57,600 in bf16 (COUT 64; the bf16 COUT-128 conv is csrc/conv_wg.cu's).
+//   image enter the max as -inf.
+// 158,976 (COUT 128) or 94,464 (COUT 64) bytes of dynamic shared memory.
 //
-// upconv_*<C>, C in {64, 128}: relu(conv3x3_reflect(nearest_up_x2(x)))
+// upconv_tf32x3<C>, C in {64, 128}: relu(conv3x3_reflect(nearest_up_x2(x)))
 // from the coarse x. A fine-scale reflection of a nearest-upsampled image
 // is a coarse-scale edge pad, and the upsample folds into the conv: fine
 // pixel (2i + a, 2j + b) is a 2x2 conv of the edge-padded coarse image at
 // rows i + a - 1 + u and columns j + b - 1 + v (u, v in {0, 1}) with the
-// folded taps of phase (a, b) (ops/codec.py pack_up; in bf16 the folded
-// sums are rounded to bf16, as pack_upconv_fold rounds them). 4 taps a
-// fine pixel where the fine-scale conv takes 9, and the upsampled tensor
-// never exists.
+// folded taps of phase (a, b) (ops/codec.py pack_up). 4 taps a fine pixel
+// where the fine-scale conv takes 9, and the upsampled tensor never exists.
 // * An m16 tile is 16 coarse columns of one coarse row for one output phase
 //   (a, b): its outputs land at fine columns 2j + b of fine row 2i + a. A
 //   warp takes one coarse row and one row phase a, and the two column
@@ -719,30 +706,25 @@ int launch_final(const T* x, const float* w, const float* b, float* y, int n, in
 //   row are loaded (and split) once and feed 4 products.
 // * A block computes 4 coarse rows x 16 coarse columns. At C = 64 its warps
 //   are 4 rows x both row phases, and a stage holds all 16 tap-phases'
-//   weights. At C = 128 those would be 128 KB a stage in f32, so a block
-//   takes one row phase (the grid doubles) and its warps are 4 rows x 2
-//   channel halves. Either way a stage is 64 KB (f32) or 32 KB (bf16) of
-//   weights plus a 6 x 18 coarse halo: 137,984 or 72,448 bytes of dynamic
-//   shared memory.
+//   weights. At C = 128 those would be 128 KB a stage, so a block takes one
+//   row phase (the grid doubles) and its warps are 4 rows x 2 channel
+//   halves. Either way a stage is 64 KB of weights plus a 6 x 18 coarse
+//   halo: 137,984 bytes of dynamic shared memory.
 
 constexpr int kTcCols = 16;                 // output columns (m16 rows) per block
 constexpr int kTcHaloW = kTcCols + 2;
 constexpr int kTcChunk = 8;                 // 4-byte words a halo pixel holds a stage
+constexpr int kTcK = 8;                     // input channels a stage (one k8 step)
 
-// input channels a stage (one k step: k8 TF32, k16 bf16)
-template <class T>
-constexpr int kTcK = 32 / static_cast<int>(sizeof(T));
-
-template <class T, int COUT>
+template <int COUT>
 struct TcConv {
   static_assert(COUT == 64 || COUT == 128, "output channels");
   static constexpr int kRowPairsLog2 = COUT == 128 ? 2 : 3;
   static constexpr int kRowPairs = 1 << kRowPairsLog2;  // per block
   static constexpr int kRows = 2 * kRowPairs;           // output rows per block
   static constexpr int kHalo = (kRows + 2) * kTcHaloW;  // halo pixels
-  // 16-byte units of weights a stage: one per (tap, n8 tile, lane) in f32,
-  // one per (tap, pair of n8 tiles, lane) in bf16
-  static constexpr int kW4 = 9 * (COUT / 8) * 32 * static_cast<int>(sizeof(T)) / 4;
+  // 16-byte units of weights a stage: one per (tap, n8 tile, lane)
+  static constexpr int kW4 = 9 * (COUT / 8) * 32;
   static constexpr int kStage = 4 * kW4 + kHalo * kTcChunk;   // words a stage
   static constexpr int kSmem = 2 * kStage * 4;          // bytes
   static constexpr int kLoads = (2 * kHalo + kThreads - 1) / kThreads;  // halo halves a thread
@@ -751,9 +733,8 @@ struct TcConv {
 constexpr int kUpRows = 4;                           // coarse rows per block
 constexpr int kUpHalo = (kUpRows + 2) * kTcHaloW;    // 108 coarse halo pixels
 
-template <class T>
 struct UpConv {
-  static constexpr int kW4 = 8 * 16 * 32 * static_cast<int>(sizeof(T)) / 4;  // 16-byte units of weights a stage
+  static constexpr int kW4 = 8 * 16 * 32;            // 16-byte units of weights a stage
   static constexpr int kStage = 4 * kW4 + kUpHalo * kTcChunk;
   static constexpr int kSmem = 2 * kStage * 4;
 };
@@ -791,15 +772,6 @@ __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // d += a * b in 3xTF32, the small terms first; b is a lane's packed
 // {hi(k), hi(k+4), lo(k), lo(k+4)}
 __device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* ahi,
@@ -829,36 +801,19 @@ __device__ __forceinline__ void load_a(const float* xs, int p0, int g, int t4,
   }
 }
 
-// the same for bf16: word t4 of a pixel holds channels 2 t4, 2 t4 + 1, word
-// t4 + 4 channels 2 t4 + 8, 2 t4 + 9, as the m16n8k16 A registers want them
-__device__ __forceinline__ void load_a_bf16(const uint32_t* xs, int p0, int g, int t4,
-                                            uint32_t* a) {
-  a[0] = xs[halo_slot(p0 + g, t4)];
-  a[1] = xs[halo_slot(p0 + g + 8, t4)];
-  a[2] = xs[halo_slot(p0 + g, t4 + 4)];
-  a[3] = xs[halo_slot(p0 + g + 8, t4 + 4)];
-}
-
-// two neighbouring outputs (channels co, co + 1) of a thread, rounded once
+// two neighbouring outputs (channels co, co + 1) of a thread
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-template <class T, int CIN, int COUT, bool RELU, bool POOL>
-__device__ __forceinline__ void conv3x3_tc(const T* __restrict__ x,
-                                           const float4* __restrict__ wtc,
-                                           const float* __restrict__ bias,
-                                           T* __restrict__ y, int H, int W) {
-  // x: (N, H, W, CIN); wtc: (CIN/8, 9, COUT/8, 32) float4 (f32) or (CIN/16,
-  // 9, COUT/16, 32) 16-byte units (bf16) (ops/codec.py pack_tc); y: (N, H,
-  // W, COUT), or (N, ceil(H/2), ceil(W/2), COUT) when POOL
-  using S = TcConv<T, COUT>;
-  constexpr bool F32 = sizeof(T) == 4;
-  constexpr int NCH = CIN / kTcK<T>, NJ = COUT / 8;
+template <int CIN, int COUT, bool RELU, bool POOL>
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_tf32x3(const float* __restrict__ x, const float4* __restrict__ wtc,
+               const float* __restrict__ bias, float* __restrict__ y, int H, int W) {
+  // x: (N, H, W, CIN); wtc: (CIN/8, 9, COUT/8, 32) float4 (ops/codec.py
+  // pack_tc); y: (N, H, W, COUT), or (N, ceil(H/2), ceil(W/2), COUT) when POOL
+  using S = TcConv<COUT>;
+  constexpr int NCH = CIN / kTcK, NJ = COUT / 8;
   extern __shared__ float4 tc_smem[];
   float* sm = reinterpret_cast<float*>(tc_smem);
 
@@ -869,7 +824,7 @@ __device__ __forceinline__ void conv3x3_tc(const T* __restrict__ x,
   const int rp = warp & (S::kRowPairs - 1), nh = warp >> S::kRowPairsLog2;
   const int n = blockIdx.z;
   const int ty0 = blockIdx.y * S::kRows, tx0 = blockIdx.x * kTcCols;
-  const T* xn = x + static_cast<size_t>(n) * H * W * CIN;
+  const float* xn = x + static_cast<size_t>(n) * H * W * CIN;
 
   // thread t copies 16-byte half t & 1 of halo pixels t / 2 + 128 i; each
   // source pixel is resolved once. Rows/cols past the image (a ragged last
@@ -896,8 +851,7 @@ __device__ __forceinline__ void conv3x3_tc(const T* __restrict__ x,
     for (int i = 0; i < S::kLoads; ++i)
       if (tid + i * kThreads < 2 * S::kHalo)
         cp_async16(xs + dst0 + i * (kThreads / 2) * kTcChunk,
-                   xn + static_cast<size_t>(src[i]) * CIN + c * kTcK<T> +
-                       (kTcK<T> / 2) * half);
+                   xn + static_cast<size_t>(src[i]) * CIN + c * kTcK + (kTcK / 2) * half);
     cp_async_commit();
   };
 
@@ -916,8 +870,8 @@ __device__ __forceinline__ void conv3x3_tc(const T* __restrict__ x,
     __syncthreads();
     const float* base = sm + (c & 1) * S::kStage;
     const float* xs = base + 4 * S::kW4;
-    // the chunk's products per output (27 in f32, 9 in bf16) sum into a
-    // fresh partial, added to the total with one rounded FADD
+    // the chunk's 27 products per output sum into a fresh partial, added to
+    // the total with one rounded FADD
     float part[2][8][4];
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -928,34 +882,16 @@ __device__ __forceinline__ void conv3x3_tc(const T* __restrict__ x,
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
       const int r = tap / 3, s = tap % 3;
-      if constexpr (F32) {
-        const float4* ws = reinterpret_cast<const float4*>(base);
-        uint32_t ahi[2][4], alo[2][4];
+      const float4* ws = reinterpret_cast<const float4*>(base);
+      uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          load_a(xs, (2 * rp + mt + r) * kTcHaloW + s, g, t4, ahi[mt], alo[mt]);
+      for (int mt = 0; mt < 2; ++mt)
+        load_a(xs, (2 * rp + mt + r) * kTcHaloW + s, g, t4, ahi[mt], alo[mt]);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float4 b = ws[(tap * NJ + nh * 8 + j) * 32 + lane];
+      for (int j = 0; j < 8; ++j) {
+        const float4 b = ws[(tap * NJ + nh * 8 + j) * 32 + lane];
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt) mma_3xtf32(part[mt][j], ahi[mt], alo[mt], b);
-        }
-      } else {
-        const uint4* ws = reinterpret_cast<const uint4*>(base);
-        uint32_t a[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          load_a_bf16(reinterpret_cast<const uint32_t*>(xs),
-                      (2 * rp + mt + r) * kTcHaloW + s, g, t4, a[mt]);
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const uint4 b = ws[(tap * (NJ / 2) + nh * 4 + jj) * 32 + lane];
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            mma_bf16(part[mt][2 * jj], a[mt], b.x, b.y);
-            mma_bf16(part[mt][2 * jj + 1], a[mt], b.z, b.w);
-          }
-        }
+        for (int mt = 0; mt < 2; ++mt) mma_3xtf32(part[mt][j], ahi[mt], alo[mt], b);
       }
     }
 #pragma unroll
@@ -986,7 +922,7 @@ __device__ __forceinline__ void conv3x3_tc(const T* __restrict__ x,
     const int PH = (H + 1) / 2, PW = (W + 1) / 2;
     const int PY = ty0 / 2 + rp;
     const bool in_y1 = ty0 + 2 * rp + 1 < H;
-    T* yp = y + (static_cast<size_t>(n) * PH + PY) * PW * COUT;
+    float* yp = y + (static_cast<size_t>(n) * PH + PY) * PW * COUT;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int co = nh * 64 + 8 * j + 2 * t4;
@@ -1009,7 +945,7 @@ __device__ __forceinline__ void conv3x3_tc(const T* __restrict__ x,
     for (int mt = 0; mt < 2; ++mt) {
       const int Y = ty0 + 2 * rp + mt;
       if (Y >= H) continue;
-      T* yp = y + (static_cast<size_t>(n) * H + Y) * W * COUT;
+      float* yp = y + (static_cast<size_t>(n) * H + Y) * W * COUT;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int co = nh * 64 + 8 * j + 2 * t4;
@@ -1022,34 +958,16 @@ __device__ __forceinline__ void conv3x3_tc(const T* __restrict__ x,
   }
 }
 
-template <int CIN, int COUT, bool RELU, bool POOL>
+template <int C>
 __global__ void __launch_bounds__(kThreads, 1)
-conv3x3_tf32x3(const float* __restrict__ x, const float4* __restrict__ wtc,
-               const float* __restrict__ bias, float* __restrict__ y, int H,
-               int W) {
-  conv3x3_tc<float, CIN, COUT, RELU, POOL>(x, wtc, bias, y, H, W);
-}
-
-template <int CIN, int COUT, bool RELU, bool POOL>
-__global__ void __launch_bounds__(kThreads, 1)
-conv3x3_bf16(const __nv_bfloat16* __restrict__ x, const float4* __restrict__ wtc,
-             const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int H,
-             int W) {
-  conv3x3_tc<__nv_bfloat16, CIN, COUT, RELU, POOL>(x, wtc, bias, y, H, W);
-}
-
-template <class T, int C>
-__device__ __forceinline__ void upconv_tc(const T* __restrict__ x,
-                                          const float4* __restrict__ wup,
-                                          const float* __restrict__ bias,
-                                          T* __restrict__ y, int Hc, int Wc) {
-  // x: (N, Hc, Wc, C) coarse; wup: (C/8, 16, C/8, 32) float4 (f32) or
-  // (C/16, 16, C/16, 32) 16-byte units (bf16) (ops/codec.py pack_up: chunk,
-  // tap-phase 8a + 4u + 2b + v, n8 tile or pair, lane); y: (N, 2Hc, 2Wc, C)
+upconv_tf32x3(const float* __restrict__ x, const float4* __restrict__ wup,
+              const float* __restrict__ bias, float* __restrict__ y, int Hc, int Wc) {
+  // x: (N, Hc, Wc, C) coarse; wup: (C/8, 16, C/8, 32) float4 (ops/codec.py
+  // pack_up: chunk, tap-phase 8a + 4u + 2b + v, n8 tile, lane); y: (N, 2Hc,
+  // 2Wc, C)
   static_assert(C == 64 || C == 128, "channels");
-  using S = UpConv<T>;
-  constexpr bool F32 = sizeof(T) == 4;
-  constexpr int NCH = C / kTcK<T>, NJ = C / 8;
+  using S = UpConv;
+  constexpr int NCH = C / kTcK, NJ = C / 8;
   constexpr bool BOTH = C == 64;       // a block takes both row phases
   extern __shared__ float4 tc_smem[];
   float* sm = reinterpret_cast<float*>(tc_smem);
@@ -1063,7 +981,7 @@ __device__ __forceinline__ void upconv_tc(const T* __restrict__ x,
   const int i0 = (BOTH ? blockIdx.y : blockIdx.y >> 1) * kUpRows;
   const int j0 = blockIdx.x * kTcCols;
   const int n = blockIdx.z;
-  const T* xn = x + static_cast<size_t>(n) * Hc * Wc * C;
+  const float* xn = x + static_cast<size_t>(n) * Hc * Wc * C;
 
   // thread t < 216 copies 16-byte half t & 1 of halo pixel t / 2: coarse row
   // i0 - 1 + t / 2 / 18, column j0 - 1 + t / 2 % 18, clamped into the image
@@ -1072,7 +990,7 @@ __device__ __forceinline__ void upconv_tc(const T* __restrict__ x,
   const bool copies = tid < 2 * kUpHalo;
   const int gy = min(max(i0 - 1 + hp / kTcHaloW, 0), Hc - 1);
   const int gx = min(max(j0 - 1 + hp % kTcHaloW, 0), Wc - 1);
-  const T* src = xn + (static_cast<size_t>(gy) * Wc + gx) * C + (kTcK<T> / 2) * half;
+  const float* src = xn + (static_cast<size_t>(gy) * Wc + gx) * C + (kTcK / 2) * half;
   const int dst = hp * kTcChunk + 4 * (half ^ ((hp >> 2) & 1));
 
   auto load_chunk = [&](int c, int stage) {
@@ -1080,7 +998,7 @@ __device__ __forceinline__ void upconv_tc(const T* __restrict__ x,
     const float4* wsrc = wup + static_cast<size_t>(BOTH ? c : 2 * c + a) * S::kW4;
     float4* wdst = reinterpret_cast<float4*>(base);
     for (int i = tid; i < S::kW4; i += kThreads) cp_async16(wdst + i, wsrc + i);
-    if (copies) cp_async16(base + 4 * S::kW4 + dst, src + c * kTcK<T>);
+    if (copies) cp_async16(base + 4 * S::kW4 + dst, src + c * kTcK);
     cp_async_commit();
   };
 
@@ -1099,8 +1017,8 @@ __device__ __forceinline__ void upconv_tc(const T* __restrict__ x,
     __syncthreads();
     const float* base = sm + (c & 1) * S::kStage;
     const float* xs = base + 4 * S::kW4;
-    // the chunk's products per output (4 taps, x 3 in f32) sum into a fresh
-    // partial, added to the total with one rounded FADD
+    // the chunk's products per output (4 taps x 3) sum into a fresh partial,
+    // added to the total with one rounded FADD
     float part[2][8][4];
 #pragma unroll
     for (int b = 0; b < 2; ++b)
@@ -1112,40 +1030,20 @@ __device__ __forceinline__ void upconv_tc(const T* __restrict__ x,
     for (int u = 0; u < 2; ++u) {
       // halo row r + a + u is coarse row i0 + r + a - 1 + u; its fragments at
       // coarse column offsets -1, 0, +1 (halo slots 0, 1, 2)
-      if constexpr (F32) {
-        const float4* ws = reinterpret_cast<const float4*>(base) + wa * 8 * NJ * 32;
-        uint32_t ahi[3][4], alo[3][4];
+      const float4* ws = reinterpret_cast<const float4*>(base) + wa * 8 * NJ * 32;
+      uint32_t ahi[3][4], alo[3][4];
 #pragma unroll
-        for (int s = 0; s < 3; ++s)
-          load_a(xs, (r + a + u) * kTcHaloW + s, g, t4, ahi[s], alo[s]);
+      for (int s = 0; s < 3; ++s)
+        load_a(xs, (r + a + u) * kTcHaloW + s, g, t4, ahi[s], alo[s]);
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-          for (int b = 0; b < 2; ++b)
+        for (int b = 0; b < 2; ++b)
 #pragma unroll
-            for (int v = 0; v < 2; ++v) {
-              const float4 w = ws[((4 * u + 2 * b + v) * NJ + nh * 8 + j) * 32 + lane];
-              mma_3xtf32(part[b][j], ahi[b + v], alo[b + v], w);
-            }
-      } else {
-        const uint4* ws = reinterpret_cast<const uint4*>(base) + wa * 8 * (NJ / 2) * 32;
-        uint32_t av[3][4];
-#pragma unroll
-        for (int s = 0; s < 3; ++s)
-          load_a_bf16(reinterpret_cast<const uint32_t*>(xs), (r + a + u) * kTcHaloW + s,
-                      g, t4, av[s]);
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-          for (int b = 0; b < 2; ++b)
-#pragma unroll
-            for (int v = 0; v < 2; ++v) {
-              const uint4 w =
-                  ws[((4 * u + 2 * b + v) * (NJ / 2) + nh * 4 + jj) * 32 + lane];
-              mma_bf16(part[b][2 * jj], av[b + v], w.x, w.y);
-              mma_bf16(part[b][2 * jj + 1], av[b + v], w.z, w.w);
-            }
-      }
+          for (int v = 0; v < 2; ++v) {
+            const float4 w = ws[((4 * u + 2 * b + v) * NJ + nh * 8 + j) * 32 + lane];
+            mma_3xtf32(part[b][j], ahi[b + v], alo[b + v], w);
+          }
     }
 #pragma unroll
     for (int b = 0; b < 2; ++b)
@@ -1172,7 +1070,7 @@ __device__ __forceinline__ void upconv_tc(const T* __restrict__ x,
   const int i = i0 + r;
   if (i >= Hc) return;
   const int J0 = j0 + g, J1 = j0 + g + 8;
-  T* yp = y + ((static_cast<size_t>(n) * Hc + i) * 2 + a) * 2 * Wc * C;
+  float* yp = y + ((static_cast<size_t>(n) * Hc + i) * 2 + a) * 2 * Wc * C;
 #pragma unroll
   for (int b = 0; b < 2; ++b)
 #pragma unroll
@@ -1185,25 +1083,9 @@ __device__ __forceinline__ void upconv_tc(const T* __restrict__ x,
     }
 }
 
-template <int C>
-__global__ void __launch_bounds__(kThreads, 1)
-upconv_tf32x3(const float* __restrict__ x, const float4* __restrict__ wup,
-              const float* __restrict__ bias, float* __restrict__ y, int Hc,
-              int Wc) {
-  upconv_tc<float, C>(x, wup, bias, y, Hc, Wc);
-}
-
-template <int C>
-__global__ void __launch_bounds__(kThreads, 1)
-upconv_bf16(const __nv_bfloat16* __restrict__ x, const float4* __restrict__ wup,
-            const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int Hc,
-            int Wc) {
-  upconv_tc<__nv_bfloat16, C>(x, wup, bias, y, Hc, Wc);
-}
-
-template <class T, class Kernel>
-int launch_dyn(Kernel kern, dim3 grid, int smem, void* stream, const T* x,
-               const void* w, const float* b, T* y, int h, int wd) {
+template <class Kernel>
+int launch_dyn(Kernel kern, dim3 grid, int smem, void* stream, const float* x,
+               const void* w, const float* b, float* y, int h, int wd) {
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1212,55 +1094,47 @@ int launch_dyn(Kernel kern, dim3 grid, int smem, void* stream, const T* x,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class T, int CIN, int COUT, bool RELU, bool POOL>
-int launch_tc(const T* x, const void* wtc, const float* b, T* y, int n, int h,
+template <int CIN, int COUT, bool RELU, bool POOL>
+int launch_tc(const float* x, const void* wtc, const float* b, float* y, int n, int h,
               int wd, void* stream) {
-  using S = TcConv<T, COUT>;
+  using S = TcConv<COUT>;
   const dim3 grid((wd + kTcCols - 1) / kTcCols, (h + S::kRows - 1) / S::kRows, n);
-  if constexpr (sizeof(T) == 4)
-    return launch_dyn(conv3x3_tf32x3<CIN, COUT, RELU, POOL>, grid, S::kSmem, stream,
-                      x, wtc, b, y, h, wd);
-  else
-    return launch_dyn(conv3x3_bf16<CIN, COUT, RELU, POOL>, grid, S::kSmem, stream,
-                      x, wtc, b, y, h, wd);
+  return launch_dyn(conv3x3_tf32x3<CIN, COUT, RELU, POOL>, grid, S::kSmem, stream, x, wtc,
+                    b, y, h, wd);
 }
 
-template <class T, int CIN, int COUT>
-int launch_tc_rp(const T* x, const void* wtc, const float* b, T* y, int n, int h,
+template <int CIN, int COUT>
+int launch_tc_rp(const float* x, const void* wtc, const float* b, float* y, int n, int h,
                  int wd, int relu, int pool, void* stream) {
-  if (relu && pool) return launch_tc<T, CIN, COUT, true, true>(x, wtc, b, y, n, h, wd, stream);
-  if (relu) return launch_tc<T, CIN, COUT, true, false>(x, wtc, b, y, n, h, wd, stream);
-  if (pool) return launch_tc<T, CIN, COUT, false, true>(x, wtc, b, y, n, h, wd, stream);
-  return launch_tc<T, CIN, COUT, false, false>(x, wtc, b, y, n, h, wd, stream);
+  if (relu && pool) return launch_tc<CIN, COUT, true, true>(x, wtc, b, y, n, h, wd, stream);
+  if (relu) return launch_tc<CIN, COUT, true, false>(x, wtc, b, y, n, h, wd, stream);
+  if (pool) return launch_tc<CIN, COUT, false, true>(x, wtc, b, y, n, h, wd, stream);
+  return launch_tc<CIN, COUT, false, false>(x, wtc, b, y, n, h, wd, stream);
 }
 
 // the wide convs at 64 or 128 input channels, ReLU and pool chosen at run time
-template <class T, int COUT>
-int launch_tc_conv(const T* x, const void* wtc, const float* b, T* y, int n, int h,
+template <int COUT>
+int launch_tc_conv(const float* x, const void* wtc, const float* b, float* y, int n, int h,
                    int wd, int cin, int relu, int pool, void* stream) {
   if (n <= 0 || n > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (cin == 64) return launch_tc_rp<T, 64, COUT>(x, wtc, b, y, n, h, wd, relu, pool, stream);
-  if (cin == 128) return launch_tc_rp<T, 128, COUT>(x, wtc, b, y, n, h, wd, relu, pool, stream);
+  if (cin == 64) return launch_tc_rp<64, COUT>(x, wtc, b, y, n, h, wd, relu, pool, stream);
+  if (cin == 128) return launch_tc_rp<128, COUT>(x, wtc, b, y, n, h, wd, relu, pool, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <class T, int C>
-int launch_up(const T* x, const void* wup, const float* b, T* y, int n, int hc, int wc,
-              void* stream) {
+template <int C>
+int launch_up(const float* x, const void* wup, const float* b, float* y, int n, int hc,
+              int wc, void* stream) {
   const int blocks_y = (hc + kUpRows - 1) / kUpRows * (C == 64 ? 1 : 2);
   const dim3 grid((wc + kTcCols - 1) / kTcCols, blocks_y, n);
-  if constexpr (sizeof(T) == 4)
-    return launch_dyn(upconv_tf32x3<C>, grid, UpConv<T>::kSmem, stream, x, wup, b, y, hc, wc);
-  else
-    return launch_dyn(upconv_bf16<C>, grid, UpConv<T>::kSmem, stream, x, wup, b, y, hc, wc);
+  return launch_dyn(upconv_tf32x3<C>, grid, UpConv::kSmem, stream, x, wup, b, y, hc, wc);
 }
 
-template <class T>
-int launch_up_c(const T* x, const void* wup, const float* b, T* y, int n, int hc, int wc,
-                int c, void* stream) {
+int launch_up_c(const float* x, const void* wup, const float* b, float* y, int n, int hc,
+                int wc, int c, void* stream) {
   if (n <= 0 || n > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (c == 64) return launch_up<T, 64>(x, wup, b, y, n, hc, wc, stream);
-  if (c == 128) return launch_up<T, 128>(x, wup, b, y, n, hc, wc, stream);
+  if (c == 64) return launch_up<64>(x, wup, b, y, n, hc, wc, stream);
+  if (c == 128) return launch_up<128>(x, wup, b, y, n, hc, wc, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1279,7 +1153,7 @@ int optex_rgb_to_relu1(const float* x, const float* w, const float* b, float* y,
 int optex_conv3x3_p2(const float* x, const float* wtc, const float* b, float* y,
                      int n, int h, int wd, int cin, int relu, int pool,
                      void* stream) {
-  return launch_tc_conv<float, 64>(x, wtc, b, y, n, h, wd, cin, relu, pool, stream);
+  return launch_tc_conv<64>(x, wtc, b, y, n, h, wd, cin, relu, pool, stream);
 }
 
 // (N, H, W, cin) -> (N, H, W, 128), or (N, ceil(H/2), ceil(W/2), 128) when
@@ -1287,14 +1161,14 @@ int optex_conv3x3_p2(const float* x, const float* wtc, const float* b, float* y,
 int optex_conv3x3_full(const float* x, const float* wtc, const float* b, float* y,
                        int n, int h, int wd, int cin, int relu, int pool,
                        void* stream) {
-  return launch_tc_conv<float, 128>(x, wtc, b, y, n, h, wd, cin, relu, pool, stream);
+  return launch_tc_conv<128>(x, wtc, b, y, n, h, wd, cin, relu, pool, stream);
 }
 
 // coarse (N, Hc, Wc, c) -> relu(conv(nearest_up_x2)) (N, 2Hc, 2Wc, c); wup:
 // the folded per-phase taps, split, in fragment order (ops/codec.py pack_up)
 int optex_upconv_p2(const float* x, const float* wup, const float* b, float* y,
                     int n, int hc, int wc, int c, void* stream) {
-  return launch_up_c<float>(x, wup, b, y, n, hc, wc, c, stream);
+  return launch_up_c(x, wup, b, y, n, hc, wc, c, stream);
 }
 
 // (N, H, W, 64) -> conv (N, H, W, 3), no ReLU (the renorm is folded into w, b);
@@ -1304,27 +1178,14 @@ int optex_final_to_rgb(const float* x, const float* w, const float* b, float* y,
   return launch_final(x, w, b, y, n, h, wd, stream);
 }
 
-// The bf16 function of the same five (conv3x3_full's is csrc/conv_wg.cu's
-// optex_conv3x3_full_bf16), with the same arguments: bf16
-// activations (rgb_to_relu1's input and final_to_rgb's output stay f32),
-// f32 biases, the FFMA kernels' weights HWIO f32 (widened from bf16), the
-// tensor-core kernels' in bf16 fragment order (ops/codec.py _fragments_bf16).
+// The bf16 function of the two FFMA convs (the three tensor-core ones' is
+// csrc/conv_wg.cu's), with the same arguments: rgb_to_relu1's input and
+// final_to_rgb's output stay f32, the 64-channel side is bf16; f32 biases,
+// the weights HWIO f32 (widened from bf16).
 
 int optex_rgb_to_relu1_bf16(const float* x, const float* w, const float* b,
                             __nv_bfloat16* y, int n, int h, int wd, void* stream) {
   return launch_entry(x, w, b, y, n, h, wd, stream);
-}
-
-int optex_conv3x3_p2_bf16(const __nv_bfloat16* x, const void* wtc, const float* b,
-                          __nv_bfloat16* y, int n, int h, int wd, int cin, int relu,
-                          int pool, void* stream) {
-  return launch_tc_conv<__nv_bfloat16, 64>(x, wtc, b, y, n, h, wd, cin, relu, pool,
-                                           stream);
-}
-
-int optex_upconv_p2_bf16(const __nv_bfloat16* x, const void* wup, const float* b,
-                         __nv_bfloat16* y, int n, int hc, int wc, int c, void* stream) {
-  return launch_up_c<__nv_bfloat16>(x, wup, b, y, n, hc, wc, c, stream);
 }
 
 int optex_final_to_rgb_bf16(const __nv_bfloat16* x, const float* w, const float* b,

@@ -1,68 +1,95 @@
-// The bf16 conv3x3_full for Hopper (sm_90a) on wgmma: the bf16 function of
-// optimaltextures_tpu/ops/pallas/codec.py:376 conv3x3_full (body
-// _conv_full_kernel :340), the encoder's 64->128 and 128->128 (+ pool) convs.
+// The bf16 tensor-core convs of the codec for Hopper (sm_90a) on wgmma, one
+// kernel body in two modes, the bf16 function of three Pallas kernels:
 //
-//   y[n, h, w, co] = [pool2x2] [relu] (b[co] + sum_{r, s, ci}
-//                      xpad[n, h + r, w + s, ci] * W[r, s, ci, co])
+//   conv3x3_wg<COUT, CIN, ...>  optimaltextures_tpu/ops/pallas/codec.py:282
+//                               conv3x3_p2 (body _conv_p2_kernel :244, COUT
+//                               64) and :376 conv3x3_full (_conv_full_kernel
+//                               :340, COUT 128)
+//   upconv_wg<C>                :449 upconv_p2 (body _upconv_kernel :424)
 //
-// on NHWC bf16 x (Cin 64 or 128) with 1-px reflect padding, bf16 weights,
-// f32 accumulate, an f32 bias, ReLU and the ceil-mode 2x2 max-pool in f32,
-// one rounding to bf16 at the store.
+//   conv:   y[n, h, w, co] = [pool2x2] [relu] (b[co] + sum_{r, s, ci}
+//                              xpad[n, h + r, w + s, ci] * W[r, s, ci, co])
+//   upconv: y[n, 2i + a, 2j + b, co] = relu(b[co] + sum_{u, v, ci}
+//                              xedge[n, i + a + u, j + b + v, ci] * F[a, b, u, v, ci, co])
 //
-// What bounds it on the H100: operations. 2 x 9 x Cin FLOPs an output value
-// against 4 bytes of traffic (bf16 in and out): 288-576 FLOP/B, above the
-// card's ridge (295 FLOP/B at 989 TF/s dense bf16 and 3.35 TB/s) at Cin 128
-// and level with it at Cin 64. So the products run on wgmma, the one way to
-// the full bf16 tensor-core rate, and no operand byte is staged twice.
+// on NHWC bf16 x (Cin 64 or 128) with 1-px reflect padding (the conv) or
+// the coarse image's 1-px edge padding (the upconv: nearest-x2, reflect pad
+// and the 3x3 conv fold, per output phase (a, b), into the 2x2 taps F of
+// ops/codec.py fold_up on the edge-padded coarse image), bf16 weights, f32
+// accumulate, an f32 bias, ReLU and the ceil-mode 2x2 max-pool in f32, one
+// rounding to bf16 at the store.
+//
+// What bounds them on the H100: operations, or nearly. The conv does 2 x 9
+// x Cin FLOPs an output value against 4 bytes of traffic (bf16 in and out):
+// 288-576 FLOP/B, above the card's ridge (295 FLOP/B at 989 TF/s dense bf16
+// and 3.35 TB/s) at Cin 128 and level with it at Cin 64. The upconv does 2
+// x 4 x C FLOPs a fine output value against ~2.5 bytes: its 64-channel call
+// is bytes-bound (its output is 4x its input). So the products run on
+// wgmma, the one way to the full bf16 tensor-core rate, no operand byte is
+// staged twice, and the output leaves in whole 128-byte lines.
 //
 // Design: an implicit GEMM D[co][px] = A[co][k] * B[k][px] per output row,
-// M = 64 output channels (one half of the 128), N = a strip of NS pixels of
-// the row (64 at Cin 64, 32 at Cin 128), K = 9 taps x Cin in k16 steps,
+// M = 64 output channels, N = a strip of NS pixels of the row (64 at Cin
+// 64 and in the upconv, 32 at Cin 128), K = taps x Cin in k16 steps,
 // wgmma.m64nNk16 with both operands K-major in shared memory.
-// * A, one co half's weights, stays resident: a block keeps half
-//   blockIdx.x & 1 for its whole life and copies it once a launch (73,728 or
-//   147,456 bytes, ops/codec.py pack_wg: the shared-memory image itself,
-//   [tap][64-ci block][co][64 ci] in the 128-byte swizzle). The two halves of
-//   one strip run on neighbouring blocks at the same time, so L2 serves the
-//   second read of each input row.
+// * Kinds of block. A block keeps one kind for its whole life: kind =
+//   blockIdx.x % KINDS, and it takes items blockIdx.x / KINDS, stepping by
+//   gridDim.x / KINDS. The conv's kinds are its 64-channel co halves (2 at
+//   COUT 128, 1 at COUT 64); the upconv's are (row phase a, column phase b,
+//   co half): 4 at C 64 and 8 at C 128. The kinds of one item run on
+//   neighbouring blocks at the same time, so L2 serves the later reads of
+//   each input row.
+// * A, the kind's weights, stays resident: copied once a launch (ops/codec.py
+//   pack_wg and pack_wg_up: the shared-memory image itself, [tap][64-ci
+//   block][co][64 ci] in the 128-byte swizzle; 9 taps (r, s), or the
+//   upconv's 4 folded taps (u, v) of its phase). 73,728 or 147,456 bytes for
+//   the conv, 32,768 or 65,536 for the upconv.
 // * B is the halo: a ring of 8 row slots, each the strip's NS + 2 pixels of
-//   one image row in wgmma's unswizzled K-major layout, [ci group of 8][pixel]
-//   [16 bytes]: a core matrix (8 pixels x 8 ci) is 128 contiguous bytes. Tap
-//   (r, s) reads slot (row + r) from pixel s: a start address 16 s bytes on,
-//   legal in this layout for every s (in the 128-byte swizzle it would leave
-//   the 1024-byte pattern). The descriptor's stride between 8-pixel groups
-//   (SBO) is 128 bytes and its stride between ci groups (LBO) the group
-//   pitch, an odd multiple of 16 bytes so the producer's stores spread over
-//   the banks.
-// * Work items are (image, band of rows, column strip) per co half; a block
-//   walks its half's items and each item's band from top to bottom. Two
-//   consumer warpgroups take alternate row pairs (rows y, y + 1; two
-//   accumulator sets), so one's epilogue overlaps the other's wgmma. A slot
-//   is free once both warpgroups have released its row, each in ring order
-//   and only after seeing it land: a warpgroup frees every row below the
-//   end of the pair it finished, and at a band's end the rest of the band,
-//   rows it never read (a band's first two or last two) included. So no
-//   slot gets two loads ahead of a warpgroup's in-order wait (a parity wait
-//   would mistake the phase two loads on for the one it waits for).
+//   one input row (coarse in the upconv) in wgmma's unswizzled K-major
+//   layout, [ci group of 8][pixel][16 bytes]: a core matrix (8 pixels x 8
+//   ci) is 128 contiguous bytes. A consumer's row pair (rows y, y + 1)
+//   reads ring rows g0 .. g0 + 3 (input rows y - 1 .. y + 2). Conv tap (r,
+//   s) of row y + j reads ring row g0 + j + r from pixel s; upconv tap (u,
+//   v) of coarse row y + j in phase (a, b) reads ring row g0 + j + a + u
+//   from pixel b + v. A pixel shift is a start address 16 bytes a pixel on,
+//   legal in this layout for every shift (in the 128-byte swizzle it would
+//   leave the 1024-byte pattern). The descriptor's stride between 8-pixel
+//   groups (SBO) is 128 bytes and its stride between ci groups (LBO) the
+//   group pitch, an odd multiple of 16 bytes so the producer's stores
+//   spread over the banks.
+// * Work items are (image, band of rows, column strip) per kind; a block
+//   walks its items and each item's band from top to bottom. Two consumer
+//   warpgroups take alternate row pairs (two accumulator sets each), so
+//   one's epilogue overlaps the other's wgmma. A slot is free once both
+//   warpgroups have released its row, each in ring order and only after
+//   seeing it land: a warpgroup frees every row below the end of the pair
+//   it finished, and at a band's end the rest of the band, rows it never
+//   read (a band's first two or last two) included. So no slot gets two
+//   loads ahead of a warpgroup's in-order wait (a parity wait would mistake
+//   the phase two loads on for the one it waits for).
 // * A producer warpgroup fills the ring: its warp w loads the rows whose ring
-//   counter is w mod 4, with 16-byte cp.async (the reflect resolved per row
-//   and per pixel as it loads: row -1 is row 1, row H is row H - 2), waits for
-//   them, fences them into the async proxy and arrives on the slot's "full"
-//   mbarrier once the consumers have freed it ("empty" mbarrier). Four rows
-//   stay in flight, and a slot's rows all come from one warp, in order.
+//   counter is w mod 4, with 16-byte cp.async (the padding resolved per row
+//   and per pixel as it loads: the conv reflects, row -1 is row 1 and row H
+//   is row H - 2; the upconv clamps, row -1 is row 0 and row Hc is row Hc -
+//   1), waits for them, fences them into the async proxy and arrives on the
+//   slot's "full" mbarrier once the consumers have freed it ("empty"
+//   mbarrier). Four rows stay in flight, and a slot's rows all come from one
+//   warp, in order.
 // * Epilogue: each accumulator row is one co, so the bias is one f32 a
 //   register row, then ReLU; the pool needs no shuffle: a thread's columns
 //   2t, 2t + 1 are a horizontal pool pair (strips start at even columns) and
 //   the vertical pair is the same register of the other row's set; a pixel
 //   past the image enters the max as -inf. One rounding to bf16, staged as
-//   [px][co] and written with 16-byte stores along co.
+//   [px][co] and written with 16-byte stores along co, a pixel's 64
+//   channels one 128-byte line: consecutive lines in the conv, every other
+//   pixel of fine row 2 (y + j) + a from column b in the upconv.
 // * The band height is chosen at launch to balance the items over the
-//   blocks (all rows in one band at batch 128; bands at batch 1). Every
-//   offset into x and y is 64-bit: at batch 128 a 256^2 x 128 tensor is
-//   2 GiB.
+//   blocks of a kind (all rows in one band at batch 128; bands at batch 1).
+//   Every offset into x and y is 64-bit: at batch 128 a 512^2 x 64 tensor
+//   holds 2^31 elements.
 //
-// The entry point launches on the caller's stream, allocates nothing and
-// returns cudaGetLastError() (or cudaErrorInvalidValue for bad sizes).
+// The entry points launch on the caller's stream, allocate nothing and
+// return cudaGetLastError() (or cudaErrorInvalidValue for bad sizes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,7 +106,7 @@ constexpr int kThreads = 384;       // + the producer warpgroup
 constexpr int kStageStride = 72;    // bf16 a staged pixel: 64 co + 8 of padding
 constexpr int kBlockBytes = 64 * 128;   // A of one tap and 64-ci block
 
-template <int CIN, int NS>
+template <int CIN, int NS, int TAPS>
 struct Cfg {
   static_assert((CIN == 64 || CIN == 128) && NS % 16 == 0, "shape");
   static constexpr int kGroups = CIN / 8;                      // 16-byte ci groups
@@ -87,7 +114,7 @@ struct Cfg {
   static constexpr int kPitch = (kPx % 2 ? kPx : kPx + 1) * 16;   // group pitch
   static constexpr int kSlot = kGroups * kPitch;
   static constexpr int kKb = CIN / 64;                         // 64-ci blocks a tap
-  static constexpr int kWBytes = 9 * kKb * kBlockBytes;        // one co half
+  static constexpr int kWBytes = TAPS * kKb * kBlockBytes;     // one kind's A
   static constexpr int kOffRing = kWBytes;
   static constexpr int kOffStage = kOffRing + kRing * kSlot;
   static constexpr int kStageBytes = NS * kStageStride * 2;    // a warpgroup's row
@@ -98,11 +125,19 @@ struct Cfg {
   static_assert(kRing % 4 == 0, "ring slots a multiple of the producer warps");
 };
 
+// the strip width of a mode: m64n64k16 where the resident weights leave room
+// for a 64-pixel ring (the conv at Cin 64, the upconv), m64n32k16 otherwise
+template <bool UP, int CIN>
+constexpr int kStrip = UP || CIN == 64 ? 64 : 32;
+
 // 1-px reflection into [0, n) for i in [-1, n]; n >= 2
 __device__ __forceinline__ int reflect1(int i, int n) {
   i = i < 0 ? -i : i;
   return i >= n ? 2 * n - 2 - i : i;
 }
+
+// the edge pad: i clamped into [0, n)
+__device__ __forceinline__ int clamp1(int i, int n) { return min(max(i, 0), n - 1); }
 
 __device__ __forceinline__ uint32_t saddr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -201,9 +236,9 @@ __device__ __forceinline__ void wgmma(float (&d)[16], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// a work item: image n, output rows y0 .. y0 + 2 np - 1 (the last pair's
-// second row may lie past the image), columns w0 .. w0 + NS - 1; its halo
-// rows are y0 - 1 .. y0 + 2 np, 2 np + 2 ring rows
+// a work item: image n, output rows y0 .. y0 + 2 np - 1 (coarse rows in the
+// upconv; the last pair's second row may lie past the image), columns w0 ..
+// w0 + NS - 1; its halo rows are y0 - 1 .. y0 + 2 np, 2 np + 2 ring rows
 struct Item {
   int n, y0, w0, np;
 };
@@ -242,18 +277,30 @@ __device__ __forceinline__ void release_to(uint32_t s_bar, uint32_t& seen,
   freed = end;
 }
 
-template <int CIN, int NS, bool RELU, bool POOL>
-__global__ void __launch_bounds__(kThreads, 1)
-conv3x3_wg(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wwg,
-           const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int n_img,
-           int h, int w, int band, int bands) {
-  using C = Cfg<CIN, NS>;
+// The kernel body. UP: the folded upconv (C -> C, 4 taps, kinds (a, b,
+// half), the edge pad, the strided store; RELU, no POOL); else the 3x3 conv
+// (9 taps, kinds = co halves, the reflect pad). h, w: the input's (coarse)
+// size.
+template <bool UP, int CIN, int COUT, bool RELU, bool POOL>
+__device__ __forceinline__ void wg_body(const __nv_bfloat16* __restrict__ x,
+                                        const __nv_bfloat16* __restrict__ wwg,
+                                        const float* __restrict__ bias,
+                                        __nv_bfloat16* __restrict__ y, int n_img, int h,
+                                        int w, int band, int bands) {
+  static_assert(!(UP && POOL) && (COUT == 64 || COUT == 128), "mode");
+  constexpr int NS = kStrip<UP, CIN>;
+  constexpr int kTaps = UP ? 4 : 9;
+  constexpr int kHalves = COUT / 64;
+  constexpr int kKinds = (UP ? 4 : 1) * kHalves;
+  using C = Cfg<CIN, NS, kTaps>;
   constexpr int kAcc = NS / 2;   // f32 accumulators a thread holds for one row
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024u - (saddr(smem_raw) & 1023u)) & 1023u);
   const uint32_t s_w = saddr(sm), s_ring = s_w + C::kOffRing, s_bar = s_w + C::kOffBar;
   const int tid = threadIdx.x;
-  const int half = blockIdx.x & 1;
+  const int kind = blockIdx.x % kKinds;
+  const int half = kind % kHalves;
+  const int pa = kind / kHalves / 2, pb = kind / kHalves % 2;   // the upconv's phase
 
   if (tid == 0) {
     for (int i = 0; i < kRing; ++i) {
@@ -262,9 +309,9 @@ conv3x3_wg(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict_
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // the co half's weights: the shared-memory image as ops/codec.py pack_wg
-  // lays it out, copied once
-  const uint4* wsrc = reinterpret_cast<const uint4*>(wwg) + half * (C::kWBytes / 16);
+  // the kind's weights: the shared-memory image as ops/codec.py pack_wg /
+  // pack_wg_up lays it out, copied once
+  const uint4* wsrc = reinterpret_cast<const uint4*>(wwg) + kind * (C::kWBytes / 16);
   for (int i = tid; i < C::kWBytes / 16; i += kThreads)
     reinterpret_cast<uint4*>(sm)[i] = __ldg(wsrc + i);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -272,7 +319,7 @@ conv3x3_wg(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict_
 
   const int strips = (w + NS - 1) / NS;
   const long long items = static_cast<long long>(n_img) * bands * strips;
-  const long long first = blockIdx.x >> 1, step = gridDim.x >> 1;
+  const long long first = blockIdx.x / kKinds, step = gridDim.x / kKinds;
 
   // the role, warp-uniform to the compiler: a branch on threadIdx alone
   // would put the consumers' wgmma on a divergent path, which ptxas
@@ -289,13 +336,13 @@ conv3x3_wg(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict_
         const int slot = g % kRing;
         mbar_wait(s_bar + 8 * (kRing + slot), ((g / kRing) & 1) ^ 1);
         // rows past the image (a last pair's second row) feed no stored output
-        const int iy = reflect1(min(m.y0 - 1 + r, h), h);
+        const int iy = UP ? clamp1(m.y0 - 1 + r, h) : reflect1(min(m.y0 - 1 + r, h), h);
         const __nv_bfloat16* src =
             x + (static_cast<int64_t>(m.n) * h + iy) * w * CIN;
         const uint32_t dst = s_ring + slot * C::kSlot;
         for (int e = lane; e < C::kPx * C::kGroups; e += 32) {
           const int p = e / C::kGroups, gi = e % C::kGroups;
-          const int ix = reflect1(min(m.w0 - 1 + p, w), w);
+          const int ix = UP ? clamp1(m.w0 - 1 + p, w) : reflect1(min(m.w0 - 1 + p, w), w);
           cp_async16(dst + gi * C::kPitch + p * 16,
                      src + static_cast<int64_t>(ix) * CIN + gi * 8);
         }
@@ -325,18 +372,23 @@ conv3x3_wg(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict_
       if ((pair & 1) != static_cast<uint32_t>(wg)) continue;
       const uint32_t g0 = g + 2 * p;
       wait_landed(s_bar, seen, g0 + 4);
+      // bd[i]: ring row g0 + i (the upconv's row phase a: g0 + a + i)
       uint64_t bd[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        bd[i] = desc_interleave(s_ring + ((g0 + i) % kRing) * C::kSlot, C::kPitch, 128);
+        bd[i] = desc_interleave(s_ring + ((g0 + (UP ? pa : 0) + i) % kRing) * C::kSlot,
+                                C::kPitch, 128);
       wgmma_fence();
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const int r = tap / 3, s = tap % 3;
+      for (int tap = 0; tap < kTaps; ++tap) {
+        // row and pixel offsets: conv tap (r, s) = (tap / 3, tap % 3); upconv
+        // tap (u, v) = (tap / 2, tap % 2) reads pixel b + v
+        const int r = UP ? tap / 2 : tap / 3;
+        const int s = UP ? pb + tap % 2 : tap % 3;
 #pragma unroll
         for (int kk = 0; kk < CIN / 16; ++kk) {
           // A: block (tap, kk / 4), +32 bytes per k16 step inside the swizzled
-          // row; B: slot row + r, pixel s, ci groups 2 kk and 2 kk + 1
+          // row; B: ring row + r, pixel s, ci groups 2 kk and 2 kk + 1
           const uint64_t a =
               a0 + (((tap * C::kKb + kk / 4) * kBlockBytes + (kk % 4) * 32) >> 4);
           const uint32_t boff = (2 * kk * C::kPitch + s * 16) >> 4;
@@ -389,16 +441,20 @@ conv3x3_wg(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict_
         // every thread of the warpgroup is past its wgmma wait: free the
         // rows up to the pair's last (this warpgroup's next pair starts 4 on)
         if (j == 0) release_to(s_bar, seen, freed, g0 + 4, ctid);
-        const int ow = POOL ? (w + 1) / 2 : w;
-        const int ox = POOL ? m.w0 / 2 : m.w0;
-        const int oy = POOL ? yr / 2 : yr + j;
-        const int oh = POOL ? (h + 1) / 2 : h;
-        const int npx = min(POOL ? NS / 2 : NS, ow - ox);
+        // the output row and its first pixel; staged pixel px goes `pstep`
+        // output pixels on (the upconv: fine row 2 (y + j) + a, columns
+        // 2 (w0 + px) + b)
+        const int oh = UP ? 2 * h : POOL ? (h + 1) / 2 : h;
+        const int ow = UP ? 2 * w : POOL ? (w + 1) / 2 : w;
+        const int oy = UP ? 2 * (yr + j) + pa : POOL ? yr / 2 : yr + j;
+        const int ox = UP ? 2 * m.w0 + pb : POOL ? m.w0 / 2 : m.w0;
+        constexpr int pstep = UP ? 2 : 1;
+        const int npx = POOL ? min(NS / 2, ow - ox) : min(NS, w - m.w0);
         __nv_bfloat16* op =
-            y + ((static_cast<int64_t>(m.n) * oh + oy) * ow + ox) * 128 + 64 * half;
+            y + ((static_cast<int64_t>(m.n) * oh + oy) * ow + ox) * COUT + 64 * half;
         for (int q = ctid; q < npx * 8; q += 128) {
           const int px = q >> 3, c = q & 7;
-          *reinterpret_cast<uint4*>(op + static_cast<int64_t>(px) * 128 + c * 8) =
+          *reinterpret_cast<uint4*>(op + static_cast<int64_t>(px) * pstep * COUT + c * 8) =
               *reinterpret_cast<const uint4*>(stage + px * kStageStride + c * 8);
         }
         bar_sync(1 + wg);
@@ -409,16 +465,32 @@ conv3x3_wg(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict_
   }
 }
 
+template <int COUT, int CIN, bool RELU, bool POOL>
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_wg(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wwg,
+           const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int n_img,
+           int h, int w, int band, int bands) {
+  wg_body<false, CIN, COUT, RELU, POOL>(x, wwg, bias, y, n_img, h, w, band, bands);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, 1)
+upconv_wg(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wwg,
+          const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int n_img,
+          int h, int w, int band, int bands) {
+  wg_body<true, C, C, true, false>(x, wwg, bias, y, n_img, h, w, band, bands);
+}
+
 // the band height (even) that spreads n_tiles x bands items best over the
-// blocks of a co half: the least rows a block loads, each item costing its
+// blocks of a kind: the least rows a block loads, each item costing its
 // band + 2 halo rows and ~2 rows of filling and draining
-void choose_band(long long tiles, int h, int per_half, int* band, int* bands) {
+void choose_band(long long tiles, int h, int per_kind, int* band, int* bands) {
   long long best = LLONG_MAX;
   for (int k = 1; k <= (h + 1) / 2; ++k) {
     int b = (h + k - 1) / k;
     b += b & 1;
     const int nb = (h + b - 1) / b;
-    const long long cost = (tiles * nb + per_half - 1) / per_half * (b + 4);
+    const long long cost = (tiles * nb + per_kind - 1) / per_kind * (b + 4);
     if (cost < best) {
       best = cost;
       *band = b;
@@ -427,61 +499,97 @@ void choose_band(long long tiles, int h, int per_half, int* band, int* bands) {
   }
 }
 
-template <int CIN, bool RELU, bool POOL>
-int launch(const __nv_bfloat16* x, const void* wwg, const float* b, __nv_bfloat16* y,
-           int n, int h, int w, cudaStream_t stream) {
-  constexpr int NS = CIN == 64 ? 64 : 32;
-  using C = Cfg<CIN, NS>;
-  auto kern = conv3x3_wg<CIN, NS, RELU, POOL>;
+template <bool UP, int CIN, int COUT, class Kernel>
+int launch(Kernel kern, const __nv_bfloat16* x, const void* wwg, const float* b,
+           __nv_bfloat16* y, int n, int h, int w, cudaStream_t stream) {
+  constexpr int NS = kStrip<UP, CIN>;
+  constexpr int kKinds = (UP ? 4 : 1) * (COUT / 64);
+  constexpr int kSmem = Cfg<CIN, NS, UP ? 4 : 9>::kSmem;
   cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0, sms = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
       cudaSuccess)
     return static_cast<int>(err);
-  const int per_half = sms / 2 > 0 ? sms / 2 : 1;
+  const int per_kind = sms / kKinds > 0 ? sms / kKinds : 1;
   const long long tiles = static_cast<long long>(n) * ((w + NS - 1) / NS);
   int band = 2, bands = 1;
-  choose_band(tiles, h, per_half, &band, &bands);
+  choose_band(tiles, h, per_kind, &band, &bands);
   const long long items = tiles * bands;
-  const int grid = 2 * static_cast<int>(items < per_half ? items : per_half);
-  kern<<<grid, kThreads, C::kSmem, stream>>>(x, static_cast<const __nv_bfloat16*>(wwg),
-                                             b, y, n, h, w, band, bands);
+  const int grid = kKinds * static_cast<int>(items < per_kind ? items : per_kind);
+  kern<<<grid, kThreads, kSmem, stream>>>(x, static_cast<const __nv_bfloat16*>(wwg), b, y,
+                                          n, h, w, band, bands);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int CIN>
+template <int COUT, int CIN>
 int launch_rp(const __nv_bfloat16* x, const void* wwg, const float* b, __nv_bfloat16* y,
               int n, int h, int w, int relu, int pool, cudaStream_t stream) {
-  if (relu && pool) return launch<CIN, true, true>(x, wwg, b, y, n, h, w, stream);
-  if (relu) return launch<CIN, true, false>(x, wwg, b, y, n, h, w, stream);
-  if (pool) return launch<CIN, false, true>(x, wwg, b, y, n, h, w, stream);
-  return launch<CIN, false, false>(x, wwg, b, y, n, h, w, stream);
+  if (relu && pool)
+    return launch<false, CIN, COUT>(conv3x3_wg<COUT, CIN, true, true>, x, wwg, b, y, n, h,
+                                    w, stream);
+  if (relu)
+    return launch<false, CIN, COUT>(conv3x3_wg<COUT, CIN, true, false>, x, wwg, b, y, n,
+                                    h, w, stream);
+  if (pool)
+    return launch<false, CIN, COUT>(conv3x3_wg<COUT, CIN, false, true>, x, wwg, b, y, n,
+                                    h, w, stream);
+  return launch<false, CIN, COUT>(conv3x3_wg<COUT, CIN, false, false>, x, wwg, b, y, n, h,
+                                  w, stream);
+}
+
+template <int COUT>
+int launch_conv(const __nv_bfloat16* x, const void* wwg, const float* b, __nv_bfloat16* y,
+                int n, int h, int wd, int cin, int relu, int pool, void* stream) {
+  if (n <= 0 || h < 2 || wd < 2 || h > INT_MAX - 8 || wd > INT_MAX - 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cin == 64) return launch_rp<COUT, 64>(x, wwg, b, y, n, h, wd, relu, pool, s);
+  if (cin == 128) return launch_rp<COUT, 128>(x, wwg, b, y, n, h, wd, relu, pool, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" {
 
-// (N, H, W, cin) bf16 -> [relu] conv (N, H, W, 128) bf16, or its 2x2 ceil-mode
-// max-pool (N, ceil(H/2), ceil(W/2), 128); wwg: ops/codec.py pack_wg's two
-// co halves; b: (128,) f32
+// (N, H, W, cin) bf16 -> [relu] conv (N, H, W, 64) bf16, or its 2x2 ceil-mode
+// max-pool (N, ceil(H/2), ceil(W/2), 64); wwg: ops/codec.py pack_wg's one
+// image (Cout 64); b: (64,) f32
+int optex_conv3x3_p2_bf16(const __nv_bfloat16* x, const void* wwg, const float* b,
+                          __nv_bfloat16* y, int n, int h, int wd, int cin, int relu,
+                          int pool, void* stream) {
+  return launch_conv<64>(x, wwg, b, y, n, h, wd, cin, relu, pool, stream);
+}
+
+// the same to 128 channels; wwg: pack_wg's two co halves; b: (128,) f32
 int optex_conv3x3_full_bf16(const __nv_bfloat16* x, const void* wwg, const float* b,
                             __nv_bfloat16* y, int n, int h, int wd, int cin, int relu,
                             int pool, void* stream) {
-  if (n <= 0 || h < 2 || wd < 2 || h > INT_MAX - 8 || wd > INT_MAX - 64)
+  return launch_conv<128>(x, wwg, b, y, n, h, wd, cin, relu, pool, stream);
+}
+
+// coarse (N, Hc, Wc, c) bf16 -> relu(conv3x3_reflect(nearest_up_x2)) (N, 2Hc,
+// 2Wc, c) bf16; wwg: ops/codec.py pack_wg_up's images, kind (a, b, co half);
+// b: (c,) f32
+int optex_upconv_p2_bf16(const __nv_bfloat16* x, const void* wwg, const float* b,
+                         __nv_bfloat16* y, int n, int hc, int wc, int c, void* stream) {
+  if (n <= 0 || hc < 1 || wc < 1 || hc > INT_MAX / 2 - 8 || wc > INT_MAX / 2 - 64)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cin == 64) return launch_rp<64>(x, wwg, b, y, n, h, wd, relu, pool, s);
-  if (cin == 128) return launch_rp<128>(x, wwg, b, y, n, h, wd, relu, pool, s);
+  if (c == 64) return launch<true, 64, 64>(upconv_wg<64>, x, wwg, b, y, n, hc, wc, s);
+  if (c == 128) return launch<true, 128, 128>(upconv_wg<128>, x, wwg, b, y, n, hc, wc, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// the dynamic shared memory a launch at `cin` input channels asks for
-int optex_conv3x3_full_bf16_smem(int cin) {
-  return cin == 64 ? Cfg<64, 64>::kSmem : cin == 128 ? Cfg<128, 32>::kSmem : 0;
+// the dynamic shared memory a launch asks for: the conv (up 0) or the upconv
+// (up 1) at `cin` input channels
+int optex_conv_wg_smem(int up, int cin) {
+  if (cin != 64 && cin != 128) return 0;
+  if (up) return cin == 64 ? Cfg<64, 64, 4>::kSmem : Cfg<128, 64, 4>::kSmem;
+  return cin == 64 ? Cfg<64, 64, 9>::kSmem : Cfg<128, 32, 9>::kSmem;
 }
 
 const char* optex_error_string(int code) {

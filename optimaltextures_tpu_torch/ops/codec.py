@@ -33,17 +33,18 @@ does about it:
   out) do 2*9*Cin FLOPs per output value (upconv 2*4*Cin, folded) against
   5-12 bytes of pixel traffic, ~100-460 FLOP/B, above the card's ridge (148
   FLOP/B at the TF32 rate) even before three products triple the work:
-  operations-bound. They run on the tensor cores as implicit GEMMs on
-  ``mma.sync``, three TF32 products per f32 product (hi*hi + hi*lo + lo*hi;
-  one TF32 product misses the 2e-5 bound), with the weights split hi/lo
-  once at pack time in the kernels' fragment order (:func:`pack_tc`). The
-  upconv folds its nearest-x2 upsample into 2x2 taps per output phase on
-  the edge-padded coarse image (:func:`pack_up`, the math of the JAX
-  package's ``pack_upconv_fold``): 4 taps per fine pixel, not 9. The bf16
-  ``conv3x3_full`` runs on ``wgmma`` instead (``csrc/conv_wg.cu``): each
-  block keeps one half of the output channels' weights resident in shared
-  memory (:func:`pack_wg`) and walks column strips of rows through a ring
-  of halo rows.
+  operations-bound. In float32 they run on the tensor cores as implicit
+  GEMMs on ``mma.sync``, three TF32 products per f32 product (hi*hi + hi*lo
+  + lo*hi; one TF32 product misses the 2e-5 bound), with the weights split
+  hi/lo once at pack time in the kernels' fragment order (:func:`pack_tc`).
+  The upconv folds its nearest-x2 upsample into 2x2 taps per output phase
+  on the edge-padded coarse image (:func:`fold_up`, the math of the JAX
+  package's ``pack_upconv_fold``): 4 taps per fine pixel, not 9. In
+  bfloat16 all three run on ``wgmma``, as two modes of one kernel
+  (``csrc/conv_wg.cu``): each block keeps one kind's weights resident in
+  shared memory (a 64-channel co half of the conv, :func:`pack_wg`; an
+  output phase and co half of the upconv's folded taps, :func:`pack_wg_up`)
+  and walks column strips of rows through a ring of halo rows.
 * ``rgb_to_relu1`` (3 -> 64) and ``final_to_rgb`` (64 -> 3) do 54 / 1152
   FLOPs per 4+256 / 256+12 bytes of pixel traffic: bytes-bound (0.021 ms
   of bytes against 0.0135 ms of FMAs at 512^2). FFMA direct convs that
@@ -59,8 +60,8 @@ does about it:
 
 Each conv's weights are packed once (:func:`pack`, :func:`pack_up`,
 :func:`pack_final`, as the JAX package's ``pack_*``): OIHW for the plain
-version, an HWIO copy for the two FFMA kernels, and the tensor-core fragments
-for the wide convs.
+version, an HWIO copy for the two FFMA kernels, and for the wide convs the
+f32 tensor-core fragments or the bf16 wgmma kernel's shared-memory image.
 """
 
 from __future__ import annotations
@@ -88,13 +89,14 @@ class Packed(NamedTuple):
     """One conv's weights: ``w`` (Cout, Cin, 3, 3) OIHW in the conv dtype
     and ``b`` (Cout,) float32 (a bf16 bias widens exactly) for the plain
     version, ``w_hwio`` (3, 3, Cin, Cout) float32 (widened exactly from
-    bf16) for the FFMA kernels, and for the tensor-core kernels the weights
-    in fragment order: ``w_tc`` for a 64|128 -> 64|128 conv (:func:`pack_tc`),
-    ``w_up`` for an upconv's folded taps (:func:`pack_up`); None where the
-    conv has none. ``w_fold``: an upconv's folded taps (:func:`fold_up`) in
-    the conv dtype, which the bf16 plain version computes with. ``w_wg``:
-    a bf16 64|128 -> 128 conv's weights as the wgmma kernel's shared-memory
-    image (:func:`pack_wg`), in place of ``w_tc``."""
+    bf16) for the FFMA kernels, and for the f32 tensor-core kernels the
+    weights in fragment order: ``w_tc`` for a 64|128 -> 64|128 conv
+    (:func:`pack_tc`), ``w_up`` for an upconv's folded taps (:func:`pack_up`);
+    None where the conv has none. ``w_fold``: an upconv's folded taps
+    (:func:`fold_up`) in the conv dtype, which the bf16 plain version
+    computes with. ``w_wg``: a bf16 64|128 -> 64|128 conv's or upconv's
+    weights as the wgmma kernel's shared-memory image (:func:`pack_wg`,
+    :func:`pack_wg_up`), in place of ``w_tc`` / ``w_up``."""
     w: torch.Tensor
     b: torch.Tensor
     w_hwio: torch.Tensor
@@ -106,25 +108,28 @@ class Packed(NamedTuple):
 
 def pack(w: torch.Tensor, b: torch.Tensor) -> Packed:
     """A conv's weights for the plain version, and for the kernel that runs
-    it when Cin and Cout are both 64 or 128: ``w_wg`` for a bf16 conv to 128
-    channels (``conv3x3_full``'s wgmma kernel), ``w_tc`` otherwise."""
+    it when Cin and Cout are both 64 or 128: ``w_wg`` in bf16 (the wgmma
+    kernel's image), ``w_tc`` in f32."""
     w_hwio = w.permute(2, 3, 1, 0).contiguous()
     cout, cin = w.shape[:2]
     if cout not in (64, 128) or cin not in (64, 128):
         return Packed(w, b.float(), w_hwio.float())
-    if w.dtype == torch.bfloat16 and cout == 128:
+    if w.dtype == torch.bfloat16:
         return Packed(w, b.float(), w_hwio.float(), w_wg=pack_wg(w_hwio))
     return Packed(w, b.float(), w_hwio.float(), pack_tc(w_hwio))
 
 
 def pack_up(w: torch.Tensor, b: torch.Tensor) -> Packed:
-    """An upconv's weights (nearest-x2 then this conv, C -> C): ``w_up``, the
-    folded taps of :func:`fold_up` in fragments, for ``upconv_p2``."""
+    """An upconv's weights (nearest-x2 then this conv, C -> C): the folded
+    taps of :func:`fold_up` (``w_fold``) and, for ``upconv_p2``, the same
+    in f32 fragments (``w_up``) or as the bf16 wgmma kernel's image
+    (``w_wg``, :func:`pack_wg_up`)."""
     w_hwio = w.permute(2, 3, 1, 0).contiguous()
     fold = fold_up(w_hwio)
+    if w.dtype == torch.bfloat16:
+        return Packed(w, b.float(), w_hwio.float(), w_fold=fold, w_wg=pack_wg_up(fold))
     taps = fold.permute(0, 2, 1, 3, 4, 5).reshape(16, *w_hwio.shape[2:])
-    frag = _fragments_bf16 if w.dtype == torch.bfloat16 else _fragments
-    return Packed(w, b.float(), w_hwio.float(), w_up=frag(taps), w_fold=fold)
+    return Packed(w, b.float(), w_hwio.float(), w_up=_fragments(taps), w_fold=fold)
 
 
 def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -154,53 +159,62 @@ def _fragments(taps: torch.Tensor) -> torch.Tensor:
         cin // 8, n, cout // 8, 32, 4).contiguous()
 
 
-def _fragments_bf16(taps: torch.Tensor) -> torch.Tensor:
-    """(T, Cin, Cout) bfloat16 taps -> (Cin/16, T, Cout/16, 32, 8), the B
-    operands of ``mma.sync.m16n8k16`` in the bf16 kernels: per input-channel
-    chunk c of 16 (one k16 step), tap, pair jj of n8 tiles and lane (g =
-    lane // 4, t = lane % 4) the lane's two registers {b0, b1} of tile 2jj,
-    then of tile 2jj + 1: b0 holds k = 2t, 2t + 1 and b1 k = 2t + 8, 2t + 9
-    (lower k in the lower half) of ``taps[tap, 16c + k, 8j + g]``, so a
-    lane's fragments of two tiles are one 16-byte load."""
-    n, cin, cout = taps.shape
-    t = taps.reshape(n, cin // 16, 2, 4, 2, cout // 16, 2, 8)
-    # (tap, c, k-half, t, pair, jj, j-half, g) -> (c, tap, jj, g, t, j-half,
-    # k-half, pair)
-    return t.permute(1, 0, 5, 7, 3, 6, 2, 4).reshape(
-        cin // 16, n, cout // 16, 32, 8).contiguous()
-
-
 def pack_tc(w_hwio: torch.Tensor) -> torch.Tensor:
-    """(3, 3, Cin, Cout) HWIO -> the weights of ``conv3x3_p2`` (Cout 64) and
-    ``conv3x3_full`` (Cout 128) in fragment order, tap 3r + s: float32 ->
-    (Cin/8, 9, Cout/8, 32, 4) split (:func:`_fragments`), bfloat16 ->
-    (Cin/16, 9, Cout/16, 32, 8) (:func:`_fragments_bf16`)."""
+    """(3, 3, Cin, Cout) float32 HWIO -> the f32 weights of ``conv3x3_p2``
+    (Cout 64) and ``conv3x3_full`` (Cout 128) in fragment order, tap 3r + s:
+    (Cin/8, 9, Cout/8, 32, 4) split (:func:`_fragments`). (bf16 weights go
+    to the wgmma kernel: :func:`pack_wg`.)"""
     _, _, cin, cout = w_hwio.shape
-    if w_hwio.dtype == torch.bfloat16:
-        return _fragments_bf16(w_hwio.reshape(9, cin, cout))
+    if w_hwio.dtype != torch.float32:
+        raise ValueError(f"pack_tc: float32 weights only, got {w_hwio.dtype}")
     return _fragments(w_hwio.reshape(9, cin, cout))
 
 
-def pack_wg(w_hwio: torch.Tensor) -> torch.Tensor:
-    """(3, 3, Cin, 128) bf16 HWIO -> (2, 9, Cin/64, 64, 64) bf16: per output
-    channel half h, the A operand of ``conv3x3_full``'s wgmma kernel
+def _wg_image(taps: torch.Tensor) -> torch.Tensor:
+    """(T, Cin, Cout) bf16 taps -> (Cout/64, T, Cin/64, 64, 64) bf16: per
+    64-channel output half h, the A operand of the wgmma kernel
     (``csrc/conv_wg.cu``) byte for byte as it lies in shared memory:
-    [tap 3r + s][k-block kb][co][64 ci], K-major. Row co of block (tap, kb)
-    is 128 bytes, input channels 64 kb .. 64 kb + 63 of output channel
-    64 h + co; its 16-byte chunk c (channels 8c .. 8c + 7) is stored at chunk
-    c ^ (co % 8): the 128-byte swizzle a wgmma descriptor of layout type 1
-    reads, 8-row groups 1024 bytes apart."""
-    _, _, cin, cout = w_hwio.shape
-    if w_hwio.dtype != torch.bfloat16 or cout != 128 or cin not in (64, 128):
-        raise ValueError(f"pack_wg: bf16 (3, 3, 64|128, 128) weights only, got "
-                         f"{w_hwio.dtype} {tuple(w_hwio.shape)}")
+    [tap][k-block kb][co][64 ci], K-major. Row co of block (tap, kb) is 128
+    bytes, input channels 64 kb .. 64 kb + 63 of output channel 64 h + co;
+    its 16-byte chunk c (channels 8c .. 8c + 7) is stored at chunk c ^ (co %
+    8): the 128-byte swizzle a wgmma descriptor of layout type 1 reads,
+    8-row groups 1024 bytes apart."""
+    n, cin, cout = taps.shape
     # (tap, kb, c, e, h, co) -> (h, tap, kb, co, c, e)
-    t = w_hwio.reshape(9, cin // 64, 8, 8, 2, 64).permute(4, 0, 1, 5, 2, 3)
+    t = taps.reshape(n, cin // 64, 8, 8, cout // 64, 64).permute(4, 0, 1, 5, 2, 3)
     # stored chunk c' of row co holds chunk c' ^ (co % 8) (its own inverse)
-    co = torch.arange(64, device=w_hwio.device).reshape(64, 1)
-    chunk = torch.arange(8, device=w_hwio.device).reshape(1, 8) ^ (co % 8)
-    idx = chunk.reshape(1, 1, 1, 64, 8, 1).expand(2, 9, cin // 64, 64, 8, 8)
-    return t.gather(4, idx).reshape(2, 9, cin // 64, 64, 64).contiguous()
+    co = torch.arange(64, device=taps.device).reshape(64, 1)
+    chunk = torch.arange(8, device=taps.device).reshape(1, 8) ^ (co % 8)
+    idx = chunk.reshape(1, 1, 1, 64, 8, 1).expand(cout // 64, n, cin // 64, 64, 8, 8)
+    return t.gather(4, idx).reshape(cout // 64, n, cin // 64, 64, 64).contiguous()
+
+
+def pack_wg(w_hwio: torch.Tensor) -> torch.Tensor:
+    """(3, 3, Cin, Cout) bf16 HWIO, Cin and Cout 64 or 128 -> (Cout/64, 9,
+    Cin/64, 64, 64) bf16: the A operand of ``conv3x3_p2``'s and
+    ``conv3x3_full``'s wgmma kernel, one image per kind of block (co half),
+    taps 3r + s (:func:`_wg_image`)."""
+    _, _, cin, cout = w_hwio.shape
+    if w_hwio.dtype != torch.bfloat16 or cout not in (64, 128) or cin not in (64, 128):
+        raise ValueError(f"pack_wg: bf16 (3, 3, 64|128, 64|128) weights only, got "
+                         f"{w_hwio.dtype} {tuple(w_hwio.shape)}")
+    return _wg_image(w_hwio.reshape(9, cin, cout))
+
+
+def pack_wg_up(fold: torch.Tensor) -> torch.Tensor:
+    """(2, 2, 2, 2, C, C) bf16 folded taps [a, b, u, v] (:func:`fold_up`), C
+    64 or 128 -> (4 C/64, 4, C/64, 64, 64) bf16: the A operand of
+    ``upconv_p2``'s wgmma kernel, one image per kind of block, kind (2a + b)
+    C/64 + h for output phase (a, b) and co half h, taps 2u + v
+    (:func:`_wg_image`). The taps are ``fold_up``'s bf16 sums, so the image is
+    bit-equal to JAX's ``pack_upconv_fold``."""
+    c = fold.shape[-1]
+    if fold.dtype != torch.bfloat16 or tuple(fold.shape) != (2, 2, 2, 2, c, c) \
+            or c not in (64, 128):
+        raise ValueError(f"pack_wg_up: bf16 (2, 2, 2, 2, 64|128, 64|128) folded "
+                         f"taps only, got {fold.dtype} {tuple(fold.shape)}")
+    return torch.cat([_wg_image(fold[a, b].reshape(4, c, c))
+                      for a in (0, 1) for b in (0, 1)])
 
 
 def fold_up(w_hwio: torch.Tensor) -> torch.Tensor:
@@ -254,7 +268,7 @@ _ARGTYPES = {
 _ARGTYPES.update({k + "_bf16": v for k, v in _ARGTYPES.items()})
 # the kernels whose entry point is in a library of its own
 # (csrc/<source>.cu); the others' are in csrc/codec.cu
-_SOURCES = {"conv3x3_full_bf16": "conv_wg"}
+_SOURCES = {k + "_bf16": "conv_wg" for k in ("conv3x3_p2", "conv3x3_full", "upconv_p2")}
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -341,11 +355,12 @@ def conv3x3_plain_bf16(x: torch.Tensor, p: Packed, relu: bool = False,
 
 
 # per kernel (the bf16 one where it differs): the Packed field it takes, its
-# taps (fragment-packed weights; None: HWIO, or the wgmma kernel's image)
-# and the function that packs them
+# taps (None: HWIO) and the function that packs them
 _WEIGHTS = {"conv3x3_p2": ("w_tc", 9, "pack"), "conv3x3_full": ("w_tc", 9, "pack"),
-            "conv3x3_full_bf16": ("w_wg", None, "pack"),
-            "upconv_p2": ("w_up", 16, "pack_up")}
+            "upconv_p2": ("w_up", 16, "pack_up"),
+            "conv3x3_p2_bf16": ("w_wg", 9, "pack"),
+            "conv3x3_full_bf16": ("w_wg", 9, "pack"),
+            "upconv_p2_bf16": ("w_wg", 4, "pack_up")}
 # the kernels that read their input by TMA (the outputs are allocated here)
 _TMA_INPUT = ("final_to_rgb",)
 
@@ -389,11 +404,10 @@ def _conv(name: str, x: torch.Tensor, p: Packed, cins, cout: int,
     field, taps, packer = _WEIGHTS.get(name + "_bf16" * bf16, _WEIGHTS.get(
         name, ("w_hwio", None, "pack")))
     w = getattr(p, field)
-    k = 16 if bf16 else 8        # input channels of one mma k step
-    if field == "w_wg":
-        shape = (2, 9, x.shape[-1] // 64, 64, 64)
-    elif taps is not None:
-        shape = (x.shape[-1] // k, taps, cout // k, 32, 8 if bf16 else 4)
+    if field == "w_wg":          # an image per kind of block (conv_wg.cu)
+        shape = ((4 if up else 1) * cout // 64, taps, x.shape[-1] // 64, 64, 64)
+    elif taps is not None:       # f32 fragments, one k8 step a chunk
+        shape = (x.shape[-1] // 8, taps, cout // 8, 32, 4)
     if w is None or (field != "w_hwio" and (w.dtype != p.w.dtype
                                            or tuple(w.shape) != shape)):
         raise ValueError(f"{name}: the kernel's weights ({field}) are missing "
@@ -426,8 +440,11 @@ def _conv(name: str, x: torch.Tensor, p: Packed, cins, cout: int,
 # ---------------------------------------------------------------------------
 # 1. conv3x3_p2 — replaces ops/pallas/codec.py:282 conv3x3_p2 (body
 #    _conv_p2_kernel :244): the encoder conv1_2 (+ pool) and the decoder
-#    128->64 conv. Operations-bound: conv3x3_tf32x3 at 64 output channels,
-#    3xTF32 on mma.sync, 16 x 16-pixel blocks, with the weights of pack_tc.
+#    128->64 conv. Operations-bound. f32: conv3x3_tf32x3 at 64 output
+#    channels, 3xTF32 on mma.sync, 16 x 16-pixel blocks, with the weights of
+#    pack_tc. bf16: conv3x3_wg<64, CIN> (csrc/conv_wg.cu) on wgmma, all 64
+#    co's weights resident a block (pack_wg), row pairs of a column strip
+#    over a ring of halo rows.
 
 def conv3x3_p2(x, p: Packed, relu: bool = True, pool: bool = False):
     """x (N, H, W, Cin), Cin in {64, 128} -> [relu] conv3x3_reflect (N, H, W,
@@ -440,7 +457,7 @@ def conv3x3_p2(x, p: Packed, relu: bool = True, pool: bool = False):
 # 2. conv3x3_full — replaces ops/pallas/codec.py:376 conv3x3_full (body
 #    _conv_full_kernel :340): the encoder 64->128 and 128->128 (+ pool)
 #    convs. Operations-bound. f32: conv3x3_tf32x3 at 128 output channels, 8 x
-#    16-pixel blocks, with the weights of pack_tc. bf16: conv3x3_wg
+#    16-pixel blocks, with the weights of pack_tc. bf16: conv3x3_wg<128, CIN>
 #    (csrc/conv_wg.cu) on wgmma, one co half's weights resident a block
 #    (pack_wg), row pairs of a column strip over a ring of halo rows.
 
@@ -457,9 +474,12 @@ def conv3x3_full(x, p: Packed, relu: bool = True, pool: bool = False):
 #    decoder. Operations-bound. As the TPU kernel does, upconv_tf32x3 folds
 #    the upsample into 2x2 taps per output phase on the edge-padded coarse
 #    image (pack_up): 4 taps per fine pixel, not 9, and the 4x upsampled
-#    tensor never exists. 3xTF32 on mma.sync; a warp's two m16 tiles are the
-#    two column phases of 16 coarse columns, which share their three
-#    column-shifted input fragments.
+#    tensor never exists. f32: 3xTF32 on mma.sync; a warp's two m16 tiles
+#    are the two column phases of 16 coarse columns, which share their three
+#    column-shifted input fragments. bf16: upconv_wg<C> (csrc/conv_wg.cu),
+#    the wgmma conv's ring and K loop with 4 taps, a block per output phase
+#    and co half with that kind's folded taps resident (pack_wg_up), each
+#    output pixel's 64 channels stored as one 128-byte line.
 
 def upconv_p2(x, p: Packed):
     """coarse x (N, Hc, Wc, C), C in {64, 128} -> relu(conv3x3_reflect(

@@ -10,9 +10,8 @@ the Pallas kernels compute on the TPU) against the JAX package, on the CPU.
   upconv taps bit-equal; the final conv's folded renorm within one bf16
   ulp (both round the einsum's f32 sum once; XLA's CPU dot and torch's
   may sum the three terms in another order); the biases widen exactly.
-* The bf16 B fragments of ``mma.sync.m16n8k16``: an emulation that reads
-  them with the kernels' own index formulas rebuilds the conv and the
-  folded upconv.
+* The bf16 kernels' weight images (``pack_wg``, ``pack_wg_up``) are read
+  back, and the kernel modelled, in tests/test_torch_wg.py.
 * ``vgg.encode`` / ``decode`` in bf16 against JAX's XLA bf16 encode and
   decode: every conv rounds twice (the conv's output, then ``y + b``), as
   JAX's ``conv2d_nhwc`` does. Bound 2^-7 x max|ref|.
@@ -218,70 +217,6 @@ def test_bf16_biases_widen_exactly():
         assert p.b.dtype == torch.float32 and torch.equal(p.b, b.float())
         assert p.w_hwio.dtype == torch.float32
         assert torch.equal(p.w_hwio, w.float().permute(2, 3, 1, 0))
-
-
-# --- the bf16 B fragments, read as the kernels read them --------------------
-
-def _b_from_units(units, base, count_pairs, nh_count, tap_index):
-    """The (16, 64 * nh_count) B matrix of one k16 step, read from the
-    16-byte units (8 bf16 each) of one stage exactly as ``conv3x3_tc`` /
-    ``upconv_tc`` read them: unit (tap_index * pairs + nh * 4 + jj) * 32 +
-    lane holds {b0, b1} of n8 tile 2 jj of channel half nh, then of tile
-    2 jj + 1; b0 = rows 2t, 2t + 1 and b1 = rows 2t + 8, 2t + 9 of column g
-    (lane = 4 g + t)."""
-    out = torch.zeros(16, 64 * nh_count)
-    for nh in range(nh_count):
-        for jj in range(4):
-            for lane in range(32):
-                g, t = lane // 4, lane % 4
-                u = units[base + (tap_index * count_pairs + nh * 4 + jj) * 32 + lane]
-                for jh in range(2):
-                    n = nh * 64 + 8 * (2 * jj + jh) + g
-                    q = u[4 * jh:4 * jh + 4].float()
-                    out[2 * t, n], out[2 * t + 1, n] = q[0], q[1]
-                    out[2 * t + 8, n], out[2 * t + 9, n] = q[2], q[3]
-    return out
-
-
-@pytest.mark.parametrize("cin,cout", [(64, 64), (128, 64), (64, 128)])
-def test_bf16_fragments_read_back_as_the_conv_weights(cin, cout):
-    """Every B operand the bf16 conv kernel reads, per chunk c and tap, is
-    the (16, Cout) slice taps[tap, 16c:16c + 16, :] of the HWIO weights;
-    the kernel's A words are input channels 16c + 2 t4 (+1) and + 8, so the
-    products rebuild the conv. (A bf16 conv to 128 channels runs on the
-    wgmma kernel instead: ``pack`` gives it ``w_wg``, tests/test_torch_wg.py,
-    and these fragments come from ``pack_tc`` alone.)"""
-    rng = np.random.default_rng(cin + cout)
-    w = _bf(rng.normal(0, 0.1, (cout, cin, 3, 3)))
-    p = codec.pack(w, _bf(rng.normal(0, 0.1, cout)))
-    w_tc = codec.pack_tc(w.permute(2, 3, 1, 0).contiguous())
-    assert (p.w_tc is None) == (cout == 128)
-    assert w_tc.shape == (cin // 16, 9, cout // 16, 32, 8) and w_tc.dtype == BF
-    taps = w.permute(2, 3, 1, 0).reshape(9, cin, cout).float()
-    for c in range(cin // 16):
-        units = w_tc[c].reshape(-1, 8)
-        for tap in (0, 4, 8):
-            got = _b_from_units(units, 0, cout // 16, cout // 64, tap)
-            assert torch.equal(got, taps[tap, 16 * c:16 * c + 16])
-
-
-@pytest.mark.parametrize("c", [64, 128])
-def test_bf16_fragments_read_back_as_the_folded_taps(c):
-    """The upconv's B operands, per chunk, row phase a (the stage's a-half at
-    C = 128, the phase's offset within the stage at C = 64: both a * 8 *
-    C/16 * 32 units into the chunk's block) and tap-phase (u, b, v), are
-    the folded taps fold[a, b, u, v, 16c:16c + 16, :]."""
-    rng = np.random.default_rng(c)
-    p = codec.pack_up(_bf(rng.normal(0, 0.1, (c, c, 3, 3))),
-                      _bf(rng.normal(0, 0.1, c)))
-    assert p.w_up.shape == (c // 16, 16, c // 16, 32, 8)
-    for ch in (0, c // 16 - 1):
-        units = p.w_up[ch].reshape(-1, 8)
-        for a, u, b, v in ((0, 0, 0, 0), (1, 0, 1, 1), (1, 1, 0, 1), (0, 1, 1, 0)):
-            got = _b_from_units(units, a * 8 * (c // 16) * 32, c // 16, c // 64,
-                                4 * u + 2 * b + v)
-            want = p.w_fold[a, b, u, v, 16 * ch:16 * ch + 16].float()
-            assert torch.equal(got, want)
 
 
 # --- the VGG stacks and the stage codec -------------------------------------

@@ -660,19 +660,33 @@ _PLAIN_KW = {"rgb_to_relu1": dict(relu=True), "upconv_p2": dict(relu=True, up=Tr
     ("conv3x3_full", 128, dict(relu=False, pool=True), 3, (2, 19), True),
     ("conv3x3_full", 64, dict(relu=True, pool=True), 2, (3, 35), False),
     ("conv3x3_full", 128, dict(relu=True, pool=True), 2, (3, 70), False),
+    # the wgmma kernel's conv3x3_p2 mode (COUT 64): one pixel past a 64-wide
+    # and a 32-wide strip, W = 2, H = 2 and 3 with the pool
+    ("conv3x3_p2", 64, dict(relu=True, pool=True), 1, (20, 65), False),
+    ("conv3x3_p2", 128, dict(relu=True), 2, (9, 33), True),
+    ("conv3x3_p2", 64, dict(relu=True), 2, (9, 2), False),
+    ("conv3x3_p2", 128, dict(relu=False, pool=True), 3, (2, 19), True),
+    ("conv3x3_p2", 64, dict(relu=True, pool=True), 2, (3, 35), False),
     ("upconv_p2", 128, {}, 1, (64, 64), False),
     ("upconv_p2", 64, {}, 1, (128, 128), False),
     ("upconv_p2", 64, {}, 2, (17, 23), True),
     ("upconv_p2", 128, {}, 3, (1, 9), False),
     ("upconv_p2", 64, {}, 128, (8, 8), False),
+    # its upconv mode (coarse sizes): one coarse pixel past a 64-wide strip,
+    # Wc = 1, Hc = 1-3 (a lone last coarse row), odd sizes
+    ("upconv_p2", 64, {}, 1, (20, 65), False),
+    ("upconv_p2", 128, {}, 2, (3, 65), True),
+    ("upconv_p2", 64, {}, 3, (2, 1), False),
+    ("upconv_p2", 128, {}, 1, (1, 1), False),
+    ("upconv_p2", 64, {}, 2, (7, 33), True),
     ("final_to_rgb", 64, {}, 1, (512, 512), False),
     ("final_to_rgb", 64, {}, 2, (17, 33), True),
     ("final_to_rgb", 64, {}, 3, (2, 37), False),
     ("final_to_rgb", 64, {}, 128, (32, 32), False)])
 def test_bf16_kernels_match_plain(name, cin, kw, n, hw, wide):
-    """The bf16 kernels (one bf16 mma.sync product per product in kernels
-    1-3; bf16 TMA maps in 4-5): within 2^-7 x max|plain| of the bf16 plain
-    version, in the plain version's dtype, counted under <name>_bf16."""
+    """The bf16 kernels (wgmma in kernels 1-3; bf16 TMA maps in 4-5):
+    within 2^-7 x max|plain| of the bf16 plain version, in the plain
+    version's dtype, counted under <name>_bf16."""
     _need_gpu()
     g = torch.Generator(device="cuda").manual_seed(cin + 3 * hw[0] + hw[1] + n)
     x, p = _bf16_case(name, n, *hw, cin, g, wide)
@@ -692,16 +706,19 @@ def test_bf16_kernels_match_plain(name, cin, kw, n, hw, wide):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,cin,kw", [
     ("rgb_to_relu1", 3, {}), ("conv3x3_p2", 64, dict(relu=True, pool=True)),
+    ("conv3x3_p2", 128, dict(relu=True)),
     ("conv3x3_full", 128, dict(relu=True)), ("conv3x3_full", 64, dict(relu=True)),
     ("conv3x3_full", 128, dict(relu=True, pool=True)), ("upconv_p2", 64, {}),
-    ("final_to_rgb", 64, {})])
+    ("upconv_p2", 128, {}), ("final_to_rgb", 64, {})])
 def test_bf16_kernels_repeated_launches_agree(name, cin, kw):
     """Each output sums in a fixed order: 50 launches at 512^2 (the upconv's
-    256^2 coarse input) equal the first bit for bit (a race in a kernel's
-    ring of halo rows shows so)."""
+    256^2 coarse input; 256^2 and 128^2 at 128 input channels, the path's
+    shapes) equal the first bit for bit (a race in a kernel's ring of halo
+    rows shows so)."""
     _need_gpu()
     g = torch.Generator(device="cuda").manual_seed(17)
-    side = 256 if name == "upconv_p2" else 512
+    side = (512 if name != "upconv_p2" else 256) // (2 if cin == 128 and name in (
+        "conv3x3_p2", "upconv_p2") else 1)
     x, p = _bf16_case(name, 1, side, side, cin, g)
     kern = getattr(codec, name)
     first = kern(x, p, **kw)
@@ -710,15 +727,15 @@ def test_bf16_kernels_repeated_launches_agree(name, cin, kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["rgb_to_relu1", "conv3x3_p2"])
+@pytest.mark.parametrize("name", ["rgb_to_relu1", "conv3x3_p2", "upconv_p2"])
 def test_bf16_batch128_relu1_scale_past_2_31_elements(name):
     """At batch 128 and 512^2 a relu1-scale tensor holds exactly 2^31
-    elements (rgb_to_relu1's output, conv3x3_p2's input): every offset must
-    be 64-bit. The first and the last image are held against the plain
-    version on those images alone."""
+    elements (rgb_to_relu1's and upconv_p2's output, conv3x3_p2's input):
+    every offset must be 64-bit. The first and the last image are held
+    against the plain version on those images alone."""
     _need_gpu()
     g = torch.Generator(device="cuda").manual_seed(23)
-    n, side = 128, 512
+    n, side = 128, 256 if name == "upconv_p2" else 512
     cin = 3 if name == "rgb_to_relu1" else 64
     x, p = _bf16_case(name, n, side, side, cin, g)
     kw = dict(relu=True, pool=True) if name == "conv3x3_p2" else {}
@@ -755,17 +772,24 @@ def test_bf16_conv3x3_full_batch128_first_and_last_images():
 
 
 @pytest.mark.cuda
-def test_bf16_conv3x3_full_refuses_weights_without_the_wgmma_image():
-    """bf16 conv3x3_full takes pack's w_wg: a Packed with only mma.sync
-    fragments (or none) raises; nothing falls back."""
+@pytest.mark.parametrize("name", ["conv3x3_p2", "conv3x3_full", "upconv_p2"])
+def test_bf16_conv3x3_full_refuses_weights_without_the_wgmma_image(name):
+    """The bf16 tensor-core kernels take the wgmma image (pack's or
+    pack_up's w_wg): a Packed with only the f32 mma.sync fragments, none,
+    or another mode's image raises; nothing falls back."""
     _need_gpu()
     g = torch.Generator(device="cuda").manual_seed(31)
-    x, p = _bf16_case("conv3x3_full", 1, 16, 16, 64, g)
+    x, p = _bf16_case(name, 1, 16, 16, 64, g)
+    kw = {} if name == "upconv_p2" else dict(relu=True)
+    f32 = (codec.pack_up if name == "upconv_p2" else codec.pack)(p.w.float(), p.b)
+    other = (codec.pack if name == "upconv_p2" else codec.pack_up)(
+        p.w[:64, :64].contiguous(), p.b[:64])
     before = dict(codec.LAUNCHES)
-    for q in (p._replace(w_wg=None), p._replace(w_wg=None, w_tc=codec.pack_tc(
-            p.w.permute(2, 3, 1, 0).contiguous()))):
+    for q in (p._replace(w_wg=None),
+              p._replace(w_wg=None, w_tc=f32.w_tc, w_up=f32.w_up),
+              p._replace(w_wg=other.w_wg)):
         with pytest.raises(ValueError):
-            codec.conv3x3_full(x, q, relu=True)
+            getattr(codec, name)(x, q, **kw)
     assert codec.LAUNCHES == before
 
 
