@@ -13,10 +13,13 @@ Phases (each raises on failure; none catches its own):
      conv3x3_full's and upconv_p2's (conv3x3_wg<64|128, ...> and
      upconv_wg<C>, csrc/conv_wg.cu) run HGMMA (wgmma) and no bf16 mma.sync
      conv kernel is left, the f32 kernels of conv3x3_p2, conv3x3_full and
-     upconv_p2 HMMA on TF32, final_to_rgb's TMA loads (UTMALDG) and
-     rgb_to_relu1's TMA stores (UTMASTG) in both dtypes, the histogram's
-     128-bit loads and cluster barrier, and the remap's 128-bit loads and
-     stores;
+     upconv_p2 HMMA on TF32, the f32 final_to_rgb's TMA loads (UTMALDG) and
+     rgb_to_relu1's TMA stores (UTMASTG), their bf16 functions
+     (final_to_rgb_mma and rgb_to_relu1_mma, csrc/edge_mma.cu) BF16 HMMA
+     beside those and final_to_rgb_mma's ldmatrix (LDSM), and no bf16 FFMA
+     edge kernel is left; no kernel of csrc/edge_mma.cu may spill; the
+     histogram's 128-bit loads and cluster barrier, and the remap's 128-bit
+     loads and stores;
   3. every codec kernel at its 512-px main-path shapes, on inputs made by a
      512-px decode->encode roundtrip of the real depth-3 weights: held
      against its plain PyTorch version (|kernel - plain| <= 2e-5 *
@@ -102,8 +105,9 @@ also carry "device_ms", their profiler time at the 512^2 shape, and the
 three cdf kernels theirs summed over their three shapes; then the bf16
 function of kernels 1-5, "<name>_bf16" with "dtype": "bfloat16", designs
 wgmma-resident (conv3x3_p2_bf16, conv3x3_full_bf16 and upconv_p2_bf16,
-csrc/conv_wg.cu) and ffma+tma, their times summed over the eight shapes at batch
-128 and their launches those of the slice's path;
+csrc/conv_wg.cu) and mma+tma (final_to_rgb_bf16 and rgb_to_relu1_bf16,
+csrc/edge_mma.cu), their times summed over the eight shapes at batch 128
+and their launches those of the slice's path;
 conv64 and cdf_remap are on no path of the program, so their launches are
 those of their own check phase, which the "phase" field names) and
 {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -145,23 +149,26 @@ REPLACES.update({k + "_bf16": REPLACES[k] for k in (
     "rgb_to_relu1", "conv3x3_p2", "conv3x3_full", "upconv_p2", "final_to_rgb")})
 SOURCES = {"batched_histogram": "cdf", "pwl_remap": "cdf", "cdf_remap": "cdf",
            "conv64": "conv64", "conv3x3_p2_bf16": "conv_wg",
-           "conv3x3_full_bf16": "conv_wg", "upconv_p2_bf16": "conv_wg"}   # else codec
-LIBRARIES = ("codec", "cdf", "conv64", "conv_wg")
+           "conv3x3_full_bf16": "conv_wg", "upconv_p2_bf16": "conv_wg",
+           "final_to_rgb_bf16": "edge_mma", "rgb_to_relu1_bf16": "edge_mma"}   # else codec
+LIBRARIES = ("codec", "cdf", "conv64", "conv_wg", "edge_mma")
 
 # how each kernel computes: FFMA convs on the FP32 cores with their
 # 64-channel side moved by TMA, wgmma fed by TMA, three TF32 mma.sync
 # products (hi*hi + hi*lo + lo*hi), a thread-block cluster per histogram
 # row reduced in distributed shared memory, the remap's segment tables
 # built once per block in shared memory, or scalar code on the CUDA cores
-# (cdf_remap: scans, searching, interpolating); the bf16 tensor-core convs
-# run on wgmma with their weights resident in shared memory
+# (cdf_remap: scans, searching, interpolating); the bf16 wide convs run on
+# wgmma with their weights resident in shared memory, the bf16 narrow ones
+# on mma.sync with their weights in registers and their 64-channel side
+# moved by TMA
 TENSOR_CORE_CODEC = ("conv3x3_p2", "conv3x3_full", "upconv_p2")
 EDGE_CODEC = ("final_to_rgb", "rgb_to_relu1")
 _CODEC = TENSOR_CORE_CODEC + EDGE_CODEC
 DESIGNS = {"conv64": "wgmma+tma", **{k: "3xtf32-mma" for k in TENSOR_CORE_CODEC},
            **{k: "ffma+tma" for k in EDGE_CODEC},
            **{k + "_bf16": "wgmma-resident" for k in TENSOR_CORE_CODEC},
-           **{k + "_bf16": "ffma+tma" for k in EDGE_CODEC},
+           **{k + "_bf16": "mma+tma" for k in EDGE_CODEC},
            "batched_histogram": "cluster-dsmem", "pwl_remap": "smem-tables",
            "cdf_remap": "simt"}
 # JAX's own max|bf16 - f32| gap on tests/test_torch_batch.py's inputs (64
@@ -171,7 +178,9 @@ BF16_RUN_GAP = 0.1523
 
 # per redesigned kernel: its symbol in the SASS (a regex over the mangled
 # name: conv3x3_tf32x3<CIN, COUT, ...>, upconv_tf32x3<C>, conv3x3_wg<COUT,
-# CIN, ...>, upconv_wg<C>) and what the
+# CIN, ...>, upconv_wg<C>; "final_to_rgb_tmaE", the f32 FFMA kernel, not
+# its bf16 instantiation "final_to_rgb_tmaI13__nv_bfloat16E" of earlier
+# trees) and what the
 # design relies on: each instruction with the operand type (or form) it
 # must show (the cdf kernels' names as cuobjdump -sass prints them on the
 # H100: 128-bit loads LDG.E.128.CONSTANT, stores STG.E.128, the cluster
@@ -180,15 +189,15 @@ SASS_CHECKS = (("conv64", r"conv64_wgmma", (("HGMMA", "HGMMA"),)),
                ("conv3x3_p2", r"conv3x3_tf32x3ILi\d+ELi64E", (("HMMA", "TF32"),)),
                ("conv3x3_full", r"conv3x3_tf32x3ILi\d+ELi128E", (("HMMA", "TF32"),)),
                ("upconv_p2", r"upconv_tf32x3ILi\d+E", (("HMMA", "TF32"),)),
-               ("final_to_rgb", r"final_to_rgb_tmaIfE", (("UTMALDG", "UTMALDG"),)),
-               ("rgb_to_relu1", r"rgb_to_relu1_tmaIfE", (("UTMASTG", "UTMASTG"),)),
+               ("final_to_rgb", r"final_to_rgb_tmaE", (("UTMALDG", "UTMALDG"),)),
+               ("rgb_to_relu1", r"rgb_to_relu1_tmaE", (("UTMASTG", "UTMASTG"),)),
                ("conv3x3_p2_bf16", r"conv3x3_wgILi64E", (("HGMMA", "HGMMA"),)),
                ("conv3x3_full_bf16", r"conv3x3_wgILi128E", (("HGMMA", "HGMMA"),)),
                ("upconv_p2_bf16", r"upconv_wgILi\d+E", (("HGMMA", "HGMMA"),)),
-               ("final_to_rgb_bf16", r"final_to_rgb_tmaI13__nv_bfloat16E",
-                (("UTMALDG", "UTMALDG"),)),
-               ("rgb_to_relu1_bf16", r"rgb_to_relu1_tmaI13__nv_bfloat16E",
-                (("UTMASTG", "UTMASTG"),)),
+               ("final_to_rgb_bf16", r"final_to_rgb_mma",
+                (("HMMA", "BF16"), ("UTMALDG", "UTMALDG"), ("LDSM", "LDSM"))),
+               ("rgb_to_relu1_bf16", r"rgb_to_relu1_mma",
+                (("HMMA", "BF16"), ("UTMASTG", "UTMASTG"))),
                ("batched_histogram", r"histogram_cluster",
                 (("LDG", "LDG.E.128"), ("UCGABAR", "UCGABAR_WAIT"))),
                ("pwl_remap", r"pwl_tables", (("LDG", "LDG.E.128"),
@@ -196,7 +205,11 @@ SASS_CHECKS = (("conv64", r"conv64_wgmma", (("HGMMA", "HGMMA"),)),
 # kernels a redesign replaced: no instantiation may be left in the libraries
 SASS_GONE = (("conv3x3_full_bf16 on mma.sync", r"conv3x3_bf16ILi\d+ELi128E"),
              ("conv3x3_p2_bf16 on mma.sync", r"conv3x3_bf16ILi\d+ELi64E"),
-             ("upconv_p2_bf16 on mma.sync", r"upconv_bf16"))
+             ("upconv_p2_bf16 on mma.sync", r"upconv_bf16"),
+             ("final_to_rgb_bf16 on FFMA", r"final_to_rgb_tmaI13__nv_bfloat16E"),
+             ("rgb_to_relu1_bf16 on FFMA", r"rgb_to_relu1_tmaI13__nv_bfloat16E"))
+# the libraries none of whose kernels may spill (ptxas -v)
+NO_SPILL = ("edge_mma",)
 
 
 def _peaks(name: str, kind: str = "f32"):
@@ -777,14 +790,16 @@ def profile_run(name, cfg, styles, content=None):
     convs = part('conv3x3_tf32x3') + part('conv3x3_wg')
     ups = part('upconv_tf32x3') + part('upconv_wg')
     tc = convs + ups
-    edge = part('final_to_rgb_tma') + part('rgb_to_relu1_tma')
+    # the edge convs: the f32 FFMA kernels (*_tma) and the bf16 mma.sync ones (*_mma)
+    fin = part('final_to_rgb_tma') + part('final_to_rgb_mma')
+    ent = part('rgb_to_relu1_tma') + part('rgb_to_relu1_mma')
+    edge = fin + ent
     print(f"profile {name} (warm run, profiler on): wall {wall * 1e3:.1f} ms, "
           f"device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% of the "
           f"wall), codec kernels {edge + tc:.1f} ms "
           f"(tensor-core {tc:.1f}: conv3x3_p2 + conv3x3_full "
           f"{convs:.1f}, upconv_p2 {ups:.1f}; "
-          f"final_to_rgb {part('final_to_rgb_tma'):.3f}, rgb_to_relu1 "
-          f"{part('rgb_to_relu1_tma'):.3f}), "
+          f"final_to_rgb {fin:.3f}, rgb_to_relu1 {ent:.3f}), "
           f"histogram kernel {part('histogram_cluster'):.2f} ms, pwl kernel "
           f"{part('pwl_tables'):.2f} ms; memset/fill kernels "
           f"{sum(e.count for e in kernels if 'Memset' in e.key or 'Fill' in e.key)}"
@@ -944,12 +959,15 @@ def main() -> int:
     libs = cuda_build.build(*LIBRARIES)
     print(f"built {', '.join(f'csrc/{n}.cu' for n in LIBRARIES)} in "
           f"{time.time() - t0:.1f} s (sm_90a, in parallel)", flush=True)
-    for lib in libs:
+    for name, lib in zip(LIBRARIES, libs):
         with open(lib + ".log") as f:
             for line in f:
                 if ("registers" in line or "spill" in line or "Compiling" in line
                         or "Performance Loss" in line):
                     print("  ptxas:", line.strip())
+                spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if name in NO_SPILL and spills and spills.groups() != ("0", "0"):
+                    raise AssertionError(f"csrc/{name}.cu spills: {line.strip()}")
     wg = ctypes.CDLL(libs[LIBRARIES.index("conv_wg")])
     print("conv_wg dynamic shared memory: "
           + ", ".join(f"{mode} Cin {c} {wg.optex_conv_wg_smem(up, c)} B"

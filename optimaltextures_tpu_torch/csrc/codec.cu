@@ -1,17 +1,19 @@
 // Codec convolution kernels for Hopper (sm_90a): the port of the five Pallas
-// kernels in optimaltextures_tpu/ops/pallas/codec.py.
+// kernels in optimaltextures_tpu/ops/pallas/codec.py, in float32.
 //
 // All five compute one operation: a 3x3 convolution with 1-px reflect
 // padding and a bias, on NHWC tensors, with an optional nearest-x2
 // upsample in front, and an optional ReLU and 2x2 max-pool (taken after the
-// ReLU, ceil mode) behind. Each in two functions: float32 throughout, and
-// the bf16 one the Pallas kernels compute on the TPU (bf16 activations and
-// weights, f32 accumulate, f32 bias, one rounding to bf16 at the store;
-// rgb_to_relu1 rounds its f32 RGB input to bf16 first, final_to_rgb writes
-// f32 RGB). What bounds each on the H100 sets its design:
+// ReLU, ceil mode) behind. Each also has the bf16 function the Pallas
+// kernels compute on the TPU (bf16 activations and weights, f32
+// accumulate, f32 bias, one rounding to bf16 at the store; rgb_to_relu1
+// rounds its f32 RGB input to bf16 first, final_to_rgb writes f32 RGB),
+// which runs on the tensor cores in csrc/conv_wg.cu (the three wide convs,
+// wgmma) and csrc/edge_mma.cu (the two narrow ones, mma.sync). What bounds
+// each f32 kernel on the H100 sets its design:
 //
-//   rgb_to_relu1  rgb_to_relu1_tma<float|bf16>                  bytes
-//   final_to_rgb  final_to_rgb_tma<float|bf16>                  bytes
+//   rgb_to_relu1  rgb_to_relu1_tma                              bytes
+//   final_to_rgb  final_to_rgb_tma                              bytes
 //   conv3x3_p2    conv3x3_tf32x3<64|128, 64, RELU, POOL>        operations
 //   conv3x3_full  conv3x3_tf32x3<64|128, 128, RELU, POOL>       operations
 //   upconv_p2     upconv_tf32x3<64|128>                         operations
@@ -21,11 +23,8 @@
 // that read their input once and write their output once, with the 64-channel
 // side moved by TMA so the bytes stay in flight while the FMAs run. The
 // wide convs do 2 x 9 x Cin multiply-adds per output value (upconv, folded:
-// 2 x 4 x Cin) against 8 bytes of traffic (4 in bf16), far above it:
-// implicit GEMMs on the tensor cores, three TF32 products per f32 product.
-//
-// The bf16 function of those three is not here: it runs on wgmma in
-// csrc/conv_wg.cu.
+// 2 x 4 x Cin) against 8 bytes of traffic, far above it: implicit GEMMs on
+// the tensor cores, three TF32 products per f32 product.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (or cudaErrorInvalidValue for a configuration
@@ -33,7 +32,6 @@
 // base is not 16-byte aligned).
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -105,17 +103,8 @@ __device__ __forceinline__ int reflect1(int i, int n) {
 //   k's stores run while tile k + 1 computes, and a buffer is rewritten
 //   only after cp.async.bulk.wait_group.read says its stores have read it.
 //
-// The bf16 function (template argument __nv_bfloat16) moves 128 bytes a
-// pixel on the 64-channel side, half the bytes: a 128-byte line holds all
-// 64 channels, 8 to a 16-byte chunk, so one TMA box of the same size
-// carries a whole tile. final_to_rgb_tma<bf16> takes one ring item a tile
-// (41,472 bytes, as an f32 half) and its warps compute both halves from it,
-// widening 4 channels (8 bytes) at a time; rgb_to_relu1_tma<bf16> rounds
-// its f32 input to bf16 as it stages it (the Pallas kernel's
-// p0.astype(dt)), rounds each output once, and stores a tile with one TMA
-// box. The arithmetic is the f32 kernels' FFMAs on the widened values.
-// At batch 128 and 512^2 a relu1 tensor holds 2^31 elements: every offset
-// is 64-bit (size_t), TMA takes per-dimension coordinates.
+// Every offset into an image stack is 64-bit (size_t); TMA takes
+// per-dimension coordinates.
 
 constexpr int kEdgeTile = 16;                              // output pixels a tile side
 constexpr int kEdgeHalo = kEdgeTile + 2;                   // 18
@@ -244,24 +233,14 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
 
-// widen four bf16 (an 8-byte load) to f32
-__device__ __forceinline__ float4 widen4(uint2 q) {
-  return make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xffff0000u),
-                     __uint_as_float(q.y << 16), __uint_as_float(q.y & 0xffff0000u));
-}
-
-template <class T>
 __global__ void __launch_bounds__(kFinThreads, 1)
 final_to_rgb_tma(const __grid_constant__ CUtensorMap xmap, const float* __restrict__ w,
                  const float* __restrict__ bias, float* __restrict__ y, int n, int H,
                  int W) {
-  // xmap: x (N, H, W, 64) of T, boxes of {128 bytes of channels, 18 columns,
-  // 18 rows, 1}: 32 f32 channels (half a tile) or all 64 bf16 ones (a whole
-  // tile); w: (3, 3, 64, 3) HWIO float32; y: (N, H, W, 3) float32. Item i:
-  // f32 half i & 1 of this block's tile i >> 1, bf16 its tile i; in ring
-  // slot i % 3.
-  constexpr int kHalves = sizeof(T) == 4 ? 1 : 2;        // halves an item holds
-  constexpr int kItems = 2 / kHalves;                    // items a tile
+  // xmap: x (N, H, W, 64) float32, boxes of {32 channels, 18 columns, 18
+  // rows, 1}, half a tile; w: (3, 3, 64, 3) HWIO float32; y: (N, H, W, 3)
+  // float32. Item i: half i & 1 of this block's tile i / 2, in ring slot i % 3.
+  constexpr int kItems = 2;                              // items a tile
   extern __shared__ uint8_t fin_smem[];
   uint8_t* sm = fin_smem + ((1024u - (saddr(fin_smem) & 1023u)) & 1023u);
   float* ws = reinterpret_cast<float*>(sm + kFinOffW);
@@ -293,8 +272,8 @@ final_to_rgb_tma(const __grid_constant__ CUtensorMap xmap, const float* __restri
         if (i >= kFinStages) mbar_wait(s_empty + 8 * slot, ((i / kFinStages) - 1) & 1);
         const EdgeTile e = edge_tile(blockIdx.x + (i / kItems) * gridDim.x, tiles_x, tiles_y);
         mbar_expect_tx(s_full + 8 * slot, kFinBox);
-        tma_load_4d(s_ring + slot * kFinSlot, &xmap, s_full + 8 * slot,
-                    kHalves == 1 ? 32 * (i & 1) : 0, e.x0 - 1, e.y0 - 1, e.n);
+        tma_load_4d(s_ring + slot * kFinSlot, &xmap, s_full + 8 * slot, 32 * (i & 1),
+                    e.x0 - 1, e.y0 - 1, e.n);
       }
     }
     return;
@@ -333,56 +312,47 @@ final_to_rgb_tma(const __grid_constant__ CUtensorMap xmap, const float* __restri
       }
       consumer_sync();
     }
-    int half = i & 1;
+    const int half = i & 1;
+    // this warp's 4 input channels of the half: weights [tap][ci][co]
+    const int c0 = 32 * half + 4 * warp;
+    float wr[9][12];
 #pragma unroll
-    for (int h = 0; h < kHalves; ++h) {
-      if (kHalves == 2) half = h;
-      // this warp's 4 input channels of the half: weights [tap][ci][co]
-      const int c0 = 32 * half + 4 * warp;
-      float wr[9][12];
+    for (int tap = 0; tap < 9; ++tap) {
+      const float4* wp = reinterpret_cast<const float4*>(ws + (tap * 64 + c0) * 3);
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const float4* wp = reinterpret_cast<const float4*>(ws + (tap * 64 + c0) * 3);
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          const float4 v = wp[k];
-          wr[tap][4 * k] = v.x; wr[tap][4 * k + 1] = v.y;
-          wr[tap][4 * k + 2] = v.z; wr[tap][4 * k + 3] = v.w;
-        }
+      for (int k = 0; k < 3; ++k) {
+        const float4 v = wp[k];
+        wr[tap][4 * k] = v.x; wr[tap][4 * k + 1] = v.y;
+        wr[tap][4 * k + 2] = v.z; wr[tap][4 * k + 3] = v.w;
       }
-      if (half == 0) {
+    }
+    if (half == 0) {
 #pragma unroll
-        for (int oy = 0; oy < 8; ++oy)
+      for (int oy = 0; oy < 8; ++oy)
 #pragma unroll
-          for (int co = 0; co < 3; ++co) acc[oy][co] = 0.f;
+        for (int co = 0; co < 3; ++co) acc[oy][co] = 0.f;
+    }
+#pragma unroll
+    for (int iy = 0; iy < 10; ++iy) {
+      float v[3][4];
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw) {
+        // 16-byte chunk `warp` of the half's line: channels c0 .. c0 + 3
+        const int px = (8 * rg + iy) * kEdgeHalo + cx + kw;
+        const float4 q = *reinterpret_cast<const float4*>(st + sw128(px, warp));
+        v[kw][0] = q.x; v[kw][1] = q.y; v[kw][2] = q.z; v[kw][3] = q.w;
       }
 #pragma unroll
-      for (int iy = 0; iy < 10; ++iy) {
-        float v[3][4];
+      for (int kh = 0; kh < 3; ++kh) {
+        const int oy = iy - kh;
+        if (oy < 0 || oy >= 8) continue;
 #pragma unroll
-        for (int kw = 0; kw < 3; ++kw) {
-          const int px = (8 * rg + iy) * kEdgeHalo + cx + kw;
-          // f32: 16-byte chunk `warp` of the half's line; bf16: channels
-          // c0..c0 + 3, half of 16-byte chunk c0 / 8 of the tile's line
-          const float4 q =
-              kHalves == 1
-                  ? *reinterpret_cast<const float4*>(st + sw128(px, warp))
-                  : widen4(*reinterpret_cast<const uint2*>(
-                        st + sw128(px, 4 * half + (warp >> 1)) + 8 * (warp & 1)));
-          v[kw][0] = q.x; v[kw][1] = q.y; v[kw][2] = q.z; v[kw][3] = q.w;
-        }
+        for (int kw = 0; kw < 3; ++kw)
 #pragma unroll
-        for (int kh = 0; kh < 3; ++kh) {
-          const int oy = iy - kh;
-          if (oy < 0 || oy >= 8) continue;
+          for (int ci = 0; ci < 4; ++ci)
 #pragma unroll
-          for (int kw = 0; kw < 3; ++kw)
-#pragma unroll
-            for (int ci = 0; ci < 4; ++ci)
-#pragma unroll
-              for (int co = 0; co < 3; ++co)
-                acc[oy][co] = fmaf(v[kw][ci], wr[3 * kh + kw][3 * ci + co], acc[oy][co]);
-        }
+            for (int co = 0; co < 3; ++co)
+              acc[oy][co] = fmaf(v[kw][ci], wr[3 * kh + kw][3 * ci + co], acc[oy][co]);
       }
     }
     // this warp is done with the slot (its repair writes included)
@@ -417,21 +387,13 @@ final_to_rgb_tma(const __grid_constant__ CUtensorMap xmap, const float* __restri
   }
 }
 
-// x rounded to the output dtype's precision (bf16 multiplies bf16 inputs)
-__device__ __forceinline__ float round_as(float v, float) { return v; }
-__device__ __forceinline__ float round_as(float v, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <class T>
 __global__ void __launch_bounds__(kThreads, 1)
 rgb_to_relu1_tma(const __grid_constant__ CUtensorMap ymap, const float* __restrict__ x,
                  const float* __restrict__ w, const float* __restrict__ bias, int n,
                  int H, int W) {
-  // x: (N, H, W, 3) float32 (rounded to T before it multiplies); w: (3, 3,
-  // 3, 64) HWIO float32; ymap: y (N, H, W, 64) of T, boxes of {128 bytes of
-  // channels, 16 columns, 16 rows, 1}: two boxes a tile in f32, one in bf16
-  constexpr bool F32 = sizeof(T) == 4;
+  // x: (N, H, W, 3) float32; w: (3, 3, 3, 64) HWIO float32; ymap: y (N, H,
+  // W, 64) float32, boxes of {32 channels, 16 columns, 16 rows, 1}: two a
+  // tile
   extern __shared__ uint8_t ent_smem[];
   uint8_t* sm = ent_smem + ((1024u - (saddr(ent_smem) & 1023u)) & 1023u);
   float* ws = reinterpret_cast<float*>(sm + kEntOffW);   // [27][64], then the bias
@@ -473,7 +435,7 @@ rgb_to_relu1_tma(const __grid_constant__ CUtensorMap ymap, const float* __restri
     float* in = reinterpret_cast<float*>(sm + kEntOffIn) + buf * kEntIn;
 #pragma unroll
     for (int l = 0; l < kEntLoads; ++l)
-      if (tid + l * kThreads < kEntIn) in[tid + l * kThreads] = round_as(pre[l], T());
+      if (tid + l * kThreads < kEntIn) in[tid + l * kThreads] = pre[l];
     // staging buffer buf last held tile k - 2: its stores must have read it
     if (tid == 0) bulk_wait_read<1>();
     __syncthreads();
@@ -517,18 +479,9 @@ rgb_to_relu1_tma(const __grid_constant__ CUtensorMap ymap, const float* __restri
         const float4 o = make_float4(
             fmaxf(acc[p][0] + b.x, 0.f), fmaxf(acc[p][1] + b.y, 0.f),
             fmaxf(acc[p][2] + b.z, 0.f), fmaxf(acc[p][3] + b.w, 0.f));
+        // group j is 16-byte chunk j & 7 of half j >> 3
         const int px = (ry + p) * kEdgeTile + cx;
-        if constexpr (F32) {
-          // group j is 16-byte chunk j & 7 of half j >> 3
-          *reinterpret_cast<float4*>(st + (j >> 3) * kEntHalf + sw128(px, j & 7)) = o;
-        } else {
-          // group j is half j & 1 of 16-byte chunk j >> 1 of the pixel's line
-          const __nv_bfloat162 lo = __floats2bfloat162_rn(o.x, o.y);
-          const __nv_bfloat162 hi = __floats2bfloat162_rn(o.z, o.w);
-          *reinterpret_cast<uint2*>(st + sw128(px, j >> 1) + 8 * (j & 1)) =
-              make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                         *reinterpret_cast<const uint32_t*>(&hi));
-        }
+        *reinterpret_cast<float4*>(st + (j >> 3) * kEntHalf + sw128(px, j & 7)) = o;
       }
     }
     // the staged tile is complete: thread 0 stores it by TMA
@@ -537,7 +490,7 @@ rgb_to_relu1_tma(const __grid_constant__ CUtensorMap ymap, const float* __restri
     if (tid == 0) {
       const uint32_t src = saddr(st);
       tma_store_4d(&ymap, src, 0, e.x0, e.y0, e.n);
-      if (F32) tma_store_4d(&ymap, src + kEntHalf, 32, e.x0, e.y0, e.n);
+      tma_store_4d(&ymap, src + kEntHalf, 32, e.x0, e.y0, e.n);
       bulk_commit();
     }
   }
@@ -561,29 +514,24 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// the TMA map of an (n, h, w, 64) float32 or bf16 tensor, boxes {128 bytes
-// of channels (32 f32 or 64 bf16), box_w, box_h, 1}, 128-byte swizzled; 0
-// or a cudaError_t code
-template <class T>
-int map_nhwc64(CUtensorMap* map, const T* base, int n, int h, int w, int box_w,
+// the TMA map of an (n, h, w, 64) float32 tensor, boxes {32 channels (128
+// bytes), box_w, box_h, 1}, 128-byte swizzled; 0 or a cudaError_t code
+int map_nhwc64(CUtensorMap* map, const float* base, int n, int h, int w, int box_w,
                int box_h) {
   if (reinterpret_cast<uintptr_t>(base) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
   const EncodeTiled encode = encode_tiled();
   if (!encode) return static_cast<int>(cudaErrorSymbolNotFound);
   std::memset(map, 0, sizeof *map);
-  const cuuint64_t px = 64 * sizeof(T);
+  const cuuint64_t px = 64 * sizeof(float);
   const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(w), static_cast<cuuint64_t>(h),
                               static_cast<cuuint64_t>(n)};
   const cuuint64_t strides[3] = {px, px * w, px * w * h};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / sizeof(T)),
-                             static_cast<cuuint32_t>(box_w),
+  const cuuint32_t box[4] = {32, static_cast<cuuint32_t>(box_w),
                              static_cast<cuuint32_t>(box_h), 1};
   const cuuint32_t estride[4] = {1, 1, 1, 1};
-  if (encode(map,
-             sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-             4, const_cast<T*>(base), dims, strides, box, estride,
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(base), dims,
+             strides, box, estride,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
@@ -605,9 +553,8 @@ int edge_grid(int n, int h, int w, int* grid) {
   return 0;
 }
 
-// (N, H, W, 3) f32 -> relu(conv) (N, H, W, 64) of T; y 16-byte aligned (TMA stores)
-template <class T>
-int launch_entry(const float* x, const float* w, const float* b, T* y, int n, int h,
+// (N, H, W, 3) -> relu(conv) (N, H, W, 64); y 16-byte aligned (TMA stores)
+int launch_entry(const float* x, const float* w, const float* b, float* y, int n, int h,
                  int wd, void* stream) {
   if (n <= 0 || n > 65535 || h < 2 || wd < 2) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap ymap;
@@ -615,17 +562,16 @@ int launch_entry(const float* x, const float* w, const float* b, T* y, int n, in
   if (int rc = map_nhwc64(&ymap, y, n, h, wd, kEdgeTile, kEdgeTile)) return rc;
   if (int rc = edge_grid(n, h, wd, &grid)) return rc;
   cudaError_t err = cudaFuncSetAttribute(
-      rgb_to_relu1_tma<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kEntSmem);
+      rgb_to_relu1_tma, cudaFuncAttributeMaxDynamicSharedMemorySize, kEntSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  rgb_to_relu1_tma<T><<<grid, kThreads, kEntSmem, static_cast<cudaStream_t>(stream)>>>(
+  rgb_to_relu1_tma<<<grid, kThreads, kEntSmem, static_cast<cudaStream_t>(stream)>>>(
       ymap, x, w, b, n, h, wd);
   return static_cast<int>(cudaGetLastError());
 }
 
-// (N, H, W, 64) of T -> conv (N, H, W, 3) f32, no ReLU (the renorm is folded
-// into w, b); x 16-byte aligned (TMA loads)
-template <class T>
-int launch_final(const T* x, const float* w, const float* b, float* y, int n, int h,
+// (N, H, W, 64) -> conv (N, H, W, 3), no ReLU (the renorm is folded into w,
+// b); x 16-byte aligned (TMA loads)
+int launch_final(const float* x, const float* w, const float* b, float* y, int n, int h,
                  int wd, void* stream) {
   if (n <= 0 || n > 65535 || h < 2 || wd < 2) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap xmap;
@@ -633,9 +579,9 @@ int launch_final(const T* x, const float* w, const float* b, float* y, int n, in
   if (int rc = map_nhwc64(&xmap, x, n, h, wd, kEdgeHalo, kEdgeHalo)) return rc;
   if (int rc = edge_grid(n, h, wd, &grid)) return rc;
   cudaError_t err = cudaFuncSetAttribute(
-      final_to_rgb_tma<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kFinSmem);
+      final_to_rgb_tma, cudaFuncAttributeMaxDynamicSharedMemorySize, kFinSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  final_to_rgb_tma<T><<<grid, kFinThreads, kFinSmem, static_cast<cudaStream_t>(stream)>>>(
+  final_to_rgb_tma<<<grid, kFinThreads, kFinSmem, static_cast<cudaStream_t>(stream)>>>(
       xmap, w, b, y, n, h, wd);
   return static_cast<int>(cudaGetLastError());
 }
@@ -654,9 +600,6 @@ int launch_final(const T* x, const float* w, const float* b, float* y, int n, in
 // on x and on x - hi) and three products are summed in f32, hi*hi + hi*lo +
 // lo*hi; the dropped lo*lo term is ~2^-22 relative. Their least time is the
 // 3xTF32 work at the 495 TF/s TF32 rate.
-//
-// The bf16 function of all three (one bf16 product per product, the one the
-// Pallas kernels compute on the TPU) runs on wgmma in csrc/conv_wg.cu.
 //
 // Both are implicit GEMMs on mma.sync (M = output pixels, N = output
 // channels, K = taps x Cin) with one skeleton:
@@ -1175,21 +1118,6 @@ int optex_upconv_p2(const float* x, const float* wup, const float* b, float* y,
 // x 16-byte aligned (TMA loads)
 int optex_final_to_rgb(const float* x, const float* w, const float* b, float* y,
                        int n, int h, int wd, void* stream) {
-  return launch_final(x, w, b, y, n, h, wd, stream);
-}
-
-// The bf16 function of the two FFMA convs (the three tensor-core ones' is
-// csrc/conv_wg.cu's), with the same arguments: rgb_to_relu1's input and
-// final_to_rgb's output stay f32, the 64-channel side is bf16; f32 biases,
-// the weights HWIO f32 (widened from bf16).
-
-int optex_rgb_to_relu1_bf16(const float* x, const float* w, const float* b,
-                            __nv_bfloat16* y, int n, int h, int wd, void* stream) {
-  return launch_entry(x, w, b, y, n, h, wd, stream);
-}
-
-int optex_final_to_rgb_bf16(const __nv_bfloat16* x, const float* w, const float* b,
-                            float* y, int n, int h, int wd, void* stream) {
   return launch_final(x, w, b, y, n, h, wd, stream);
 }
 

@@ -47,21 +47,26 @@ does about it:
   and walks column strips of rows through a ring of halo rows.
 * ``rgb_to_relu1`` (3 -> 64) and ``final_to_rgb`` (64 -> 3) do 54 / 1152
   FLOPs per 4+256 / 256+12 bytes of pixel traffic: bytes-bound (0.021 ms
-  of bytes against 0.0135 ms of FMAs at 512^2). FFMA direct convs that
-  read the input once and write the output once, persistent over 16 x 16
+  of bytes against 0.0135 ms of FMAs at 512^2). Persistent over 16 x 16
   tiles, with the 64-channel side moved by TMA in the 128-byte-swizzled
   layout: ``final_to_rgb`` streams its input through a 3-slot ring and
   repairs the reflect halo in shared memory; ``rgb_to_relu1`` stages its
-  output tile and stores it by TMA while the next tile computes. The next
-  stage's renorm is folded into the final conv's weights
-  (:func:`pack_final`), so no padded or renormalised copy ever reaches
-  device memory. TMA needs a 16-byte-aligned base: ``final_to_rgb`` raises
-  on an input that is not.
+  output tile and stores it by TMA while the next tile computes. In
+  float32 they are FFMA direct convs (``csrc/codec.cu``). In bfloat16 the
+  FMAs on the FP32 cores would outlast the halved bytes, so the products
+  run on bf16 ``mma.sync`` with the weights in registers (:func:`pack_edge`,
+  ``csrc/edge_mma.cu``): ``rgb_to_relu1`` as an implicit GEMM over the
+  tile's pixels, ``final_to_rgb`` as one product per halo pixel (all 27
+  (tap, co) columns) followed by a 9-tap shift-sum. The next stage's
+  renorm is folded into the final conv's weights (:func:`pack_final`), so
+  no padded or renormalised copy ever reaches device memory. TMA needs a
+  16-byte-aligned base: ``final_to_rgb`` raises on an input that is not.
 
 Each conv's weights are packed once (:func:`pack`, :func:`pack_up`,
 :func:`pack_final`, as the JAX package's ``pack_*``): OIHW for the plain
-version, an HWIO copy for the two FFMA kernels, and for the wide convs the
-f32 tensor-core fragments or the bf16 wgmma kernel's shared-memory image.
+version, an HWIO copy for the two f32 FFMA kernels, for the wide convs the
+f32 tensor-core fragments or the bf16 wgmma kernel's shared-memory image,
+and for the narrow ones in bf16 the ``mma.sync`` B fragments.
 """
 
 from __future__ import annotations
@@ -96,7 +101,9 @@ class Packed(NamedTuple):
     (:func:`fold_up`) in the conv dtype, which the bf16 plain version
     computes with. ``w_wg``: a bf16 64|128 -> 64|128 conv's or upconv's
     weights as the wgmma kernel's shared-memory image (:func:`pack_wg`,
-    :func:`pack_wg_up`), in place of ``w_tc`` / ``w_up``."""
+    :func:`pack_wg_up`), in place of ``w_tc`` / ``w_up``. ``w_edge``: a
+    bf16 3 -> 64 or 64 -> 3 conv's weights as the ``mma.sync`` kernels' B
+    fragments (:func:`pack_edge`)."""
     w: torch.Tensor
     b: torch.Tensor
     w_hwio: torch.Tensor
@@ -104,19 +111,58 @@ class Packed(NamedTuple):
     w_up: Optional[torch.Tensor] = None
     w_fold: Optional[torch.Tensor] = None
     w_wg: Optional[torch.Tensor] = None
+    w_edge: Optional[torch.Tensor] = None
 
 
 def pack(w: torch.Tensor, b: torch.Tensor) -> Packed:
     """A conv's weights for the plain version, and for the kernel that runs
     it when Cin and Cout are both 64 or 128: ``w_wg`` in bf16 (the wgmma
-    kernel's image), ``w_tc`` in f32."""
+    kernel's image), ``w_tc`` in f32; a bf16 (Cin, Cout) of (3, 64) or (64,
+    3) also gets ``w_edge`` (:func:`pack_edge`)."""
     w_hwio = w.permute(2, 3, 1, 0).contiguous()
     cout, cin = w.shape[:2]
+    if w.dtype == torch.bfloat16 and (cin, cout) in ((3, 64), (64, 3)):
+        return Packed(w, b.float(), w_hwio.float(), w_edge=pack_edge(w_hwio))
     if cout not in (64, 128) or cin not in (64, 128):
         return Packed(w, b.float(), w_hwio.float())
     if w.dtype == torch.bfloat16:
         return Packed(w, b.float(), w_hwio.float(), w_wg=pack_wg(w_hwio))
     return Packed(w, b.float(), w_hwio.float(), pack_tc(w_hwio))
+
+
+def _edge_matrix(w_hwio: torch.Tensor) -> torch.Tensor:
+    """(3, 3, Cin, Cout) HWIO, (Cin, Cout) (3, 64) or (64, 3) -> the B
+    operand of the bf16 ``mma.sync`` kernels in ``csrc/edge_mma.cu``,
+    zero-padded to whole k16 steps and n8 tiles: for ``rgb_to_relu1``
+    (3 -> 64) B[3 tap + ci][co] (32 x 64, rows 27-31 zero), for
+    ``final_to_rgb`` (64 -> 3) B[ci][3 tap + co] (64 x 32, columns 27-31
+    zero), tap = 3 kh + kw."""
+    _, _, cin, cout = w_hwio.shape
+    if (cin, cout) == (3, 64):
+        m = w_hwio.reshape(27, 64)
+        return torch.cat([m, m.new_zeros(5, 64)])
+    if (cin, cout) == (64, 3):
+        m = w_hwio.reshape(9, 64, 3).permute(1, 0, 2).reshape(64, 27)
+        return torch.cat([m, m.new_zeros(64, 5)], 1)
+    raise ValueError(f"_edge_matrix: (3, 3, 3, 64) or (3, 3, 64, 3) weights only, "
+                     f"got {tuple(w_hwio.shape)}")
+
+
+def pack_edge(w_hwio: torch.Tensor) -> torch.Tensor:
+    """(3, 3, Cin, Cout) bf16 HWIO, (Cin, Cout) (3, 64) or (64, 3) -> the
+    B fragments of :func:`_edge_matrix`'s (K, N) matrix, (K/16, N/16, 32, 8)
+    bf16: per k16 step s, pair of n8 tiles jp and lane (g = lane // 4, t =
+    lane % 4) the lane's 16 bytes, registers {b0, b1} of n8 tile 2 jp, then
+    of 2 jp + 1, where b0 holds B[16 s + 2 t][n], B[16 s + 2 t + 1][n] and
+    b1 B[16 s + 2 t + 8][n], B[16 s + 2 t + 9][n], n = 8 j + g (the lower k
+    in the low half). A lane's 32 registers are eight 16-byte loads."""
+    if w_hwio.dtype != torch.bfloat16:
+        raise ValueError(f"pack_edge: bf16 weights only, got {w_hwio.dtype}")
+    m = _edge_matrix(w_hwio)
+    k, n = m.shape
+    # (s, half, t, e, jp, jj, g) -> (s, jp, g, t, jj, half, e)
+    t = m.reshape(k // 16, 2, 4, 2, n // 16, 2, 8).permute(0, 4, 6, 2, 5, 1, 3)
+    return t.reshape(k // 16, n // 16, 32, 8).contiguous()
 
 
 def pack_up(w: torch.Tensor, b: torch.Tensor) -> Packed:
@@ -268,7 +314,8 @@ _ARGTYPES = {
 _ARGTYPES.update({k + "_bf16": v for k, v in _ARGTYPES.items()})
 # the kernels whose entry point is in a library of its own
 # (csrc/<source>.cu); the others' are in csrc/codec.cu
-_SOURCES = {k + "_bf16": "conv_wg" for k in ("conv3x3_p2", "conv3x3_full", "upconv_p2")}
+_SOURCES = {**{k + "_bf16": "conv_wg" for k in ("conv3x3_p2", "conv3x3_full", "upconv_p2")},
+            **{k + "_bf16": "edge_mma" for k in ("final_to_rgb", "rgb_to_relu1")}}
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -360,7 +407,9 @@ _WEIGHTS = {"conv3x3_p2": ("w_tc", 9, "pack"), "conv3x3_full": ("w_tc", 9, "pack
             "upconv_p2": ("w_up", 16, "pack_up"),
             "conv3x3_p2_bf16": ("w_wg", 9, "pack"),
             "conv3x3_full_bf16": ("w_wg", 9, "pack"),
-            "upconv_p2_bf16": ("w_wg", 4, "pack_up")}
+            "upconv_p2_bf16": ("w_wg", 4, "pack_up"),
+            "final_to_rgb_bf16": ("w_edge", None, "pack"),
+            "rgb_to_relu1_bf16": ("w_edge", None, "pack")}
 # the kernels that read their input by TMA (the outputs are allocated here)
 _TMA_INPUT = ("final_to_rgb",)
 
@@ -406,6 +455,8 @@ def _conv(name: str, x: torch.Tensor, p: Packed, cins, cout: int,
     w = getattr(p, field)
     if field == "w_wg":          # an image per kind of block (conv_wg.cu)
         shape = ((4 if up else 1) * cout // 64, taps, x.shape[-1] // 64, 64, 64)
+    elif field == "w_edge":      # mma.sync B fragments (edge_mma.cu)
+        shape = (2, 4, 32, 8) if cout == 64 else (4, 2, 32, 8)
     elif taps is not None:       # f32 fragments, one k8 step a chunk
         shape = (x.shape[-1] // 8, taps, cout // 8, 32, 4)
     if w is None or (field != "w_hwio" and (w.dtype != p.w.dtype
@@ -494,10 +545,14 @@ def upconv_p2(x, p: Packed):
 #    _final_kernel :491): the decoder-final 64->3 conv, no ReLU, with the
 #    next stage's 1x1 RGB renorm folded into its weights (pack_final, the
 #    math of pack_final_rgb :121). Bytes-bound: 64 input channels read once
-#    per pixel by TMA into a 3-slot ring of half tiles (reflect halo repaired
+#    per pixel by TMA into a 3-slot ring of halo boxes (reflect halo repaired
 #    in shared memory) that a producer warp keeps filling, 3 written;
-#    persistent over 16 x 16 tiles, each of 8 warps 4 channels of a half, the
-#    8 warps' partial sums added once per tile.
+#    persistent over 16 x 16 tiles. f32: final_to_rgb_tma, each of 8 warps
+#    4 channels of a half on the FP32 cores, the 8 warps' partial sums added
+#    once per tile. bf16: final_to_rgb_mma (csrc/edge_mma.cu), every halo
+#    pixel times all 27 (tap, co) columns on mma.sync (A by ldmatrix from
+#    the ring slot, B = pack_edge's fragments in registers) into Z in shared
+#    memory, then one thread per output pixel sums its 9 taps.
 
 def final_to_rgb(x, p: Packed):
     """x (N, H, W, 64) -> conv3x3_reflect (N, H, W, 3), no ReLU; ``p`` from
@@ -510,8 +565,12 @@ def final_to_rgb(x, p: Packed):
 #    _entry_kernel :551): the encoder-entry 3->64 conv + bias + ReLU on the
 #    post-renorm RGB image. Bytes-bound on its 64-channel output: staged in
 #    shared memory and written once by TMA bulk stores, double-buffered so a
-#    tile's stores overlap the next tile's FMAs; the 3-channel input is read
-#    once by plain loads, one tile ahead.
+#    tile's stores overlap the next tile's products; the 3-channel input is
+#    read once by plain loads, one tile ahead. f32: rgb_to_relu1_tma, FFMA.
+#    bf16: rgb_to_relu1_mma (csrc/edge_mma.cu), an implicit GEMM on mma.sync
+#    (M = the tile's pixels, N = 64, K = 27 padded to 32), each lane's A
+#    gathered from the staged bf16 halo, B = pack_edge's fragments in
+#    registers.
 
 def rgb_to_relu1(x, p: Packed):
     """x (N, H, W, 3) -> relu(conv3x3_reflect) (N, H, W, 64)."""

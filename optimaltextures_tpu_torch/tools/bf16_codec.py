@@ -3,7 +3,7 @@ bf16 plain version at the eight 512-px roundtrip shapes, at batch 1 and at
 batch 128, with its times beside its bound and cuDNN's bf16 conv.
 
     python3 optimaltextures_tpu_torch/tools/bf16_codec.py [--root TREE]
-        [--seed N] [--reps R] [--batches 1 128]
+        [--seed N] [--reps R] [--batches 1 128] [--kernels NAME ...]
 
 The batch-1 inputs are made as ``chip_smoke.py`` phase 3 makes the f32
 ones: a plain decode -> encode roundtrip of the real depth-3 weights (here
@@ -12,6 +12,7 @@ stacks B copies of it, copy i rolled by (7 i, 13 i) pixels and scaled by
 0.75 + i / 2B, so no two images are equal and an image that reads another
 image's pixels shows. ``--root`` imports the port's package from another
 checkout of the repo, so two versions are timed by one script, in one call.
+``--kernels`` keeps the shapes of the kernels named (default: all five).
 
 For each kernel, shape and batch it prints:
 
@@ -144,10 +145,11 @@ def library_call(name, x, p):
     return lambda: F.conv2d(t, w, b)
 
 
-def check_and_time(seed: int, reps: int, card: str, batches=(1, 128)):
-    """Every bf16 kernel at every shape and batch: held against its plain
-    version (raises past 2^-7 x max|plain| or on a repeated launch that
-    differs), timed. Returns {(kernel, label, batch): row}."""
+def check_and_time(seed: int, reps: int, card: str, batches=(1, 128), kernels=None):
+    """Every bf16 kernel (of ``kernels``, default all) at every shape and
+    batch: held against its plain version (raises past 2^-7 x max|plain| or
+    on a repeated launch that differs), timed. Returns {(kernel, label,
+    batch): row}."""
     import torch
 
     from optimaltextures_tpu_torch.ops import codec
@@ -159,6 +161,8 @@ def check_and_time(seed: int, reps: int, card: str, batches=(1, 128)):
     rows = {}
     for batch in batches:
         for name, label, key, field, idx, kw in SHAPES:
+            if kernels is not None and name not in kernels:
+                continue
             p = getattr(sc, field) if idx is None else getattr(sc, field)[idx]
             x = stack(t[key], batch)
             kern = getattr(codec, name)
@@ -210,6 +214,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 128])
+    ap.add_argument("--kernels", nargs="+", choices=sorted({s[0] for s in SHAPES}),
+                    help="time only these kernels' shapes")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -227,7 +233,7 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"bf16_codec: {os.path.abspath(codec.__file__)} on {card}", flush=True)
     codec.build()
-    check_and_time(args.seed, args.reps, card, tuple(args.batches))
+    check_and_time(args.seed, args.reps, card, tuple(args.batches), args.kernels)
     return 0
 
 

@@ -50,24 +50,26 @@ SHAPES = {
 }
 
 
-def build_variants(out_dir: str) -> dict:
-    """Patch and compile every variant; returns {variant: library path}."""
+def build_variants(out_dir: str, source: str = "conv_wg", variants=VARIANTS) -> dict:
+    """Patch csrc/<source>.cu for every variant ({name: ((old, new), ...)},
+    each old text present once) and compile them, one nvcc each, all
+    started together; returns {name: library path}."""
     from optimaltextures_tpu_torch.ops import cuda_build
 
-    with open(os.path.join(cuda_build.CSRC_DIR, "conv_wg.cu")) as f:
+    with open(os.path.join(cuda_build.CSRC_DIR, source + ".cu")) as f:
         src = f.read()
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for name, patches in VARIANTS.items():
+    for name, patches in variants.items():
         text = src
         for old, new in patches:
             if text.count(old) != 1:
-                raise RuntimeError(f"wg_diag: '{old}' is not in csrc/conv_wg.cu once")
+                raise RuntimeError(f"'{old}' is not in csrc/{source}.cu once")
             text = text.replace(old, new)
-        cu = os.path.join(out_dir, f"conv_wg_{name}.cu")
+        cu = os.path.join(out_dir, f"{source}_{name}.cu")
         with open(cu, "w") as f:
             f.write(text)
-        lib = os.path.join(out_dir, f"libconv_wg_{name}.so")
+        lib = os.path.join(out_dir, f"lib{source}_{name}.so")
         procs[name] = (lib, subprocess.Popen(
             [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", lib, cu],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
@@ -75,7 +77,8 @@ def build_variants(out_dir: str) -> dict:
     for name, (lib, proc) in procs.items():
         out, err = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"wg_diag: nvcc failed on {name}:\n{err}{out}")
+            raise RuntimeError(f"nvcc failed on the {name} build of csrc/{source}.cu:"
+                               f"\n{err}{out}")
         libs[name] = lib
     return libs
 

@@ -682,9 +682,20 @@ _PLAIN_KW = {"rgb_to_relu1": dict(relu=True), "upconv_p2": dict(relu=True, up=Tr
     ("final_to_rgb", 64, {}, 1, (512, 512), False),
     ("final_to_rgb", 64, {}, 2, (17, 33), True),
     ("final_to_rgb", 64, {}, 3, (2, 37), False),
-    ("final_to_rgb", 64, {}, 128, (32, 32), False)])
+    ("final_to_rgb", 64, {}, 128, (32, 32), False),
+    # the mma.sync edge kernels' edges: one pixel past a 16-wide tile, H = 2,
+    # W = 2, both, at odd batches (final_to_rgb's reflect repair and its
+    # clamped last m16 tile; rgb_to_relu1's clipped TMA stores)
+    ("rgb_to_relu1", 3, {}, 1, (20, 33), False),
+    ("rgb_to_relu1", 3, {}, 3, (2, 37), True),
+    ("rgb_to_relu1", 3, {}, 3, (45, 2), False),
+    ("rgb_to_relu1", 3, {}, 1, (2, 2), True),
+    ("final_to_rgb", 64, {}, 1, (20, 33), True),
+    ("final_to_rgb", 64, {}, 3, (45, 2), False),
+    ("final_to_rgb", 64, {}, 3, (2, 2), True),
+    ("final_to_rgb", 64, {}, 5, (33, 17), False)])
 def test_bf16_kernels_match_plain(name, cin, kw, n, hw, wide):
-    """The bf16 kernels (wgmma in kernels 1-3; bf16 TMA maps in 4-5):
+    """The bf16 kernels (wgmma in kernels 1-3; mma.sync with TMA in 4-5):
     within 2^-7 x max|plain| of the bf16 plain version, in the plain
     version's dtype, counted under <name>_bf16."""
     _need_gpu()
@@ -714,7 +725,8 @@ def test_bf16_kernels_repeated_launches_agree(name, cin, kw):
     """Each output sums in a fixed order: 50 launches at 512^2 (the upconv's
     256^2 coarse input; 256^2 and 128^2 at 128 input channels, the path's
     shapes) equal the first bit for bit (a race in a kernel's ring of halo
-    rows shows so)."""
+    rows, in final_to_rgb's ring of halo boxes or its double-buffered Z, or
+    in rgb_to_relu1's staging shows so)."""
     _need_gpu()
     g = torch.Generator(device="cuda").manual_seed(17)
     side = (512 if name != "upconv_p2" else 256) // (2 if cin == 128 and name in (
@@ -790,6 +802,25 @@ def test_bf16_conv3x3_full_refuses_weights_without_the_wgmma_image(name):
               p._replace(w_wg=other.w_wg)):
         with pytest.raises(ValueError):
             getattr(codec, name)(x, q, **kw)
+    assert codec.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cin", [("rgb_to_relu1", 3), ("final_to_rgb", 64)])
+def test_bf16_edge_kernels_refuse_weights_without_w_edge(name, cin):
+    """The bf16 edge kernels take pack's mma.sync fragments (w_edge): a
+    Packed without them, with the other kernel's or with f32 ones raises
+    and counts no launch; nothing falls back."""
+    _need_gpu()
+    g = torch.Generator(device="cuda").manual_seed(37)
+    x, p = _bf16_case(name, 1, 16, 16, cin, g)
+    _, other = _bf16_case("final_to_rgb" if cin == 3 else "rgb_to_relu1", 1, 16, 16,
+                          64 if cin == 3 else 3, g)
+    before = dict(codec.LAUNCHES)
+    for q in (p._replace(w_edge=None), p._replace(w_edge=other.w_edge),
+              p._replace(w_edge=p.w_edge.float())):
+        with pytest.raises(ValueError, match="w_edge"):
+            getattr(codec, name)(x, q)
     assert codec.LAUNCHES == before
 
 
