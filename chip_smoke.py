@@ -18,8 +18,8 @@ Phases (each raises on failure; none catches its own):
      (final_to_rgb_mma and rgb_to_relu1_mma, csrc/edge_mma.cu) BF16 HMMA
      beside those and final_to_rgb_mma's ldmatrix (LDSM), and no bf16 FFMA
      edge kernel is left; no kernel of csrc/edge_mma.cu may spill; the
-     histogram's 128-bit loads and cluster barrier, and the remap's 128-bit
-     loads and stores;
+     histogram's 128-bit loads and cluster barrier, and the 128-bit loads
+     and stores of the remap and of the legacy fused apply;
   3. every codec kernel at its 512-px main-path shapes, on inputs made by a
      512-px decode->encode roundtrip of the real depth-3 weights: held
      against its plain PyTorch version (|kernel - plain| <= 2e-5 *
@@ -49,10 +49,10 @@ Phases (each raises on failure; none catches its own):
      512x512 pixel clouds of the color tail (C = 3) and the rotated relu3
      clouds of the 256-px pass (k3 there, N = 64^2). The histogram of both
      clouds of a step (one launch) must equal its plain version and
-     torch.histc exactly, the remap equal its plain version bit for bit,
-     the legacy fused apply (cdf_remap, on the plain histograms) be within
-     1e-5 * max|plain|; each timed by the device's own record (the
-     profiler's kernel time over R calls) beside the event-timed loop, the
+     torch.histc exactly, the remap and the legacy fused apply (cdf_remap,
+     on the plain histograms) equal their plain versions bit for bit; each
+     timed by the device's own record (the profiler's kernel time over R
+     calls, printed for each shape and summed) beside the event-timed loop, the
      wrapper's host microseconds a call, its plain version and, for the
      histogram, torch.histc called once per channel
      (optimaltextures_tpu_torch/tools/cdf_kernels.py); prints the k of
@@ -100,9 +100,10 @@ Phases (each raises on failure; none catches its own):
 
 The last two lines of standard output are the {"kernels": [...]} line (all
 nine kernels, each with its "design": ffma+tma, cluster-dsmem,
-smem-tables, simt, wgmma+tma or 3xtf32-mma; final_to_rgb and rgb_to_relu1
-also carry "device_ms", their profiler time at the 512^2 shape, and the
-three cdf kernels theirs summed over their three shapes; then the bf16
+smem-tables, smem-segments, wgmma+tma or 3xtf32-mma; final_to_rgb and
+rgb_to_relu1 also carry "device_ms", their profiler time at the 512^2
+shape, and the three cdf kernels theirs summed over their three shapes,
+with "device_ms_by_shape" (relu1, pixels, relu3) beside it; then the bf16
 function of kernels 1-5, "<name>_bf16" with "dtype": "bfloat16", designs
 wgmma-resident (conv3x3_p2_bf16, conv3x3_full_bf16 and upconv_p2_bf16,
 csrc/conv_wg.cu) and mma+tma (final_to_rgb_bf16 and rgb_to_relu1_bf16,
@@ -157,8 +158,9 @@ LIBRARIES = ("codec", "cdf", "conv64", "conv_wg", "edge_mma")
 # 64-channel side moved by TMA, wgmma fed by TMA, three TF32 mma.sync
 # products (hi*hi + hi*lo + lo*hi), a thread-block cluster per histogram
 # row reduced in distributed shared memory, the remap's segment tables
-# built once per block in shared memory, or scalar code on the CUDA cores
-# (cdf_remap: scans, searching, interpolating); the bf16 wide convs run on
+# built once per block in shared memory, cdf_remap's cdfs, remap and
+# segment tables built once per block with each sample's segment guessed
+# and verified; the bf16 wide convs run on
 # wgmma with their weights resident in shared memory, the bf16 narrow ones
 # on mma.sync with their weights in registers and their 64-channel side
 # moved by TMA
@@ -170,7 +172,7 @@ DESIGNS = {"conv64": "wgmma+tma", **{k: "3xtf32-mma" for k in TENSOR_CORE_CODEC}
            **{k + "_bf16": "wgmma-resident" for k in TENSOR_CORE_CODEC},
            **{k + "_bf16": "mma+tma" for k in EDGE_CODEC},
            "batched_histogram": "cluster-dsmem", "pwl_remap": "smem-tables",
-           "cdf_remap": "simt"}
+           "cdf_remap": "smem-segments"}
 # JAX's own max|bf16 - f32| gap on tests/test_torch_batch.py's inputs (64
 # px, batch 2, 2 passes, no PCA, injected rotations): the bound of every
 # bf16 run held against another run here
@@ -201,7 +203,9 @@ SASS_CHECKS = (("conv64", r"conv64_wgmma", (("HGMMA", "HGMMA"),)),
                ("batched_histogram", r"histogram_cluster",
                 (("LDG", "LDG.E.128"), ("UCGABAR", "UCGABAR_WAIT"))),
                ("pwl_remap", r"pwl_tables", (("LDG", "LDG.E.128"),
-                                             ("STG", "STG.E.128"))))
+                                             ("STG", "STG.E.128"))),
+               ("cdf_remap", r"cdf_segments", (("LDG", "LDG.E.128"),
+                                               ("STG", "STG.E.128"))))
 # kernels a redesign replaced: no instantiation may be left in the libraries
 SASS_GONE = (("conv3x3_full_bf16 on mma.sync", r"conv3x3_bf16ILi\d+ELi128E"),
              ("conv3x3_p2_bf16 on mma.sync", r"conv3x3_bf16ILi\d+ELi64E"),
@@ -435,19 +439,28 @@ def check_cdf_kernels(seed: int, reps: int, card: str):
     """Phase 4: the three cdf kernels at the cdf step's shapes (relu1 of the
     512-px pass, the color tail's pixels, relu3 of the 256-px pass) vs
     their plain versions, timed by the profiler's device time beside the
-    event-timed loop (tools/cdf_kernels.py). Returns the per-kernel summary
-    rows, summed over the three shapes; the cdf_remap row carries the
-    launches of this phase."""
+    event-timed loop (tools/cdf_kernels.py); cdf_remap must equal its plain
+    version bit for bit. Returns the per-kernel summary rows, summed over
+    the three shapes, with each shape's device time apart; the cdf_remap
+    row carries the launches of this phase."""
     from optimaltextures_tpu_torch.ops import cdf
     from optimaltextures_tpu_torch.tools import cdf_kernels
 
     cdf.reset_launches()
     timed, _, _ = cdf_kernels.time_cdf_kernels(seed, reps, card)
     rows = {}
-    for (name, _), r in timed.items():
+    for (name, label), r in timed.items():
+        if name == "cdf_remap" and not r["equal"]:
+            raise AssertionError(f"cdf_remap [{label}]: not bit-equal to its plain "
+                                 f"version (max diff {r['err']:.3e})")
         _add_row(rows, name, r["err"], r["ms"], r["plain_ms"], r["lib_ms"],
                  r["t_flops"], r["t_bytes"])
         rows[name]["device_ms"] = rows[name].get("device_ms", 0.0) + r["device_ms"]
+        rows[name].setdefault("device_ms_by_shape", {})[label.split()[0]] = r["device_ms"]
+    for name, r in rows.items():
+        print(f"cdf {name} device ms by shape: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in r["device_ms_by_shape"].items())
+              + f"; summed {r['device_ms']:.4f}", flush=True)
     rows["cdf_remap"]["launches"] = cdf.LAUNCHES["cdf_remap"]
     return rows
 
@@ -1014,6 +1027,8 @@ def main() -> int:
             "bound_by": "operations" if r["t_flops"] >= r["t_bytes"] else "bytes",
             "library_ms": r["lib_ms"],
             **({"device_ms": r["device_ms"]} if "device_ms" in r else {}),
+            **({"device_ms_by_shape": r["device_ms_by_shape"]}
+               if "device_ms_by_shape" in r else {}),
             **({"dtype": "bfloat16"} if name.endswith("_bf16") else {})})
     print(f"device: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -15,10 +15,11 @@
 //
 // The cdf step's shapes run from a few long rows (the color tail's 3
 // channels of 512^2 pixels) to many short ones (relu3: 2k rows of 64^2 at
-// the 256-px pass), so the histogram and the remap split each row over
-// as many blocks as fill the card (split_rows) and read it with 16-byte
-// loads, several in flight per thread; a row whose start is not 16-byte
-// aligned (row c starts at float c * N) takes a scalar head and tail.
+// the 256-px pass), so every kernel splits each row over as many blocks
+// as fill the card (split_rows) and reads it with 16-byte loads, several
+// in flight per thread; a row whose start is not 16-byte aligned (row c
+// starts at float c * N) takes a scalar head and tail. The two remaps
+// share their sample loop (map_run) and differ in the per-sample map.
 //
 // Bin indices must equal the plain PyTorch versions' (ops/cdf.py) and
 // torch.histc's bit for bit, so every step of the index and segment
@@ -48,9 +49,9 @@ constexpr int kVecUnroll = 4;
 // split_rows: a grid of ~4 blocks an SM on 132 SMs, each block at least
 // this many samples, so that its table work stays small beside them: the
 // histogram's (zeroing 8 tables, reducing them, the cluster's barriers)
-// costs more than the remap's (one table build). Chosen on the card from
+// costs more than the remaps' (one table build). Chosen on the card from
 // path A's cdf-kernel time (4096 / 8192 / 16384 for the histogram, 4096 /
-// 8192 for the remap).
+// 8192 for pwl_remap); cdf_remap takes pwl_remap's.
 constexpr int kTargetBlocks = 4 * 132;
 constexpr int kMinHistSamples = 16384;
 constexpr int kMinRemapSamples = 4096;
@@ -193,25 +194,47 @@ histogram_cluster(HistCloud a, HistCloud b, const float* __restrict__ lo,
   cluster.sync();  // no block leaves while another still reads its table
 }
 
-// a channel's remap: its segment table in shared memory (slope, right
-// edge xp, value fp per segment), lo, the safe step, and whether the range
-// is wider than 0
+// the block's run of its row through `map`: the head/tail sample e (read
+// into xe) and the float4s [r.v0, r.v1), whose first batch is already in
+// q; the next batch loads while this one maps, and every store is 16 bytes
+// wide (y = the output row, w its float4s past the head)
+template <class Map>
+__device__ __forceinline__ void map_run(const Map& map, const RowSplit& r,
+                                        const float4* v, float4* w, float* y,
+                                        int e, float xe, float4 (&q)[kVecUnroll]) {
+  if (e >= 0) y[e] = map(xe);
+  constexpr int kStride = kThreads * kVecUnroll;
+  for (int i = r.v0 + threadIdx.x; i < r.v1; i += kStride) {
+    float4 next[kVecUnroll];
+    load_batch(next, v, i + kStride, r.v1);
+#pragma unroll
+    for (int u = 0; u < kVecUnroll; ++u) {
+      if (i + u * kThreads < r.v1)
+        w[i + u * kThreads] = make_float4(map(q[u].x), map(q[u].y), map(q[u].z),
+                                          map(q[u].w));
+      q[u] = next[u];
+    }
+  }
+}
+
+// pwl_remap's map: its segment table in shared memory (slope, right edge
+// xp, value fp per segment), lo, the safe step, and whether the range is
+// wider than 0. Segment j = clip(ceil((x - lo) / step_safe) - 1, 0, 255),
+// then slope[j] * (x - xp[j]) + fp[j]; the last segment maps to fp[255], a
+// degenerate range to fp[0].
 struct Segments {
   const float4* seg;
   float lo, step_safe;
   bool live;
-};
 
-// segment j = clip(ceil((x - lo) / step_safe) - 1, 0, 255), then
-// slope[j] * (x - xp[j]) + fp[j]; the last segment maps to fp[255], a
-// degenerate range to fp[0]
-__device__ __forceinline__ float pwl_map(const Segments& sg, float x) {
-  if (!sg.live) return sg.seg[0].z;
-  const float u = __fdiv_rn(__fsub_rn(x, sg.lo), sg.step_safe);
-  const int j = min(max(__float2int_rz(ceilf(u)) - 1, 0), kBins - 1);
-  const float4 e = sg.seg[j];
-  return j >= kBins - 1 ? e.z : __fadd_rn(__fmul_rn(e.x, __fsub_rn(x, e.y)), e.z);
-}
+  __device__ __forceinline__ float operator()(float x) const {
+    if (!live) return seg[0].z;
+    const float u = __fdiv_rn(__fsub_rn(x, lo), step_safe);
+    const int j = min(max(__float2int_rz(ceilf(u)) - 1, 0), kBins - 1);
+    const float4 e = seg[j];
+    return j >= kBins - 1 ? e.z : __fadd_rn(__fmul_rn(e.x, __fsub_rn(x, e.y)), e.z);
+  }
+};
 
 // grid: `parts` blocks per channel row, each a long run of the row. The
 // block first builds its channel's segment table in shared memory, one
@@ -263,90 +286,154 @@ pwl_tables(const float* __restrict__ t, const float* __restrict__ remapped,
   }
   __syncthreads();
 
-  const Segments sg{seg, l, s_safe, width > 0.0f};
-  if (e >= 0) y[e] = pwl_map(sg, xe);
-  constexpr int kStride = kThreads * kVecUnroll;
-  for (int i = r.v0 + tid; i < r.v1; i += kStride) {
-    float4 next[kVecUnroll];  // the next batch is loading while this one maps
-    load_batch(next, v, i + kStride, r.v1);
-#pragma unroll
-    for (int u = 0; u < kVecUnroll; ++u) {
-      if (i + u * kThreads < r.v1)
-        w[i + u * kThreads] = make_float4(pwl_map(sg, q[u].x), pwl_map(sg, q[u].y),
-                                          pwl_map(sg, q[u].z), pwl_map(sg, q[u].w));
-      q[u] = next[u];
-    }
-  }
+  map_run(Segments{seg, l, s_safe, width > 0.0f}, r, v, w, y, e, xe, q);
 }
 
-// the reference's interp on a non-decreasing 256-entry table xp (shared
-// memory) with values fp: i = min(#(xp < x), 255), found by a branchless
-// binary search (on sorted nodes it equals the TPU kernel's compare-count;
-// its 8 steps reach at most 255, which is the clip), idx_next =
-// min(i + 1, 255), then the linear map with the two-stage non-finite
-// fallback f0 -> f1 -> fp[i] (duplicate nodes divide by zero).
-__device__ __forceinline__ float interp256(float x, const float* xp,
-                                           const float* fp) {
+// the reference's index on a non-decreasing 256-entry table xp (shared
+// memory): min(#(xp < x), 255), by a branchless binary search (on sorted
+// nodes it equals the TPU kernel's compare-count; its 8 steps reach at
+// most 255, which is the clip)
+__device__ __forceinline__ int search256(float x, const float* xp) {
   int i = 0;
 #pragma unroll
   for (int step = kBins / 2; step > 0; step >>= 1)
     if (xp[i + step - 1] < x) i += step;
-  const int nx = min(i + 1, kBins - 1);
-  const float xp_i = xp[i], xp_n = xp[nx], fp_i = fp[i], fp_n = fp[nx];
-  const float slope = __fdiv_rn(__fsub_rn(fp_n, fp_i), __fsub_rn(xp_n, xp_i));
+  return i;
+}
+
+// the reference's linear map on segment i of nodes xp with values fp,
+// i' = min(i + 1, 255), with the two-stage non-finite fallback f0 -> f1 ->
+// fp[i] (duplicate nodes divide by zero)
+__device__ __forceinline__ float lerp_fallback(float x, float slope, float xp_i,
+                                               float fp_i, float xp_n, float fp_n) {
   const float f0 = __fadd_rn(__fmul_rn(slope, __fsub_rn(x, xp_i)), fp_i);
   if (isfinite(f0)) return f0;
   const float f1 = __fadd_rn(__fmul_rn(slope, __fsub_rn(x, xp_n)), fp_n);
   return isfinite(f1) ? f1 : fp_i;
 }
 
-// samples per cdf_remap block: 16 per thread, so each block's table build
-// (two scans and 256 table queries) is shared by 4096 samples
-constexpr int kRemapChunk = 4096;
+// cdf_remap's map: interp(x; edges -> remapped) with the reference's index
+// i = min(#(edges < x), 255). seg[j] = (slope_j, edges[j], remapped[j],
+// edges[j-1] or -inf for j = 0), slope_j the per-sample form's slope on
+// segment j, j' = min(j + 1, 255) (NaN for j = 255, as there). The guess
+// j = clip(ceil((x - lo) / step_safe) - 1, 0, 255) is i exactly when
+// edges[j-1] < x (true for j = 0) and x <= edges[j] (or j = 255), since the
+// edges never decrease; a sample that fails the check (within a rounding
+// of an edge, or on a row whose f32 edges collapse) takes the binary
+// search. seg[j'] is read only when f0 is not finite.
+struct GuessedSegments {
+  const float4* seg;
+  const float* edges;
+  float lo, step_safe;
 
-// grid (ceil(N / kRemapChunk), C). Each block builds its channel's tables in
-// shared memory: both cdfs (inclusive scans of the counts, divided by the
-// total; integer counts below 2^24 sum exactly in any order), the right
-// edges lo + j * (width / 256), j = 1..256 (lo where width <= 0), and the
-// cdf -> cdf remap table remapped[i] = interp(t_cdf[i]; s_cdf -> edges).
-// Then every sample x of its chunk maps to interp(x; edges -> remapped).
-__global__ void __launch_bounds__(kThreads)
-cdf_remap_kernel(const float* __restrict__ t, const float* __restrict__ t_hist,
-                 const float* __restrict__ s_hist, const float* __restrict__ lo,
-                 const float* __restrict__ hi, float* __restrict__ out, int n) {
-  __shared__ float t_cdf[kBins], s_cdf[kBins], edges[kBins], remapped[kBins];
-  const int c = blockIdx.y;
-  const int j = threadIdx.x;  // one thread per table entry (kThreads == kBins)
-  t_cdf[j] = t_hist[c * kBins + j];
-  s_cdf[j] = s_hist[c * kBins + j];
-  __syncthreads();
-  for (int off = 1; off < kBins; off <<= 1) {  // Hillis-Steele scans
-    const float a = j >= off ? t_cdf[j - off] : 0.0f;
-    const float b = j >= off ? s_cdf[j - off] : 0.0f;
-    __syncthreads();
-    t_cdf[j] = __fadd_rn(t_cdf[j], a);
-    s_cdf[j] = __fadd_rn(s_cdf[j], b);
-    __syncthreads();
+  __device__ __forceinline__ float operator()(float x) const {
+    const float u = __fdiv_rn(__fsub_rn(x, lo), step_safe);
+    int i = min(max(__float2int_rz(ceilf(u)), 1), kBins) - 1;
+    float4 s = seg[i];
+    if (!(s.w < x && (x <= s.y || i == kBins - 1))) {
+      i = search256(x, edges);
+      s = seg[i];
+    }
+    const float f0 = __fadd_rn(__fmul_rn(s.x, __fsub_rn(x, s.y)), s.z);
+    if (isfinite(f0)) return f0;
+    const float4 nx = seg[min(i + 1, kBins - 1)];
+    const float f1 = __fadd_rn(__fmul_rn(s.x, __fsub_rn(x, nx.y)), nx.z);
+    return isfinite(f1) ? f1 : s.z;
   }
-  const float t_total = t_cdf[kBins - 1], s_total = s_cdf[kBins - 1];
+};
+
+// grid: `parts` blocks per channel row (split_rows), each a long run of
+// the row, read and written 16 bytes at a time (the wrapper gives `out`
+// t's alignment). Each block builds its channel's tables once, one thread
+// per bin, while its first samples load: both cdfs by warp-shuffle
+// inclusive scans and one pass over the 8 warp totals (integer counts
+// below 2^24 sum exactly in any order), divided by the total; the right
+// edges lo + (j+1) * (width / 256) (lo where width <= 0); remapped[j] =
+// interp(t_cdf[j]; s_cdf -> edges) by binary search; then the segment
+// table of GuessedSegments. Every operation is the plain version's, in its
+// rounding, so the output is bit-equal to it.
+__global__ void __launch_bounds__(kThreads)
+cdf_segments(const float* __restrict__ t, const float* __restrict__ t_hist,
+             const float* __restrict__ s_hist, const float* __restrict__ lo,
+             const float* __restrict__ hi, float* __restrict__ out, int n,
+             int parts) {
+  __shared__ float4 seg[kBins];
+  __shared__ float s_cdf[kBins], edges[kBins], remapped[kBins];
+  __shared__ float totals[2][kWarps];
+  const int row = blockIdx.x / parts;
+  const int part = blockIdx.x - row * parts;
+  const int tid = threadIdx.x;  // one thread per bin (kThreads == kBins)
+  const int lane = tid & 31, warp = tid >> 5;
+  const float* x = t + static_cast<size_t>(row) * n;
+  float* y = out + static_cast<size_t>(row) * n;
+  const RowSplit r = split_row(x, n, part, parts);
+  const float4* v = reinterpret_cast<const float4*>(x + r.head);
+  float4* w = reinterpret_cast<float4*>(y + r.head);
+  // the first samples and the head/tail sample are in flight while the
+  // tables are built
+  float4 q[kVecUnroll];
+  load_batch(q, v, r.v0 + tid, r.v1);
+  const int e = part == 0 ? edge_sample(r, n, tid) : -1;
+  const float xe = e >= 0 ? x[e] : 0.0f;
+
+  float tc = t_hist[static_cast<size_t>(row) * kBins + tid];
+  float sc = s_hist[static_cast<size_t>(row) * kBins + tid];
+  const float l = lo[row];
+  const float width = __fsub_rn(hi[row], l);
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float a = __shfl_up_sync(0xffffffffu, tc, off);
+    const float b = __shfl_up_sync(0xffffffffu, sc, off);
+    if (lane >= off) {
+      tc = __fadd_rn(tc, a);
+      sc = __fadd_rn(sc, b);
+    }
+  }
+  if (lane == 31) {
+    totals[0][warp] = tc;
+    totals[1][warp] = sc;
+  }
   __syncthreads();
-  t_cdf[j] = __fdiv_rn(t_cdf[j], t_total);
-  s_cdf[j] = __fdiv_rn(s_cdf[j], s_total);
-  const float l = lo[c];
-  const float width = __fsub_rn(hi[c], l);
-  edges[j] = width > 0.0f
-      ? __fadd_rn(l, __fmul_rn(static_cast<float>(j + 1), __fdiv_rn(width, 256.0f)))
-      : l;
-  __syncthreads();
-  remapped[j] = interp256(t_cdf[j], s_cdf, edges);
+  float t_total = 0.0f, s_total = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kWarps; ++k) {
+    const float a = totals[0][k], b = totals[1][k];
+    if (k < warp) {
+      tc = __fadd_rn(tc, a);
+      sc = __fadd_rn(sc, b);
+    }
+    t_total = __fadd_rn(t_total, a);
+    s_total = __fadd_rn(s_total, b);
+  }
+  const float t_cdf = __fdiv_rn(tc, t_total);
+  s_cdf[tid] = __fdiv_rn(sc, s_total);
+  const float step = __fdiv_rn(width, 256.0f);
+  const float edge =
+      width > 0.0f ? __fadd_rn(l, __fmul_rn(static_cast<float>(tid + 1), step)) : l;
+  edges[tid] = edge;
   __syncthreads();
 
-  const float* row = t + static_cast<size_t>(c) * n;
-  float* orow = out + static_cast<size_t>(c) * n;
-  const int start = blockIdx.x * kRemapChunk;
-  const int stop = min(start + kRemapChunk, n);
-  for (int i = start + j; i < stop; i += kThreads)
-    orow[i] = interp256(row[i], edges, remapped);
+  {  // remapped[tid] = interp(t_cdf[tid]; s_cdf -> edges)
+    const int i = search256(t_cdf, s_cdf);
+    const int nx = min(i + 1, kBins - 1);
+    const float slope = __fdiv_rn(__fsub_rn(edges[nx], edges[i]),
+                                  __fsub_rn(s_cdf[nx], s_cdf[i]));
+    remapped[tid] = lerp_fallback(t_cdf, slope, s_cdf[i], edges[i], s_cdf[nx],
+                                  edges[nx]);
+  }
+  __syncthreads();
+  {
+    const int nx = min(tid + 1, kBins - 1);
+    const float fp = remapped[tid];
+    const float slope =
+        __fdiv_rn(__fsub_rn(remapped[nx], fp), __fsub_rn(edges[nx], edge));
+    const float prev = tid > 0 ? edges[tid - 1] : -__int_as_float(0x7f800000);
+    seg[tid] = make_float4(slope, edge, fp, prev);  // -inf: below every x
+  }
+  __syncthreads();
+
+  map_run(GuessedSegments{seg, edges, l, step > 0.0f ? step : 1.0f}, r, v, w, y, e,
+          xe, q);
 }
 
 }  // namespace
@@ -398,14 +485,17 @@ int optex_pwl_remap(const float* t, const float* remapped, const float* lo,
   return static_cast<int>(cudaGetLastError());
 }
 
-// t (C, N), t_hist/s_hist (C, 256), lo/hi (C,) -> out (C, N)
+// t (C, N), t_hist/s_hist (C, 256), lo/hi (C,) -> out (C, N); out must
+// share t's alignment modulo 16 bytes (the 16-byte stores follow t's rows)
 int optex_cdf_remap(const float* t, const float* t_hist, const float* s_hist,
                     const float* lo, const float* hi, float* out, int c, int n,
                     void* stream) {
-  if (c <= 0 || n <= 0 || c > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kRemapChunk - 1) / kRemapChunk, c);
-  cdf_remap_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      t, t_hist, s_hist, lo, hi, out, n);
+  if (c <= 0 || n <= 0 ||
+      ((reinterpret_cast<uintptr_t>(t) ^ reinterpret_cast<uintptr_t>(out)) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int parts = split_rows(c, n, 1 << 16, kMinRemapSamples);
+  cdf_segments<<<c * parts, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      t, t_hist, s_hist, lo, hi, out, n, parts);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,12 +30,14 @@ shared-memory atomics into per-warp sub-histograms and sums the cluster's
 tables through distributed shared memory into plain float stores (exact:
 counts stay below 2^24; no zeroed output, no global atomics). The remap
 builds its channel's segment table (edges, values, slopes) once per block
-in shared memory and costs one division and one table read a sample. Both
-split each row over as many blocks as fill the card and read it with
-16-byte loads. The fused apply builds its channel's cdfs, edges and remap
-table in shared memory in every block and finds each sample's segment by
-a binary search over the monotone edges. Each reads its samples once and
-writes its result once.
+in shared memory and costs one division and one table read a sample. The
+fused apply builds its channel's cdfs (warp-shuffle scans), edges, remap
+table and segment table once per block the same way, and maps each sample
+through a guessed segment that it verifies against the two edges around
+it (exact, since the edges never decrease), with a binary search over the
+edges only where the guess misses. All three split each row over as many
+blocks as fill the card and read it with 16-byte loads. Each reads its
+samples once and writes its result once.
 """
 
 from __future__ import annotations
@@ -190,9 +192,10 @@ def build() -> None:
 
 
 def _check(name: str, rows: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
-           *others: torch.Tensor) -> bool:
+           *others: torch.Tensor, max_rows: int = 65535) -> bool:
     """Validate the operands; True when they lie on the CPU (plain version),
-    False for CUDA (kernel). Anything else raises."""
+    False for CUDA (kernel, at most ``max_rows`` rows). Anything else
+    raises."""
     if rows.dim() != 2 or rows.shape[0] < 1 or rows.shape[1] < 1:
         raise ValueError(f"{name}: samples must be (C, N), got {tuple(rows.shape)}")
     c = rows.shape[0]
@@ -207,9 +210,19 @@ def _check(name: str, rows: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
         raise ValueError(f"{name}: no kernel for device {rows.device}")
     if any(o.dtype != torch.float32 for o in (rows, lo, hi, *others)):
         raise TypeError(f"{name}: the kernel takes float32 only")
-    if c > 65535:
-        raise ValueError(f"{name}: at most 65535 channels, got {c}")
+    if c > max_rows:
+        raise ValueError(f"{name}: at most {max_rows} channels, got {c}")
     return False
+
+
+def _empty_aligned_like(t: torch.Tensor) -> torch.Tensor:
+    """An empty (C, N) tensor with ``t``'s alignment modulo 16 bytes, so a
+    kernel's 16-byte loads of t and stores of the output line up on every
+    row (t is aligned on the path; a view that is not gets an output with
+    the same offset)."""
+    c, n = t.shape
+    off = (t.data_ptr() % 16) // t.element_size()
+    return torch.empty(c * n + off, device=t.device, dtype=t.dtype)[off:].view(c, n)
 
 
 def _launch(name: str, device, *args) -> None:
@@ -280,11 +293,7 @@ def pwl_remap(t: torch.Tensor, remapped: torch.Tensor, lo: torch.Tensor,
     c, n = t.shape
     t, remapped = t.contiguous(), remapped.contiguous()
     lo, hi = lo.contiguous(), hi.contiguous()
-    # out shares t's alignment modulo 16 bytes, so the kernel's 16-byte
-    # loads and stores line up on every row (t is aligned on the path; a
-    # view that is not gets an output with the same offset)
-    off = (t.data_ptr() % 16) // t.element_size()
-    out = torch.empty(c * n + off, device=t.device, dtype=t.dtype)[off:].view(c, n)
+    out = _empty_aligned_like(t)
     _launch("pwl_remap", t.device, t.data_ptr(), remapped.data_ptr(),
             lo.data_ptr(), hi.data_ptr(), out.data_ptr(), c, n)
     return out
@@ -298,18 +307,19 @@ def cdf_remap(t: torch.Tensor, t_hist: torch.Tensor, s_hist: torch.Tensor,
               lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     """(C, N) target samples + (C, 256) target and source histograms on the
     shared range (C,) -> the matched (C, N) samples (see
-    :func:`cdf_remap_plain`). Any C and N: no padding."""
+    :func:`cdf_remap_plain`), bit-equal to it. Any C and N: no padding, and
+    no 65535-channel limit (the grid is one-dimensional)."""
     c = t.shape[0] if t.dim() == 2 else -1
     for name, h in (("t_hist", t_hist), ("s_hist", s_hist)):
         if tuple(h.shape) != (c, BINS):
             raise ValueError(f"cdf_remap: {name} must be (C, {BINS}), got "
                              f"{tuple(h.shape)}")
-    if _check("cdf_remap", t, lo, hi, t_hist, s_hist):
+    if _check("cdf_remap", t, lo, hi, t_hist, s_hist, max_rows=2**31 - 1):
         return cdf_remap_plain(t, t_hist, s_hist, lo, hi)
     n = t.shape[1]
     t, t_hist, s_hist = t.contiguous(), t_hist.contiguous(), s_hist.contiguous()
     lo, hi = lo.contiguous(), hi.contiguous()
-    out = torch.empty_like(t)
+    out = _empty_aligned_like(t)
     _launch("cdf_remap", t.device, t.data_ptr(), t_hist.data_ptr(),
             s_hist.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(), c, n)
     return out

@@ -485,30 +485,65 @@ def test_small_transfer_opt_run_on_gpu_matches_cpu():
 # the legacy kernels: cdf_remap (csrc/cdf.cu) and conv64 (csrc/conv64.cu)
 
 
-@pytest.mark.cuda
-# odd N below one block, C = 3, ragged C and N, a degenerate shared range,
-# a top-edge pile, and the 512-px relu1 shape
-@pytest.mark.parametrize("c,n,const", [
-    (3, 262144, None), (3, 1001, 1), (5, 4099, None), (13, 70001, 4),
-    (1, 300, None), (24, 262144, None)])
-def test_cdf_remap_kernel_matches_plain(c, n, const):
-    _need_gpu()
-    t, _, _ = _rows(c, n, 3 * c + n, pile=True)
+def _cdf_remap_case(c, n, const=None, offset=0, collapse=None):
+    """Target rows (a top-edge pile in row 0; ``offset`` floats past a
+    16-byte boundary), source rows, their shared ranges and their
+    plain histograms (the histogram kernel takes at most 65535 rows).
+    ``const``: a degenerate shared range in that row;
+    ``collapse``: that row moved to 1e6 at a spread of about 1, where
+    the 256 f32 edges collapse to about a hundred distinct values."""
+    t, _, _ = _rows(c, n, 3 * c + n, pile=True, offset=offset)
     s, _, _ = _rows(c, n + 91, 5 * c + n)
     if const is not None:
         t[const] = -1.0
-        s[const] = -1.0                  # a degenerate shared range
+        s[const] = -1.0
+    if collapse is not None:
+        t[collapse] = t[collapse] * 0.5 + 1e6
+        s[collapse] = s[collapse] * 0.5 + 1e6
     lo = torch.minimum(t.min(dim=1).values, s.min(dim=1).values)
     hi = torch.maximum(t.max(dim=1).values, s.max(dim=1).values)
-    t_hist = cdf.batched_histogram(t, lo, hi)
-    s_hist = cdf.batched_histogram(s, lo, hi)
+    return t, cdf.histogram_plain(t, lo, hi), cdf.histogram_plain(s, lo, hi), lo, hi
+
+
+@pytest.mark.cuda
+# odd N below one block, C = 3, ragged C and N, a degenerate shared range,
+# a top-edge pile, the 512-px relu1 and the 256-px relu3 shapes, a row
+# whose f32 edges collapse, rows 1 float past a 16-byte boundary, and more
+# rows than a grid's y dimension takes
+@pytest.mark.parametrize("c,n,const,offset,collapse", [
+    (3, 262144, None, 0, None), (3, 1001, 1, 0, None), (5, 4099, None, 0, None),
+    (13, 70001, 4, 0, None), (1, 300, None, 0, None), (24, 262144, None, 0, None),
+    (179, 4096, None, 0, None), (5, 4099, None, 0, 2), (24, 262144, None, 1, 5),
+    (7, 4099, 3, 1, None), (70000, 5, 3, 0, None)])
+def test_cdf_remap_kernel_matches_plain(c, n, const, offset, collapse):
+    """Bit-equal: the kernel's every operation is the plain version's, in
+    its rounding (the guessed segment is verified; the cdf sums are exact)."""
+    _need_gpu()
+    t, t_hist, s_hist, lo, hi = _cdf_remap_case(c, n, const, offset, collapse)
+    assert t.data_ptr() % 16 == 4 * offset
     before = cdf.LAUNCHES["cdf_remap"]
     got = cdf.cdf_remap(t, t_hist, s_hist, lo, hi)
     ref = cdf.cdf_remap_plain(t, t_hist, s_hist, lo, hi)
     torch.cuda.synchronize()
     assert cdf.LAUNCHES["cdf_remap"] == before + 1
+    assert got.shape == t.shape and got.is_contiguous()
+    assert got.data_ptr() % 16 == t.data_ptr() % 16
     assert bool(torch.isfinite(got).all())
-    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(got, ref)
+    if const is not None:
+        assert bool((got[const] == got[const, 0]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n", [(24, 262144), (3, 262144), (179, 4096)])
+def test_cdf_remap_repeated_launches_agree(c, n):
+    """100 launches give the first launch's output bit for bit."""
+    _need_gpu()
+    t, t_hist, s_hist, lo, hi = _cdf_remap_case(c, n, collapse=c - 1)
+    first = cdf.cdf_remap(t, t_hist, s_hist, lo, hi)
+    differ = sum(not torch.equal(cdf.cdf_remap(t, t_hist, s_hist, lo, hi), first)
+                 for _ in range(100))
+    assert differ == 0
 
 
 @pytest.mark.cuda
