@@ -89,12 +89,30 @@ Phases (each raises on failure; none catches its own):
      batch-8 bf16 run against the same run in f32 (same noise and injected
      rotations), held to 0.1523, JAX's own bf16-vs-f32 gap on the CPU
      parity test's inputs (tests/test_torch_batch.py);
+  6c. the rest of the single-device Synthesizer at 512 px, launches
+     counted as in phase 6: path D, out_width 768 (cold and warm, the pass
+     plan printed, output (1, 512, 768, 3), the main path's f32 codec
+     launches); path E, an init image (docs/samples/graffiti_sort_512.png)
+     through api.run_files (the main path's launches); two runs of one
+     Synthesizer with a styles_token (the second dispatches no style prep
+     and equals the first within 1e-6), run(quantize_uint8=True) equal to
+     the host formula on the float run, and low-memory prep
+     (_PREP_PREFETCH_BYTES = 0) within 1e-6 of the normal run; path F,
+     pca_bucket 16 then pca_traced_k (the widths beside the main path's;
+     the traced run with transport.choose_k made to raise); path G,
+     cov_propagation=False (wall and |G - main| beside the main path,
+     channel means within 0.05); path H, batch 256 in bf16 in chunks of
+     128, cold and warm (walls, images/s, peak memory, the bf16 codec
+     launches twice the batch-1 path's, no f32 one, 256 distinct images),
+     then one unchunked batch-256 run, whose peak memory must be higher;
   7. 64-px runs on the GPU against the same runs on the CPU (the kernels'
      plain versions), with the same inputs, injected rotations and mixing
      masks: the main path and chol mixing (max |gpu - cpu| <= 1e-3), cdf
      synthesis and cdf mixing (by distribution: cdf mode is chaotic at
      pass granularity) and transfer + opt (mean <= 3e-3, max <= 5e-2); and
      the main path at batch 2 in bf16 (max <= 0.1523, the bound of 6b);
+     64 x 128 out_width, an init image, cov_propagation=False and batch 4
+     in chunks of 2 in f32 (each max <= 1e-3);
   8. the CLI on a style file from docs/samples/, and mixing two (needs
      Pillow).
 
@@ -133,6 +151,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SAMPLE_STYLE = os.path.join(REPO, "docs", "samples", "graffiti_cholhist_256.png")
 SAMPLE_STYLE_B = os.path.join(REPO, "docs", "samples",
                               "zebra_pattern_lava_mix3_256.png")
+INIT_IMAGE = os.path.join(REPO, "docs", "samples", "graffiti_sort_512.png")
 
 # per kernel: its TPU original (file:line of the pallas_call wrapper)
 REPLACES = {
@@ -593,7 +612,11 @@ def expected_counts(cfg) -> dict:
         steps = sum(map(sum, table)) + mixing_matches(cfg)
     if cfg.color_transfer == "opt":
         steps += core.COLOR_STEPS
-    codec_counts = _expected_launches(depths, cfg.passes)
+    # a batch_chunk run launches every codec kernel once per chunk
+    chunks = (cfg.batch // cfg.batch_chunk
+              if cfg.batch_chunk and cfg.batch > cfg.batch_chunk else 1)
+    codec_counts = {k: v * chunks for k, v in
+                    _expected_launches(depths, cfg.passes).items()}
     suffix = "_bf16" if cfg.conv_dtype == "bfloat16" else ""
     return {**{k: 0 for k in codec_counts}, **{k + "_bf16": 0 for k in codec_counts},
             **{k + suffix: v for k, v in codec_counts.items()},
@@ -601,30 +624,35 @@ def expected_counts(cfg) -> dict:
             "cdf_remap": 0, "conv64": 0}
 
 
-def drive_path(name: str, cfg, styles, content=None, labels=("cold", "warm")):
-    """Run ``cfg`` through core.synthesize once per label, each run's launch
-    counts set to 0 just before it and checked just after. Returns the
-    last run's counts, the walls, the last output (numpy) and the peak
-    device memory of each run."""
+def drive_path(name: str, cfg, styles, content=None, labels=("cold", "warm"),
+               run=None):
+    """Run ``cfg`` through core.synthesize (or ``run()``, which returns the
+    output and its seconds) once per label, each run's launch counts set to
+    0 just before it and checked just after. Returns the last run's counts,
+    the walls, the last output (numpy) and the peak device memory of each
+    run."""
     import torch
 
     from optimaltextures_tpu_torch import core
 
     expected = expected_counts(cfg)
     launches, walls, peaks = None, [], []
-    shape = (1 if content is not None else cfg.batch, cfg.size, cfg.size, 3)
+    shape = ((1, cfg.size, cfg.size, 3) if content is not None else
+             (cfg.batch, cfg.size, cfg.out_width or cfg.size, 3))
+    if run is None:
+        run = lambda: core.synthesize(cfg, styles, content, device="cuda")
     for label in labels:
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
-        out, seconds = core.synthesize(cfg, styles, content, device="cuda")
+        out, seconds = run()
         launches = _counts()
         peaks.append(torch.cuda.max_memory_allocated())
-        o = out.cpu().numpy()
+        o = out if isinstance(out, np.ndarray) else out.cpu().numpy()
         del out
         walls.append(seconds)
-        print(f"{name} ({label}): {seconds:.4f} s, output {o.shape}, range "
-              f"[{o.min():.4f}, {o.max():.4f}], launches {launches}",
-              flush=True)
+        print(f"{name} ({label}): {seconds:.4f} s, peak {peaks[-1] / 2**30:.2f} "
+              f"GiB, output {o.shape}, range [{o.min():.4f}, {o.max():.4f}], "
+              f"launches {launches}", flush=True)
         if o.shape != shape or not np.isfinite(o).all():
             raise AssertionError(f"{name}: output {o.shape} is not finite {shape}")
         if o.min() < -1.5 or o.max() > 2.5 or o.std() < 1e-3:
@@ -660,7 +688,8 @@ def paths(seed: int, profile: bool):
     mix_cdf_cfg = OptexConfig(size=512, seed=seed, mixing_alpha=0.5,
                               hist_mode="cdf",
                               style=["smoke_style", "smoke_style_b"])
-    main_counts, _, main_out, _ = drive_path("main path", main_cfg, [style])
+    main_counts, main_walls, main_out, _ = drive_path("main path", main_cfg,
+                                                      [style])
     cdf_counts, *_ = drive_path("path A, cdf synthesis", cdf_cfg, [style])
     drive_path("path B, transfer + opt", opt_cfg, [style], content)
     drive_path("path B, transfer + lum", lum_cfg, [style], content, ("warm",))
@@ -685,7 +714,7 @@ def paths(seed: int, profile: bool):
                                      ("transfer_opt", opt_cfg, [style], content),
                                      ("mix", mix_cfg, pair, None)):
             profile_run(name, cfg, sty, cont)
-    return main_counts, cdf_counts, main_out
+    return main_counts, cdf_counts, main_out, main_walls
 
 
 def slice_path(seed: int, main_counts, main_out, profile: bool):
@@ -762,6 +791,209 @@ def bf16_vs_f32_batch8():
     torch.cuda.synchronize()
 
 
+def _kept_run(synth, cfg, styles, **run_kw):
+    """core.synthesize's steps on a kept Synthesizer (the same noise from the
+    same run key), so that its state (last_run_ks, the styles_token cache)
+    can be read after the run. Returns (output, seconds)."""
+    import torch
+
+    from optimaltextures_tpu_torch.ops.rotation import generator
+
+    run_key = synth.next_run_key()
+    noise = torch.rand((cfg.batch, cfg.size, cfg.out_width or cfg.size, 3),
+                       generator=generator(synth.device, run_key, 999),
+                       device=synth.device, dtype=torch.float32)
+    t0 = time.time()
+    out = synth.run(noise, styles, key=run_key, **run_kw)
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def _codec_part(counts, suffix=""):
+    return {k + suffix: counts[k + suffix] for k in _CODEC}
+
+
+def settings_paths(seed: int, main_counts, main_out, main_walls,
+                   profile: bool = False):
+    """Phase 6c: the settings of the rest of the single-device Synthesizer
+    at 512 px with the real depth-3 weights: paths D (out_width 768), E
+    (init through api.run_files), F (pca_bucket 16, then pca_traced_k), G
+    (cov_propagation=False) and H (batch 256 bf16 in chunks of 128, beside
+    one unchunked batch-256 run), then the styles_token, quantize_uint8 and
+    low-memory prep runs. Each run's launches are counted as drive_path
+    counts them."""
+    import torch
+
+    from optimaltextures_tpu_torch import api, core, transport
+    from optimaltextures_tpu_torch.config import OptexConfig
+
+    style = _style_exemplar(seed + 1)
+    base = dict(size=512, seed=seed, style=["smoke_style"])
+    main_cfg = OptexConfig(**base)
+    main_codec = _codec_part(main_counts)
+
+    # path D: non-square synthesis
+    cfg = OptexConfig(out_width=768, **base)
+    plan = core.Synthesizer(cfg, device="cuda")._plan_passes((512, 768))
+    print(f"path D, out_width 768: pass plan {plan}", flush=True)
+    counts, walls, out_d, peaks = drive_path("path D, out_width 768", cfg, [style])
+    if _codec_part(counts) != main_codec:
+        raise AssertionError(f"path D: codec launches {counts} != the main "
+                             f"path's {main_codec}")
+    print(f"path D: walls cold {walls[0]:.4f} s, warm {walls[1]:.4f} s; peak "
+          f"{peaks[1] / 2**30:.2f} GiB; output {out_d.shape}, range "
+          f"[{out_d.min():.4f}, {out_d.max():.4f}]; codec launches the main "
+          f"path's", flush=True)
+
+    # path E: an init image through the file API
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_init_",
+                               dir=os.path.join(REPO, "build"))
+    cfg = OptexConfig(size=512, seed=seed, style=[SAMPLE_STYLE], init=INIT_IMAGE,
+                      output_dir=out_dir)
+    counts, walls, out_e, _ = drive_path(
+        "path E, init", cfg, None, labels=("warm",),
+        run=lambda: api.run_files(cfg, device="cuda")[:2])
+    if _codec_part(counts) != main_codec:
+        raise AssertionError(f"path E: codec launches {counts} != the main "
+                             f"path's {main_codec}")
+    print(f"path E, init {os.path.basename(INIT_IMAGE)}: {walls[0]:.4f} s, "
+          f"output {out_e.shape}, wrote {os.listdir(out_dir)}", flush=True)
+
+    # the styles_token runs: two runs of one Synthesizer, the second with no
+    # style prep; then quantize_uint8 on the same Synthesizer
+    synth = core.Synthesizer(main_cfg, device="cuda")
+    inner, preps = synth._dispatch_style_prep, [0]
+
+    def counted_prep(*args):
+        preps[0] += 1
+        return inner(*args)
+
+    synth._dispatch_style_prep = counted_prep
+    token_outs, token_preps = [], []
+    for label in ("first", "second"):
+        n0 = preps[0]
+        _, walls, o, _ = drive_path(
+            "tokened", main_cfg, [style], labels=(label,),
+            run=lambda: _kept_run(synth, main_cfg, [style],
+                                  styles_token="smoke_style"))
+        token_outs.append(o)
+        token_preps.append(preps[0] - n0)
+    tok_err = float(np.abs(token_outs[1] - token_outs[0]).max())
+    print(f"tokened: style preps dispatched {token_preps[0]} then "
+          f"{token_preps[1]}; max |second - first| {tok_err:.3e}", flush=True)
+    if token_preps[0] == 0 or token_preps[1] != 0 or tok_err > 1e-6:
+        raise AssertionError(f"tokened: preps {token_preps}, diff {tok_err}")
+    main_ks = synth.last_run_ks
+    _reset_counts()
+    q, _ = _kept_run(synth, main_cfg, [style], quantize_uint8=True)
+    if _counts() != expected_counts(main_cfg):
+        raise AssertionError(f"quantize run: launches {_counts()}")
+    q = q.cpu().numpy()
+    host = (np.clip(token_outs[0], 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    mismatch = int((q != host).sum())
+    print(f"quantize_uint8: dtype {q.dtype}, shape {q.shape}, {mismatch} bytes "
+          f"differ from the host formula on the float run", flush=True)
+    if q.dtype != np.uint8 or mismatch:
+        raise AssertionError(f"quantize_uint8: {mismatch} bytes differ")
+
+    # low-memory prep: every pass's prep dispatched in phase C
+    low = core.Synthesizer(main_cfg, device="cuda")
+    low._PREP_PREFETCH_BYTES = 0
+    counts, walls, out_low, _ = drive_path(
+        "low-memory prep", main_cfg, [style], labels=("warm",),
+        run=lambda: _kept_run(low, main_cfg, [style]))
+    low_err = float(np.abs(out_low - token_outs[0]).max())
+    print(f"low-memory prep: {walls[0]:.4f} s; max |low - normal| "
+          f"{low_err:.3e}", flush=True)
+    if low_err > 1e-6:
+        raise AssertionError(f"low-memory prep differs by {low_err}")
+
+    # path F: bucketed, then traced k
+    ks = {}
+    for name, kw in (("pca_bucket 16", dict(pca_bucket=16)),
+                     ("pca_traced_k", dict(pca_traced_k=True))):
+        cfg = OptexConfig(**kw, **base)
+        synth = core.Synthesizer(cfg, device="cuda")
+        choose_k = transport.choose_k
+        if "traced" in name:
+            def no_host_decision(_):
+                raise AssertionError("pca_traced_k took a host k-decision")
+            transport.choose_k = no_host_decision
+        try:
+            counts, walls, out_f, _ = drive_path(
+                f"path F, {name}", cfg, [style], labels=("warm",),
+                run=lambda: _kept_run(synth, cfg, [style]))
+        finally:
+            transport.choose_k = choose_k
+        ks[name] = synth.last_run_ks
+        print(f"path F, {name}: {walls[0]:.4f} s; widths {synth.last_run_ks} "
+              f"beside the main path's {main_ks}; max |F - main| "
+              f"{float(np.abs(out_f - main_out).max()):.3e}", flush=True)
+    for (bk, exact) in zip(ks["pca_bucket 16"], main_ks):
+        for w, k, c in zip(bk, exact, (256, 128, 64)):
+            if not (w >= k and (w % 16 == 0 or w == c)):
+                raise AssertionError(f"pca_bucket 16 widths {bk} vs {exact}")
+    if any(tuple(w) != (256, 128, 64) for w in ks["pca_traced_k"]):
+        raise AssertionError(f"pca_traced_k widths {ks['pca_traced_k']}")
+
+    # path G: the per-iteration moment loop, same seed (same rotations)
+    cfg = OptexConfig(cov_propagation=False, **base)
+    counts, walls, out_g, _ = drive_path("path G, cov_propagation=False", cfg,
+                                         [style], labels=("warm",))
+    diff = np.abs(out_g - main_out)
+    means, ref = out_g.reshape(-1, 3).mean(0), main_out.reshape(-1, 3).mean(0)
+    print(f"path G: wall {walls[0]:.4f} s beside the main path's warm "
+          f"{main_walls[-1]:.4f} s; |G - main| max {float(diff.max()):.3e}, "
+          f"mean {float(diff.mean()):.3e}; per-channel means "
+          f"{np.round(means, 4).tolist()} vs {np.round(ref, 4).tolist()}",
+          flush=True)
+    if float(np.abs(means - ref).max()) > 0.05:
+        raise AssertionError(f"path G: channel means {means} vs {ref}")
+
+    # path H: batch 256 bf16 in chunks of 128, beside one unchunked run
+    batch = 256
+    cfg = OptexConfig(batch=batch, batch_chunk=128, conv_dtype="bfloat16",
+                      **base)
+    counts, walls, out_h, peaks = drive_path(
+        "path H, batch 256 bf16, batch_chunk 128", cfg, [style])
+    want = {k + "_bf16": 2 * v for k, v in main_codec.items()}
+    if _codec_part(counts, "_bf16") != want or any(counts[k] for k in _CODEC):
+        raise AssertionError(f"path H: launches {counts} are not twice the "
+                             f"batch-1 path's on the bf16 kernels")
+    distinct = len({image.tobytes() for image in out_h})
+    if distinct != batch:
+        raise AssertionError(f"path H: only {distinct} of {batch} images differ")
+    del out_h
+    torch.cuda.empty_cache()
+    whole_cfg = OptexConfig(batch=batch, conv_dtype="bfloat16", **base)
+    _, whole_walls, out_w, whole_peaks = drive_path(
+        "path H, batch 256 bf16 unchunked", whole_cfg, [style], labels=("warm",))
+    del out_w
+    torch.cuda.empty_cache()
+    print(f"path H, batch {batch} bf16, batch_chunk 128: walls cold "
+          f"{walls[0]:.4f} s, warm {walls[1]:.4f} s; {batch / walls[0]:.1f} and "
+          f"{batch / walls[1]:.1f} images/s; peak device memory "
+          f"{peaks[0] / 2**30:.2f} / {peaks[1] / 2**30:.2f} GiB; unchunked "
+          f"warm {whole_walls[0]:.4f} s ({batch / whole_walls[0]:.1f} images/s), "
+          f"peak {whole_peaks[0] / 2**30:.2f} GiB; bf16 launches {want} (twice "
+          f"the batch-1 path's), no f32 codec launch; {distinct} distinct "
+          f"images", flush=True)
+    if not max(peaks) < whole_peaks[0]:
+        raise AssertionError(f"path H: chunked peak {max(peaks)} not below the "
+                             f"unchunked {whole_peaks[0]}")
+    if profile:
+        for name, kw in (("out_width768", dict(out_width=768)),
+                         ("no_cov_prop", dict(cov_propagation=False)),
+                         ("traced_k", dict(pca_traced_k=True)),
+                         ("batch256_chunk128_bf16",
+                          dict(batch=batch, batch_chunk=128,
+                               conv_dtype="bfloat16"))):
+            profile_run(name, OptexConfig(**kw, **base), [style],
+                        shapes="out_width" in kw)
+        torch.cuda.empty_cache()
+
+
 def _rotation_stream(seed: int):
     """Deterministic SO(n) stacks per (pass, stage) from numpy (QR with the
     sign fix), as tests/test_torch_slice.py's RotationStream draws them."""
@@ -782,16 +1014,19 @@ def _rotation_stream(seed: int):
     return rotations
 
 
-def profile_run(name, cfg, styles, content=None):
+def profile_run(name, cfg, styles, content=None, shapes=False):
     """One more warm run under torch.profiler: device busy time against the
     wall, the ported kernels' share, and the top device kernels (the whole
-    table goes to chiprun_out/profile_<name>.txt)."""
+    table goes to profile_<name>.txt in the output directory; with
+    ``shapes`` the ops' input shapes are recorded and a table of the cuDNN
+    convolutions by input shape follows it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from optimaltextures_tpu_torch import core
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=shapes) as p:
         _, wall = core.synthesize(cfg, styles, content, device="cuda")
     rows = p.key_averages()
     dev_us = lambda e: getattr(e, "self_device_time_total",
@@ -822,21 +1057,32 @@ def profile_run(name, cfg, styles, content=None):
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", f"profile_{name}.txt"), "w") as f:
         f.write(rows.table(sort_by="cuda_time_total", row_limit=80))
+        if shapes:
+            total_us = lambda e: getattr(e, "device_time_total",
+                                         getattr(e, "cuda_time_total", 0.0))
+            convs = [e for e in p.key_averages(group_by_input_shape=True)
+                     if e.key == "aten::cudnn_convolution"]
+            f.write("\n\naten::cudnn_convolution by input shape "
+                    "(device us incl. children, calls, shapes)\n")
+            for e in sorted(convs, key=total_us, reverse=True):
+                f.write(f"{total_us(e):12.1f} {e.count:4d} {e.input_shapes}\n")
     torch.cuda.synchronize()
 
 
-def _gpu_vs_cpu(cfg, seed: int, content_shape=None):
+def _gpu_vs_cpu(cfg, seed: int, content_shape=None, pastiche=None):
     """``cfg`` at 64 px on the GPU (kernels) and on the CPU (plain
-    versions): same noise, styles (one per ``cfg.style``), content, and
-    injected rotations and mixing masks."""
+    versions): same noise (or ``pastiche``: an init image), styles (one per
+    ``cfg.style``), content, and injected rotations and mixing masks."""
     import torch
 
     from optimaltextures_tpu_torch import core
     from optimaltextures_tpu_torch.ops.rotation import polar_rotations
 
     rng = np.random.default_rng(seed)
-    shape = content_shape or (cfg.batch, cfg.size, cfg.size, 3)
+    shape = content_shape or (cfg.batch, cfg.size, cfg.out_width or cfg.size, 3)
     noise = rng.uniform(size=shape).astype(np.float32)
+    if pastiche is not None:
+        noise = pastiche
     styles = [_style_exemplar(seed + 2 + 5 * i, 64) for i in range(len(cfg.style))]
     content = (np.ascontiguousarray(_style_exemplar(seed + 4, 96)[:, :shape[1],
                                                                   :shape[2]])
@@ -913,6 +1159,18 @@ def small_agreement(seed: int):
         style=["smoke_style"], **kw), seed), BF16_RUN_GAP)
     _hold_distribution("64-px two-style cdf mixing", *_gpu_vs_cpu(OptexConfig(
         passes=1, iters=60, hist_mode="cdf", style=pair, **kw), seed))
+    # the settings of phase 6c
+    _hold_max("64x128 out_width", *_gpu_vs_cpu(OptexConfig(
+        passes=2, iters=48, out_width=128, style=["smoke_style"], **kw), seed))
+    _hold_max("64-px init", *_gpu_vs_cpu(OptexConfig(
+        passes=2, iters=48, init="smoke_init", style=["smoke_style"], **kw),
+        seed, pastiche=_style_exemplar(seed + 7, 64)))
+    _hold_max("64-px cov_propagation=False", *_gpu_vs_cpu(OptexConfig(
+        passes=2, iters=48, cov_propagation=False, style=["smoke_style"],
+        **kw), seed))
+    _hold_max("64-px batch 4, batch_chunk 2, f32", *_gpu_vs_cpu(OptexConfig(
+        passes=2, iters=48, batch=4, batch_chunk=2, style=["smoke_style"],
+        **kw), seed))
 
     gpu, cpu = _gpu_vs_cpu(OptexConfig(
         size=96, passes=2, iters=60, no_pca=True, seed=seed,
@@ -950,7 +1208,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
                     help="also print a torch.profiler table of one warm run "
-                         "of each path")
+                         "of each path (phase 6c: D, G, F traced k and H)")
     args = ap.parse_args()
 
     import torch
@@ -992,9 +1250,11 @@ def main() -> int:
     rows.update(check_cdf_kernels(args.seed, args.reps * 10, card))
     rows.update(check_conv64(args.reps, card))
     rows.update(check_bf16_kernels(args.seed, args.reps, card))
-    main_counts, cdf_counts, main_out = paths(args.seed, args.profile)
+    main_counts, cdf_counts, main_out, main_walls = paths(args.seed,
+                                                          args.profile)
     slice_counts = slice_path(args.seed, main_counts, main_out, args.profile)
     bf16_vs_f32_batch8()
+    settings_paths(args.seed, main_counts, main_out, main_walls, args.profile)
     small_agreement(args.seed)
     try:
         import PIL  # noqa: F401

@@ -16,8 +16,13 @@ from .utils import imageio
 
 def run_files(cfg: OptexConfig, verbose: bool = False, device=None
               ) -> Tuple[np.ndarray, float, List[str]]:
-    """Load the style (and content) per cfg, run, save PNG(s). Returns
-    (output array NHWC, seconds, written paths). ``device`` None = the GPU."""
+    """Load the style (and content, and init) images per cfg, run, save
+    PNG(s). Returns (output array NHWC, seconds, written paths). ``device``
+    None = the GPU.
+
+    ``cfg.init``: the starting pastiche in place of noise, loaded at
+    ``size`` like a content image (``oversize=False``); with a content
+    image both must load to the same shape."""
     cfg.validate()
     if cfg.init is not None and cfg.batch > 1:
         # every batch element would start identical AND share the run's
@@ -27,8 +32,15 @@ def run_files(cfg: OptexConfig, verbose: bool = False, device=None
     cfg = require_ported(cfg)
     styles = imageio.load_styles(cfg.style, cfg.size, cfg.style_scale)
     content = imageio.maybe_load_content(cfg.content, cfg.size)
-    out, seconds = core.synthesize(cfg, styles, content, verbose=verbose,
-                                   device=device)
+    pastiche = None
+    if cfg.init is not None:
+        pastiche = imageio.load_image(cfg.init, cfg.size, oversize=False)
+        if content is not None and pastiche.shape != content.shape:
+            raise ValueError(
+                f"--init image loads to {tuple(pastiche.shape)} but the "
+                f"content loads to {tuple(content.shape)}; they must match")
+    out, seconds = core.synthesize(cfg, styles, content, pastiche=pastiche,
+                                   verbose=verbose, device=device)
     out_np = out.cpu().numpy()
     return out_np, seconds, imageio.save_images(out_np, cfg)
 

@@ -1,6 +1,6 @@
 """Command line for texture synthesis, style transfer, texture mixing and
 color transfer on the GPU (the counterpart of ``optimaltextures_tpu/cli.py``;
-the multi-device flags are not ported yet).
+``--tileable`` and the multi-device flags are not ported yet).
 
 Run: python -m optimaltextures_tpu_torch.cli --style style.jpg --size 512
      python -m optimaltextures_tpu_torch.cli --style a.jpg b.jpg --mixing_alpha 0.5
@@ -9,6 +9,8 @@ Run: python -m optimaltextures_tpu_torch.cli --style style.jpg --size 512
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 
 
@@ -25,9 +27,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="style exemplar image (two or more: mixing)")
     p.add_argument("-c", "--content", type=str, default=None,
                    help="content image for style transfer")
+    p.add_argument("--init", type=str, default=None,
+                   help="starting pastiche image instead of noise")
     p.add_argument("--batch", type=int, default=1,
                    help="number of noise pastiches to synthesize at once")
     p.add_argument("--size", type=int, default=512, help="output size")
+    p.add_argument("--out_width", type=int, default=None,
+                   help="non-square synthesis width, a multiple of 32 (the "
+                        "height is --size); synthesis only")
     p.add_argument("--passes", type=int, default=5,
                    help="loops over the VGG layer stack")
     p.add_argument("--iters", type=int, default=500,
@@ -65,14 +72,36 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["float32", "bfloat16"],
                    help="conv stack compute dtype (bfloat16 = faster tensor "
                         "cores; statistics and OT stay float32)")
+    p.add_argument("--pca_bucket", type=int, default=0,
+                   help="round the PCA rank up to this bucket (0 = the exact "
+                        "rank); the same result through zero-padded "
+                        "eigenvectors and blockdiag rotations")
+    p.add_argument("--pca_traced_k", action="store_true",
+                   help="take the PCA rank on the device at the full channel "
+                        "width: no spectrum is fetched to the host")
+    p.add_argument("--batch_chunk", type=int, default=0,
+                   help="run the codec in chunks of this many images (peak "
+                        "memory follows the chunk, not the batch; moment "
+                        "modes, synthesis; 0 = off)")
+    p.add_argument("--no_cov_prop", action="store_true",
+                   help="run the moment modes' OT iterations one by one, "
+                        "each recomputing the statistics from the data")
     p.add_argument("--no_schedule_quirk", action="store_true",
                    help="fix the reference's [l-1] schedule indexing quirk")
     p.add_argument("--no_pallas", action="store_true",
                    help="run the cdf kernels' plain PyTorch versions (a CPU "
                         "reference: refused on a GPU)")
+    p.add_argument("--no_fast_codec", action="store_true",
+                   help="run the stage codec on F.conv2d instead of the "
+                        "codec kernels (a CPU reference: refused on a GPU)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; cpu runs the kernels' "
                         "plain PyTorch versions)")
+    p.add_argument("--cache_dir", type=str, default="",
+                   help="where the CUDA kernels build to ('' = "
+                        "build/torch_kernels/ in the repository)")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of the run here")
     p.add_argument("--verbose", action="store_true", default=True)
     p.add_argument("--quiet", dest="verbose", action="store_false")
     return p
@@ -81,12 +110,31 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from . import api
+    from .ops import cuda_build
 
+    cuda_build.set_build_dir(args.cache_dir)
     cfg = api.config_from_args(args)
     cfg.compat_schedule_quirk = not args.no_schedule_quirk
     cfg.use_pallas = not args.no_pallas
-    _, seconds, paths = api.run_files(cfg, verbose=args.verbose,
-                                      device=args.device)
+    cfg.cov_propagation = not args.no_cov_prop
+    cfg.fast_codec = not args.no_fast_codec
+    profiler = contextlib.nullcontext()
+    if args.profile_dir:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if torch.device(args.device).type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+    with profiler as prof:
+        _, seconds, paths = api.run_files(cfg, verbose=args.verbose,
+                                          device=args.device)
+    if args.profile_dir:
+        os.makedirs(args.profile_dir, exist_ok=True)
+        trace = os.path.join(args.profile_dir, "trace.json")
+        prof.export_chrome_trace(trace)
+        print("profile", trace)
     print("Took:", seconds)
     for path in paths:
         print("saved", path)

@@ -4,13 +4,39 @@ Same field names and validation as ``optimaltextures_tpu/config.py`` so the CLI
 flags and saved configs carry over. Fields whose features are not ported yet
 are accepted here and refused by :func:`require_ported` with the ROADMAP item
 that ports them.
+
+Two process knobs are read from the environment each time the code that
+consumes them runs (not at import), as in the JAX package:
+
+* ``OPTEX_PREP_PREFETCH_GB`` (:func:`prep_prefetch_bytes`): the all-pass
+  style-prep budget above which ``Synthesizer.run`` switches to the
+  low-memory prep (override hook: ``core.Synthesizer._PREP_PREFETCH_BYTES``);
+* ``OPTEX_NO_COV_PROP=1`` (:func:`cov_propagation_env_off`): force the
+  per-iteration moment loop, overriding ``OptexConfig.cov_propagation``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import List, Optional
+
+# the JAX package's default (optimaltextures_tpu/config.py), kept so that both
+# packages take the same prep branch at the same sizes
+_PREP_PREFETCH_GB_DEFAULT = 4.0
+
+
+def prep_prefetch_bytes() -> int:
+    """All-pass style-prep prefetch budget in bytes, read at call time."""
+    return int(float(os.environ.get("OPTEX_PREP_PREFETCH_GB",
+                                    _PREP_PREFETCH_GB_DEFAULT)) * 2 ** 30)
+
+
+def cov_propagation_env_off() -> bool:
+    """OPTEX_NO_COV_PROP=1 force-disables covariance propagation, read at
+    call time."""
+    return os.environ.get("OPTEX_NO_COV_PROP") == "1"
 
 
 @dataclasses.dataclass
@@ -83,6 +109,34 @@ class OptexConfig:
             raise ValueError("pca_bucket must be >= 0")
         if self.batch_chunk < 0:
             raise ValueError("batch_chunk must be >= 0")
+        if self.batch_chunk > 0:
+            if self.hist_mode in ("cdf", "sort"):
+                raise ValueError(
+                    "batch_chunk needs a moment hist_mode (chol|pca|sym): "
+                    "cdf/sort iterate over the full sample cloud and cannot "
+                    "be chunked")
+            if not self.cov_propagation:
+                raise ValueError("batch_chunk requires cov_propagation (the "
+                                 "chunked path applies the composed stage "
+                                 "map)")
+            if self.batch % self.batch_chunk:
+                raise ValueError(
+                    f"batch {self.batch} not divisible by batch_chunk "
+                    f"{self.batch_chunk}")
+            if self.spatial_devices > 1:
+                raise ValueError("batch_chunk shards the batch axis only; "
+                                 "it does not compose with spatial (H-axis) "
+                                 "sharding")
+            if self.num_devices > 1:
+                local = self.batch // self.num_devices
+                if local % self.batch_chunk:
+                    raise ValueError(
+                        f"per-device batch {local} (batch {self.batch} / "
+                        f"num_devices {self.num_devices}) not divisible by "
+                        f"batch_chunk {self.batch_chunk}")
+            if self.content is not None:
+                raise ValueError("batch_chunk applies to synthesis only "
+                                 "(content runs are single-image)")
         if self.pca_traced_k and self.pca_bucket:
             raise ValueError("pca_traced_k runs at the full channel width; "
                              "pca_bucket does not apply (set one, not both)")
@@ -101,13 +155,7 @@ class OptexConfig:
 
 # (condition, feature, ROADMAP.md queue-1 item that ports it)
 _NOT_PORTED = [
-    (lambda c: c.tileable, "tileable output", 13),
-    (lambda c: c.out_width is not None, "out_width", 13),
-    (lambda c: c.init is not None, "init image", 13),
-    (lambda c: c.pca_bucket != 0 or c.pca_traced_k, "pca_bucket / pca_traced_k", 13),
-    (lambda c: c.batch_chunk != 0, "batch_chunk", 13),
-    (lambda c: not c.cov_propagation, "the iterative (cov_propagation=False) "
-     "transport loop", 13),
+    (lambda c: c.tileable, "tileable output", "13c"),
     (lambda c: c.num_devices != 1 or c.spatial_devices != 1,
      "multi-device runs", 15),
 ]

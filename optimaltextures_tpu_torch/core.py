@@ -8,7 +8,9 @@ and runs one stage per VGG layer, deepest first:
 
 The style side of every pass (multi-tap encode, PCA spectrum, the host's
 k-decision, projected moments) is prepared for ALL passes before the first
-stage runs, with one host fetch of every pass's eigenvalues; with two or
+stage runs, with one host fetch of every pass's eigenvalues (none with
+``pca_traced_k``; per pass, inside the pass loop, above the prefetch
+budget); with two or
 more styles (texture mixing) every pass blends the styles' projected maps
 under a random spatial mask, with cross-histogram matching, before their
 moments are taken; a content
@@ -32,17 +34,32 @@ Batch: a synthesis run takes B noise pastiches (B, H, W, 3); the style
 statistics are shared, every stage's moments are taken over B*H*W samples
 (per-image means, pooled covariance, as the JAX package's) and one
 rotation stack per stage serves the whole batch. Style transfer runs one
-image.
+image. With ``batch_chunk`` the codec runs the batch in chunks and only the
+projected features of the whole batch are kept
+(:func:`_pass_stages_chunked_impl`).
+
+The rest of the single-device settings: ``out_width`` (non-square
+synthesis, the pass plan gating on the full (H, W) pair), an init image
+(any pastiche passed to :meth:`Synthesizer.run`), ``pca_bucket`` and
+``pca_traced_k`` (PCA widths padded past the true rank, which rides along
+as a device tensor: zeroed eigvec columns and blockdiag(SO(k), I)
+rotations keep the pads exactly zero), ``cov_propagation=False`` (the
+per-iteration moment loop), the ``styles_token`` prep cache, the
+low-memory prep above the prefetch budget and ``quantize_uint8``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import time
+from collections import OrderedDict
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import config as config_mod
 from . import transport
 from .config import OptexConfig, require_ported
 from .models import fastcodec
@@ -90,6 +107,22 @@ class LayerTargets(NamedTuple):
     stats: transport.StyleStats          # style moments (+ samples for cdf/sort)
     eigvecs: Optional[torch.Tensor]      # (C, k) PCA basis or None
     content: Optional[torch.Tensor] = None   # projected, re-centred content
+    # the true PCA rank, a 0-d int tensor on the device, when the width k is
+    # padded past it (pca_bucket, pca_traced_k); None when k is exact
+    k_mask: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass(eq=False)
+class _StylePrep:
+    """One distinct pass's style prep within a run, or kept across runs
+    under a ``styles_token``: its spectra (None once freed), PCA widths and
+    true-rank masks, cache key and, with one style, the finished targets,
+    which replace the spectra once built."""
+    spectra: Optional[list]
+    key: tuple
+    widths: Optional[tuple] = None
+    masks: Optional[tuple] = None
+    slim: Optional[list] = None
 
 
 # ---------------------------------------------------------------------------
@@ -115,22 +148,74 @@ def _style_spectra_pass(enc_params, style_tens, *, depth: int, use_pca: bool):
     return out
 
 
-def _project_pass(sfs, vs, *, ks):
-    """Project every depth onto its first k PCs (k chosen on the host; 0 =
-    no PCA). Returns [(projected sf, eigvecs)]."""
+def _project_pass(sfs, vs, *, ks, true_ks=None):
+    """Project every depth onto its first k PCs (0 = no PCA). Returns
+    [(projected sf, eigvecs, scalar mean)].
+
+    With a padded width (pca_bucket, pca_traced_k) ``true_ks`` holds each
+    depth's true rank as a 0-d int tensor: eigvec columns >= the true rank
+    are zeroed, so the padded feature dims are exactly zero, and the scalar
+    mean divides by the true rank, as the exact-k computation does."""
     projected = []
-    for sf, v, k in zip(sfs, vs, ks):
+    for sf, v, k, tk in zip(sfs, vs, ks, true_ks or [None] * len(sfs)):
         eigvecs = None
         if k:
             eigvecs = v[:, :k]
+            if tk is not None:
+                col = torch.arange(k, device=eigvecs.device)
+                eigvecs = torch.where(col < tk, eigvecs, 0.0)
             # polish the basis: three Newton-Schulz polar steps restore the
             # orthonormality f32 eigh loses, within the same column space
+            # (zeroed columns stay zero)
             for _ in range(3):
                 vtv = eigvecs.T @ eigvecs
                 eigvecs = 1.5 * eigvecs - 0.5 * (eigvecs @ vtv)
             sf = sf @ eigvecs
-        projected.append((sf, eigvecs))
+        if k and tk is not None:
+            mean = sf.sum() / (sf.numel() // sf.shape[-1] * tk.long())
+        else:
+            mean = sf.mean()
+        projected.append((sf, eigvecs, mean))
     return projected
+
+
+def _traced_ks(svals):
+    """The k rule of :func:`transport.choose_k` (the first index where the
+    cumulative singular-value share exceeds 0.9, clamped to >= 1) on the
+    device, as 0-d int32 tensors: pca_traced_k's replacement for the host
+    k-decision, so a run fetches no spectrum. The cumulative share is taken
+    in float32 (choose_k uses float64), as the JAX package's
+    ``_traced_ks_jit`` does."""
+    out = []
+    for s in svals:
+        frac = torch.cumsum(s, 0) / torch.sum(s)
+        k = torch.argmax((frac > 0.9).to(torch.float32))   # the first True
+        out.append(torch.clamp(k, min=1).to(torch.int32))
+    return tuple(out)
+
+
+def _styles_fingerprint(styles) -> str:
+    """Content fingerprint of the style images, folded into the
+    ``styles_token`` cache key so that a stale token never returns another
+    style's statistics: blake2b over each style's shape, dtype and a strided
+    pixel sample of at most 17 x 17 pixels. Gives the JAX package's digest on
+    the same float32 numpy arrays."""
+    h = hashlib.blake2b(digest_size=16)
+    for s in styles:
+        shape = tuple(s.shape)
+        dtype = str(s.dtype).replace("torch.", "")
+        h.update(repr((shape, dtype)).encode())
+        sample = s[:, ::max(1, shape[1] // 16), ::max(1, shape[2] // 16), :]
+        if isinstance(sample, torch.Tensor):
+            sample = sample.cpu().numpy()
+        h.update(np.ascontiguousarray(sample).tobytes())
+    return h.hexdigest()
+
+
+def _quant_u8(x: torch.Tensor) -> torch.Tensor:
+    """PNG-ready uint8 on the device, the IEEE float32 ops of
+    imageio.save_images' host formula: clamp, * 255 + 0.5, truncate."""
+    return (torch.clamp(x, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
 
 
 # ---------------------------------------------------------------------------
@@ -185,18 +270,24 @@ def _mix_pass(sfs, regions, weights, *, mode: str, need_samples: bool = False,
     return out
 
 
-def _content_prep_pass(enc_params, cont, eigvecs_list, style_means, *,
-                       depth: int, use_pca: bool):
+def _content_prep_pass(enc_params, cont, eigvecs_list, style_means,
+                       true_ks=None, *, depth: int, use_pca: bool):
     """Multi-tap content encode, each depth projected into the style's PC
     space and re-centred at the style's scalar mean: ``cf - mean(cf) +
-    mean(style)``, scalar means (deepest first)."""
+    mean(style)``, scalar means (deepest first); with a padded width the
+    content's mean divides by the true rank ``true_ks[i]``."""
     taps = encode_taps(enc_params, depth, cont.to(enc_params[0][0].dtype))
     out = []
     for i, d in enumerate(range(depth, 0, -1)):
         cf = taps[d - 1].float()
         if use_pca:
             cf = cf @ eigvecs_list[i]
-        out.append(cf - cf.mean() + style_means[i])
+        tk = true_ks[i] if true_ks is not None else None
+        if use_pca and tk is not None:
+            cmean = cf.sum() / (cf.numel() // cf.shape[-1] * tk.long())
+        else:
+            cmean = cf.mean()
+        out.append(cf - cmean + style_means[i])
     return out
 
 
@@ -204,11 +295,25 @@ def _content_prep_pass(enc_params, cont, eigvecs_list, style_means, *,
 # the pass chain
 
 
+def _stage_rotations(rotations: Optional[RotationSource], pass_idx: int,
+                     i: int, n_iters: int, c: int, device, run_key: int,
+                     k_mask=None) -> torch.Tensor:
+    """Stage i of pass p's rotation stack: ``rotations(p, i, n_iters, C)``
+    when injected, else drawn from the generator (run_key, p, i)
+    (blockdiag(SO(k), I) ones with ``k_mask``)."""
+    if rotations is not None:
+        return torch.as_tensor(np.asarray(rotations(pass_idx, i, n_iters, c),
+                                          np.float32)).to(device)
+    return transport.draw_stage_rotations(
+        generator(device, run_key, pass_idx, i), n_iters, c, device, k_mask)
+
+
 def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
                       iters, mode: str, strengths, pca_flags,
                       resize_mats=None, stage_codecs=None, run_key: int = 0,
                       pass_idx: int = 0, use_pallas: bool = True,
-                      rotations: Optional[RotationSource] = None):
+                      rotations: Optional[RotationSource] = None,
+                      cov_prop: bool = True):
     """All of a pass's layer stages: the multires resize (``resize_mats``:
     the (wh, ww) weights, or None) in f32, the cast to the conv dtype, then
     for each depth (deepest first) encode -> widen to f32 -> project -> OT
@@ -218,7 +323,9 @@ def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
     the codec kernels; None keeps the F.conv2d codec (CPU only).
 
     Stage i of pass p draws its rotations from a generator seeded by
-    (run_key, p, i), or takes them from ``rotations(p, i, n_iters, C)``."""
+    (run_key, p, i), or takes them from ``rotations(p, i, n_iters, C)``
+    (:func:`_stage_rotations`). ``cov_prop`` False runs the moment modes'
+    per-iteration loop."""
     if resize_mats is not None:
         pastiche = apply_resample(pastiche, *resize_mats)
     pastiche = pastiche.to(enc_params[0][0][0].dtype)
@@ -228,17 +335,13 @@ def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
         tgt = targets[i]
         if pca_flags[i]:
             feat = feat @ tgt.eigvecs
-        c = feat.shape[-1]
-        rot = gen = None
-        if rotations is not None and iters[i]:
-            rot = torch.as_tensor(np.asarray(rotations(pass_idx, i, iters[i], c),
-                                             np.float32))
-        elif iters[i]:
-            gen = generator(feat.device, run_key, pass_idx, i)
+        rot = (_stage_rotations(rotations, pass_idx, i, iters[i],
+                                feat.shape[-1], feat.device, run_key,
+                                tgt.k_mask) if iters[i] else None)
         feat = transport.transport_loop(
-            gen, feat, tgt.stats, iters[i], mode, content_feature=tgt.content,
+            None, feat, tgt.stats, iters[i], mode, content_feature=tgt.content,
             content_strength=strengths[i], rotations=rot,
-            use_pallas=use_pallas)
+            use_pallas=use_pallas, k_mask=tgt.k_mask, cov_prop=cov_prop)
         if pca_flags[i]:
             feat = feat @ tgt.eigvecs.T
         return feat
@@ -258,13 +361,97 @@ def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
     return pastiche.float()
 
 
+def _pass_stages_chunked_impl(enc_params, dec_params, pastiche, targets, *,
+                              depths, iters, mode: str, pca_flags,
+                              n_chunks: int, resize_mats=None,
+                              stage_codecs=None, run_key: int = 0,
+                              pass_idx: int = 0,
+                              rotations: Optional[RotationSource] = None):
+    """One pass with the batch run through the codec in ``n_chunks`` equal
+    chunks, so that the conv activations scale with the chunk,
+    not the batch (the counterpart of the JAX package's
+    ``_pass_stages_chunked_impl``). The only coupling between images in a
+    stage is the joint (mu, cov) of the projected k-wide float32 features,
+    so each stage
+
+      1. encodes and projects chunk by chunk, keeping only the projected
+         features of the whole batch;
+      2. builds the stage's composed affine map from their joint moments
+         (per-image means, the covariance pooled over every chunk) with the
+         rotation stream of the unchunked run (:func:`_stage_rotations`);
+      3. applies the map, unprojects and decodes chunk by chunk.
+
+    The math of :func:`_pass_stages_impl` for moment modes with
+    cov_propagation and no content; only the covariance's summation order
+    differs. With ``stage_codecs`` every chunk runs on the codec kernels,
+    the chunks' images living as post-renorm RGB between stages."""
+    if resize_mats is not None:
+        pastiche = apply_resample(pastiche, *resize_mats)
+    conv_dtype = enc_params[0][0][0].dtype
+    imgs = list(pastiche.to(conv_dtype).chunk(n_chunks))
+    del pastiche
+    if stage_codecs is not None:
+        imgs = [fastcodec.pixels_to_rgb(enc_params[0][0], x) for x in imgs]
+    for i, d in enumerate(depths):
+        tgt = targets[i]
+        feats = []
+        for j, x in enumerate(imgs):
+            f = (fastcodec.encode_head(stage_codecs[i], x)
+                 if stage_codecs is not None else encode(enc_params[i], d, x))
+            f = f.float()
+            imgs[j] = None
+            feats.append(f @ tgt.eigvecs if pca_flags[i] else f)
+        c = feats[0].shape[-1]
+        affine = None
+        if iters[i]:
+            mus, gram, n = [], 0.0, 0
+            for f in feats:
+                mu = f.mean(dim=(1, 2), keepdim=True)
+                xc = (f - mu).reshape(-1, c)
+                mus.append(mu)
+                gram = gram + xc.T @ xc
+                n += xc.shape[0]
+            rot = _stage_rotations(rotations, pass_idx, i, iters[i], c,
+                                   feats[0].device, run_key, tgt.k_mask)
+            A, bias = transport.stage_affine_map(
+                rot, torch.cat(mus), gram / n, tgt.stats, mode)
+            affine = (A, bias.chunk(n_chunks))
+        for j in range(n_chunks):
+            f, feats[j] = feats[j], None
+            if affine is not None:
+                f = (f.reshape(-1, c) @ affine[0]).reshape(f.shape) + affine[1][j]
+            if pca_flags[i]:
+                f = f @ tgt.eigvecs.T
+            imgs[j] = (fastcodec.decode_tail(stage_codecs[i], f)
+                       if stage_codecs is not None
+                       else decode(dec_params[i], d, f.to(conv_dtype)))
+    return torch.cat(imgs).float()
+
+
+def _run_stages_chunked_impl(enc_params, dec_params, pastiche, targets_all,
+                             run_key, *, depths, plans, mode: str,
+                             pca_flags_all, n_chunks: int, resize_mats_all,
+                             stage_codecs=None,
+                             rotations: Optional[RotationSource] = None):
+    """The whole run's pass chain, batch-chunked (see
+    :func:`_pass_stages_chunked_impl`)."""
+    for p, (_, iters) in enumerate(plans):
+        pastiche = _pass_stages_chunked_impl(
+            enc_params, dec_params, pastiche, targets_all[p], depths=depths,
+            iters=iters, mode=mode, pca_flags=pca_flags_all[p],
+            n_chunks=n_chunks, resize_mats=resize_mats_all[p],
+            stage_codecs=stage_codecs, run_key=run_key, pass_idx=p,
+            rotations=rotations)
+    return pastiche
+
+
 def _run_stages_impl(enc_params, dec_params, pastiche, targets_all, run_key,
                      *, depths, plans, mode: str, strengths_all, pca_flags_all,
                      resize_mats_all, stage_codecs=None,
                      use_pallas: bool = True, content_px=None,
                      color_mode: Optional[str] = None,
                      rotations: Optional[RotationSource] = None,
-                     color_rotations=None):
+                     color_rotations=None, cov_prop: bool = True):
     """The whole run's pass chain, then the color-transfer tail.
     ``plans``: per pass (resize_to | None, iters tuple); ``resize_mats_all``:
     the matching (wh, ww) or None.
@@ -280,7 +467,7 @@ def _run_stages_impl(enc_params, dec_params, pastiche, targets_all, run_key,
             iters=iters, mode=mode, strengths=strengths_all[p],
             pca_flags=pca_flags_all[p], resize_mats=resize_mats_all[p],
             stage_codecs=stage_codecs, run_key=run_key, pass_idx=p,
-            use_pallas=use_pallas, rotations=rotations)
+            use_pallas=use_pallas, rotations=rotations, cov_prop=cov_prop)
     if color_mode is None:
         return pastiche
     target = colors.swap_lightness(content_px, pastiche)
@@ -330,6 +517,11 @@ class Synthesizer:
             if fastcodec.eligible(cfg.fast_codec, self.device) else None)
         self._run_counter = 0
         self._resample = {}
+        # cross-run style prep cache (LRU), keyed ((styles_token,
+        # fingerprint), pass key): see run(styles_token=)
+        self._style_prep_cache = OrderedDict()
+        # the realised per-(pass, layer) PCA widths of the last run
+        self.last_run_ks = None
         self.reseed(cfg.seed)
 
     def reseed(self, seed: Optional[int]) -> None:
@@ -358,10 +550,22 @@ class Synthesizer:
         """Per-pass [(size, resize?, target hw)]: the reference's gate skips a
         pass's resize when EITHER pastiche dim already equals its size. With
         a content image the target follows the content's aspect
-        (``get_size(..., oversize=True)``)."""
+        (``get_size(..., oversize=True)``). With ``out_width`` (synthesis) the
+        width follows the pass size by the same aspect rule and the gate
+        compares the full (H, W) pair: the either-dim gate would skip a pass
+        whose height target equals the current width (out_width 576 at size
+        512 would skip the final pass)."""
+        cfg = self.cfg
         plan, cur = [], tuple(pastiche_hw)
         for size in self.sizes:
-            if cur[0] != size and cur[1] != size:
+            if cfg.out_width and content_hw is None:
+                target = schedule.get_size(size, 1.0, cfg.size, cfg.out_width)
+                if cur != target:
+                    plan.append((size, True, target))
+                    cur = target
+                else:
+                    plan.append((size, False, None))
+            elif cur[0] != size and cur[1] != size:
                 if content_hw is not None:
                     target = schedule.get_size(size, 1.0, content_hw[0],
                                                content_hw[1], oversize=True)
@@ -372,6 +576,40 @@ class Synthesizer:
             else:
                 plan.append((size, False, None))
         return plan
+
+    # All-pass style-prep budget in bytes, above which run() switches to the
+    # low-memory prep; None reads OPTEX_PREP_PREFETCH_GB at run time
+    # (config.prep_prefetch_bytes). A class attribute so tests can pin it.
+    _PREP_PREFETCH_BYTES = None
+
+    def _prep_budget_bytes(self) -> int:
+        return (self._PREP_PREFETCH_BYTES
+                if self._PREP_PREFETCH_BYTES is not None
+                else config_mod.prep_prefetch_bytes())
+
+    def _prep_prefetch_bytes(self, plan, styles) -> int:
+        """The all-pass style prep's footprint: the float32 multi-tap
+        features of every distinct pass prep, which coexist from phase A
+        until the finished targets replace them (relu1 of a 4096-px style is
+        H x W x 64 float32 a pass)."""
+        channels = [64, 128, 256, 512, 512]
+        seen = set()
+        total = 0
+        for (size, rs, _) in plan:
+            ck = size if rs else None
+            if ck in seen:
+                continue
+            seen.add(ck)
+            for s in styles:
+                if rs:
+                    h, w = schedule.get_size(size, self.cfg.style_scale,
+                                             s.shape[1], s.shape[2])
+                else:
+                    h, w = s.shape[1], s.shape[2]
+                for d in range(1, self.depth + 1):
+                    total += (h // 2 ** (d - 1)) * (w // 2 ** (d - 1)) \
+                        * channels[d - 1] * 4
+        return total
 
     def _resample_mats(self, in_hw, out_hw):
         key = (tuple(in_hw), tuple(out_hw))
@@ -396,32 +634,55 @@ class Synthesizer:
         return _style_spectra_pass(self.bank.enc_params[self.depth], style_tens,
                                    depth=self.depth, use_pca=not cfg.no_pca)
 
-    def _choose_widths(self, spectra, svals_np):
-        """Host k-decision for one pass's spectra (0 = no PCA)."""
-        if self.cfg.no_pca:
-            return tuple(0 for _ in spectra)
-        return tuple(transport.choose_k(sv) for sv in svals_np)
+    def _choose_widths(self, spectra, svals_np=None):
+        """One pass's PCA widths: (widths, true-rank masks), one per depth.
+        Without a padded width the widths are the host k-decisions
+        (``svals_np``: the fetched singular values; None fetches them here)
+        and the masks None (0 = no PCA). pca_bucket rounds each width up to
+        the bucket (at most C), the true rank riding along as a 0-d int32
+        tensor on the device; pca_traced_k takes the full width C and the
+        rank from :func:`_traced_ks`, with no host decision at all."""
+        cfg = self.cfg
+        if cfg.no_pca:
+            return tuple(0 for _ in spectra), tuple(None for _ in spectra)
+        if cfg.pca_traced_k:
+            return (tuple(sf.shape[-1] for (sf, _, _) in spectra),
+                    _traced_ks([sv for (_, sv, _) in spectra]))
+        if svals_np is None:
+            svals_np = [sv.cpu().numpy() for (_, sv, _) in spectra]
+        true = [transport.choose_k(sv) for sv in svals_np]
+        if cfg.pca_bucket:
+            widths = tuple(min(-(-t // cfg.pca_bucket) * cfg.pca_bucket,
+                               sf.shape[-1])
+                           for t, (sf, _, _) in zip(true, spectra))
+            return widths, tuple(torch.tensor(t, dtype=torch.int32,
+                                              device=self.device)
+                                 for t in true)
+        return tuple(true), tuple(None for _ in true)
 
-    def _finish_style_prep(self, spectra, ks, regions=None, weights=None):
+    def _finish_style_prep(self, spectra, ks, k_masks=None, regions=None,
+                           weights=None):
         """After the k-decisions: projected statistics. Returns
         [(eigvecs, stats, scalar style mean)] per depth (deepest first).
-        With several styles, the pass's mask ``regions`` (see
+        ``ks`` are the widths, ``k_masks`` the true ranks of padded widths
+        (None: exact). With several styles, the pass's mask ``regions`` (see
         :meth:`_mix_draw`) and ``weights`` blend the projected maps before
         their statistics are taken; the scalar means stay the PRE-mix ones,
         which the content re-centring uses."""
         cfg = self.cfg
         need_samples = cfg.hist_mode in ("cdf", "sort")
         projected = _project_pass([sf for (sf, _, _) in spectra],
-                                  [v for (_, _, v) in spectra], ks=ks)
-        sfs = [sf for sf, _ in projected]
+                                  [v for (_, _, v) in spectra], ks=ks,
+                                  true_ks=k_masks)
+        sfs = [sf for sf, _, _ in projected]
         if regions is None:
             stats = [transport.style_stats(sf, need_samples) for sf in sfs]
         else:
             stats = _mix_pass(sfs, regions, weights, mode=cfg.hist_mode,
                               need_samples=need_samples,
                               use_pallas=cfg.use_pallas)
-        return [(eigvecs, st, sf.mean())
-                for (sf, eigvecs), st in zip(projected, stats)]
+        return [(eigvecs, st, mean)
+                for (_, eigvecs, mean), st in zip(projected, stats)]
 
     def _mix_weights(self, n_styles: int) -> torch.Tensor:
         """The blend's (N,) float32 weights, normalised in float64:
@@ -448,17 +709,20 @@ class Synthesizer:
                        device=self.device, dtype=torch.float32)
         return _mix_regions(u, weights)
 
-    def _assemble_targets(self, slim, cont=None):
+    def _assemble_targets(self, slim, cont=None, k_masks=None):
         """Finished style targets + this pass's content prep (``cont``: the
-        pass's content pixels, or None)."""
+        pass's content pixels, or None) + the true-rank masks."""
         content_feats = [None] * len(slim)
+        k_masks = k_masks or [None] * len(slim)
         if cont is not None:
             content_feats = _content_prep_pass(
                 self.bank.enc_params[self.depth], cont,
-                [s[0] for s in slim], [s[2] for s in slim],
+                [s[0] for s in slim], [s[2] for s in slim], k_masks,
                 depth=self.depth, use_pca=not self.cfg.no_pca)
-        return [LayerTargets(stats=stats, eigvecs=eigvecs, content=cf)
-                for (eigvecs, stats, _), cf in zip(slim, content_feats)]
+        return [LayerTargets(stats=stats, eigvecs=eigvecs, content=cf,
+                             k_mask=km)
+                for (eigvecs, stats, _), cf, km in zip(slim, content_feats,
+                                                       k_masks)]
 
     def _stage_strengths(self, targets):
         """The reference's content rule: a pull only at the three deepest
@@ -481,16 +745,43 @@ class Synthesizer:
             strengths.append(float(strength) if has_content else 0.0)
         return adj, tuple(strengths)
 
+    def _chunks(self, batch: int, has_content: bool) -> int:
+        """How many chunks the batch runs in (1: unchunked). A batch that
+        ``batch_chunk`` cannot split, a content run or OPTEX_NO_COV_PROP
+        raises: a chunked run never falls back to the unchunked one."""
+        chunk = self.cfg.batch_chunk
+        if not chunk or batch <= chunk:
+            return 1
+        if batch % chunk:
+            raise ValueError(f"batch {batch} not divisible by batch_chunk "
+                             f"{chunk}")
+        if has_content:
+            raise ValueError("batch_chunk applies to synthesis only (content "
+                             "runs are single-image)")
+        if not transport.cov_propagation_enabled():
+            raise ValueError("batch_chunk applies the composed stage map; "
+                             "OPTEX_NO_COV_PROP=1 turns it off")
+        return batch // chunk
+
     def run(self, pastiche, styles, content=None, verbose: bool = False,
             key: Optional[int] = None,
             rotations: Optional[RotationSource] = None,
             color_rotations=None,
-            mix_draws: Optional[MixDrawSource] = None) -> torch.Tensor:
+            mix_draws: Optional[MixDrawSource] = None,
+            styles_token=None, quantize_uint8: bool = False) -> torch.Tensor:
         """Synthesis, or style transfer when ``content`` (1, Hc, Wc, 3) is
         given; two or more ``styles`` mix. ``pastiche`` (B, H, W, 3; B = 1
         with a content image) and ``styles`` [(1, h, w, 3)] are NHWC float32
         arrays or tensors; returns the float32 (B, ...) result on this
-        synthesizer's device.
+        synthesizer's device, or with ``quantize_uint8`` the PNG-ready uint8
+        one (:func:`_quant_u8`, on the device).
+
+        ``styles_token``: any hashable naming the styles' content. With it
+        each pass's style prep (spectra, widths and, for one style, the
+        finished targets) is kept on this instance and reused by later runs
+        with the same token and the same styles: the token is checked
+        against a fingerprint of the styles (:func:`_styles_fingerprint`),
+        so a stale token with other styles recomputes.
 
         ``key`` overrides the run key (default :meth:`next_run_key`);
         ``rotations`` injects every stage's rotation stack,
@@ -499,6 +790,8 @@ class Synthesizer:
         cfg = self.cfg
         dev = self.device
         run_key = key if key is not None else self.next_run_key()
+        if styles_token is not None:
+            styles_token = (styles_token, _styles_fingerprint(styles))
         pastiche = torch.as_tensor(pastiche, dtype=torch.float32).to(dev, copy=True)
         styles = [torch.as_tensor(s, dtype=torch.float32).to(dev) for s in styles]
         if any(s.shape != styles[0].shape for s in styles[1:]):
@@ -513,49 +806,55 @@ class Synthesizer:
             # the reference ignores --batch with a content image
             raise ValueError("style transfer runs one image; got a pastiche "
                              f"batch of {pastiche.shape[0]}")
+        n_chunks = self._chunks(pastiche.shape[0], content is not None)
+        n_styles = len(styles)
 
         # phase A: every distinct pass's style prep, ahead of the stages
+        # (gate-skip passes encode the ORIGINAL styles, so they share one),
+        # or found in the styles_token cache. Above the prefetch budget
+        # (low-memory prep) each prep is dispatched in phase C instead, and
+        # its spectra are freed after their last use.
         plan = self._plan_passes(
             pastiche.shape[1:3],
             tuple(content.shape[1:3]) if content is not None else None)
-        preps = {}
+        low_mem = (self._prep_prefetch_bytes(plan, styles)
+                   > self._prep_budget_bytes())
+        entries, pending, local = [], [], {}
         for (size, rs, _) in plan:
             ck = size if rs else None
-            if ck not in preps:
-                preps[ck] = self._dispatch_style_prep(styles, size, rs)
-        # phase B: ONE host fetch of every prep's eigenvalues, k-decisions
-        order = list(preps)
-        svals = {ck: [None] * len(preps[ck]) for ck in order}
-        if not cfg.no_pca:
-            flat = torch.cat([sv for ck in order for (_, sv, _) in preps[ck]]).cpu().numpy()
+            full = (styles_token, ck)
+            if styles_token is not None and full in self._style_prep_cache:
+                self._style_prep_cache.move_to_end(full)
+                entry = self._style_prep_cache[full]
+            elif ck in local:
+                entry = local[ck]
+            else:
+                entry = _StylePrep(None if low_mem else
+                                   self._dispatch_style_prep(styles, size, rs),
+                                   full)
+                local[ck] = entry
+                if not low_mem:
+                    pending.append(entry)
+            entries.append(entry)
+        last_use = {id(e): p for p, e in enumerate(entries)}
+
+        # phase B: ONE host fetch of every new prep's eigenvalues for the
+        # k-decisions (none with pca_traced_k)
+        svals = [None] * len(pending)
+        if pending and not cfg.no_pca and not cfg.pca_traced_k:
+            flat = torch.cat([sv for e in pending for (_, sv, _) in e.spectra]
+                             ).cpu().numpy()
             off = 0
-            for ck in order:
-                for j, (_, sv, _) in enumerate(preps[ck]):
-                    svals[ck][j] = flat[off:off + sv.shape[0]]
+            for j, e in enumerate(pending):
+                svals[j] = []
+                for (_, sv, _) in e.spectra:
+                    svals[j].append(flat[off:off + sv.shape[0]])
                     off += sv.shape[0]
-        widths = {ck: self._choose_widths(preps[ck], svals[ck]) for ck in order}
-        # phase C: projected statistics, once per distinct prep; mixing draws
-        # its mask per pass, so a multi-style finish runs once per pass (a
-        # gate-skip pass still shares the spectra). The mask is drawn at the
-        # second-deepest depth's size and nearest-resized to every depth.
-        n_styles = len(styles)
-        if n_styles == 1:
-            slims = {ck: self._finish_style_prep(preps[ck], widths[ck])
-                     for ck in order}
-            pass_slims = [slims[size if rs else None] for (size, rs, _) in plan]
-        else:
-            weights = self._mix_weights(n_styles)
-            pass_slims = []
-            for p, (size, rs, _) in enumerate(plan):
-                spectra = preps[size if rs else None]
-                hw = tuple(spectra[1 if len(spectra) > 1 else 0][0].shape[1:3])
-                if mix_draws is not None:
-                    regions = torch.as_tensor(
-                        np.array(mix_draws(p, hw, n_styles)), device=dev).long()
-                else:
-                    regions = self._mix_draw(run_key, p, hw, weights)
-                pass_slims.append(self._finish_style_prep(
-                    spectra, widths[size if rs else None], regions, weights))
+        for e, sv in zip(pending, svals):
+            e.widths, e.masks = self._choose_widths(e.spectra, sv)
+            if styles_token is not None:
+                self._style_prep_cache[e.key] = e
+        self._evict_style_preps()
 
         # per-pass content, resized from the ORIGINAL (as the reference does)
         conts, resized = [], {}
@@ -568,6 +867,12 @@ class Synthesizer:
                     content, *self._resample_mats(content.shape[1:3], hw))
             conts.append(resized[hw])
 
+        # phase C: every pass's targets. One style's finished targets are
+        # shared by the passes of an entry (and, tokened, across runs);
+        # mixing draws its mask per pass, so its finish runs once a pass.
+        # The mask is drawn at the second-deepest depth's size and
+        # nearest-resized to every depth.
+        weights = self._mix_weights(n_styles) if n_styles > 1 else None
         targets_all, strengths_all, pca_flags_all = [], [], []
         plans, mats_all = [], []
         cur_hw = tuple(pastiche.shape[1:3])
@@ -576,8 +881,41 @@ class Synthesizer:
                 print(f"Pass {p}, size {size}", flush=True)
                 for d in self.layer_depths:
                     print(f"Layer: relu{d}_1", flush=True)
+            e = entries[p]
+            if e.widths is None and e.slim is None:
+                # low-memory prep: this pass's prep is dispatched here and
+                # its k-decision fetched alone
+                if e.spectra is None:
+                    e.spectra = self._dispatch_style_prep(styles, size, rs)
+                e.widths, e.masks = self._choose_widths(e.spectra)
+                if styles_token is not None and n_styles == 1:
+                    # mixing entries are not kept: their targets depend on
+                    # the pass's mask, so the cache could only pin the very
+                    # spectra this prep sheds
+                    self._style_prep_cache[e.key] = e
+            if e.slim is not None:
+                slim = e.slim
+            elif n_styles == 1:
+                slim = e.slim = self._finish_style_prep(e.spectra, e.widths,
+                                                        e.masks)
+            else:
+                mask_hw = tuple(e.spectra[1 if len(e.spectra) > 1 else 0][0]
+                                .shape[1:3])
+                if mix_draws is not None:
+                    regions = torch.as_tensor(
+                        np.array(mix_draws(p, mask_hw, n_styles)),
+                        device=dev).long()
+                else:
+                    regions = self._mix_draw(run_key, p, mask_hw, weights)
+                slim = self._finish_style_prep(e.spectra, e.widths, e.masks,
+                                               regions, weights)
             targets, strengths = self._stage_strengths(
-                self._assemble_targets(pass_slims[p], conts[p]))
+                self._assemble_targets(slim, conts[p], e.masks))
+            cached = (styles_token is not None
+                      and self._style_prep_cache.get(e.key) is e)
+            if (low_mem and last_use[id(e)] == p
+                    and (not cached or e.slim is not None)):
+                e.spectra = None   # nothing later reads them
             targets_all.append(targets)
             strengths_all.append(strengths)
             pca_flags_all.append(tuple(t.eigvecs is not None for t in targets))
@@ -586,17 +924,39 @@ class Synthesizer:
             mats_all.append(self._resample_mats(cur_hw, hw) if rs else None)
             if rs:
                 cur_hw = tuple(hw)
+        self.last_run_ks = [e.widths for e in entries]
+        self._evict_style_preps()
+        if styles_token is not None:
+            # kept entries: the finished targets replace the spectra
+            for e in entries:
+                if e.slim is not None:
+                    e.spectra = None
 
         # phase D: the pass chain
-        return _run_stages_impl(
-            [self.bank.enc_params[d] for d in self.layer_depths],
-            [self.bank.dec_params[d] for d in self.layer_depths],
-            pastiche, targets_all, run_key, depths=tuple(self.layer_depths),
-            plans=plans, mode=cfg.hist_mode, strengths_all=strengths_all,
-            pca_flags_all=pca_flags_all, resize_mats_all=mats_all,
-            stage_codecs=self.stage_codecs, use_pallas=cfg.use_pallas,
-            content_px=content, color_mode=cfg.color_transfer,
-            rotations=rotations, color_rotations=color_rotations)
+        enc_all = [self.bank.enc_params[d] for d in self.layer_depths]
+        dec_all = [self.bank.dec_params[d] for d in self.layer_depths]
+        if n_chunks > 1:
+            out = _run_stages_chunked_impl(
+                enc_all, dec_all, pastiche, targets_all, run_key,
+                depths=tuple(self.layer_depths), plans=plans,
+                mode=cfg.hist_mode, pca_flags_all=pca_flags_all,
+                n_chunks=n_chunks, resize_mats_all=mats_all,
+                stage_codecs=self.stage_codecs, rotations=rotations)
+        else:
+            out = _run_stages_impl(
+                enc_all, dec_all, pastiche, targets_all, run_key,
+                depths=tuple(self.layer_depths), plans=plans,
+                mode=cfg.hist_mode, strengths_all=strengths_all,
+                pca_flags_all=pca_flags_all, resize_mats_all=mats_all,
+                stage_codecs=self.stage_codecs, use_pallas=cfg.use_pallas,
+                content_px=content, color_mode=cfg.color_transfer,
+                rotations=rotations, color_rotations=color_rotations,
+                cov_prop=cfg.cov_propagation)
+        return _quant_u8(out) if quantize_uint8 else out
+
+    def _evict_style_preps(self) -> None:
+        while len(self._style_prep_cache) > 6 * max(self.cfg.passes, 1):
+            self._style_prep_cache.popitem(last=False)
 
 
 def synthesize(cfg: OptexConfig, styles, content=None, pastiche=None,

@@ -26,7 +26,7 @@ def _pad(x: torch.Tensor, pad_mode: str) -> torch.Tensor:
     if pad_mode != "reflect":
         raise NotImplementedError(
             f"pad mode {pad_mode!r} (tileable output) is not ported to the "
-            "torch package yet (ROADMAP.md, queue 1 item 13)")
+            "torch package yet (ROADMAP.md, queue 1 item 13c)")
     return reflect_pad(x, 1)
 
 

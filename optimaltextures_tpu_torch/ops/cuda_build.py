@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for sm_90a into a shared
 library with a plain C interface, loaded with ``ctypes`` (no PyTorch headers,
-so a build takes seconds). Libraries go to ``<repo>/build/torch_kernels/``,
+so a build takes seconds). Libraries go to ``<repo>/build/torch_kernels/``
+(or the directory given to :func:`set_build_dir`, the CLI's ``--cache_dir``),
 named by a hash of the source and flags, and are built at first use in the
 process that needs them (or all at once, in parallel, by :func:`build`). A
 failed build raises; nothing falls back.
@@ -20,7 +21,8 @@ from typing import List
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+DEFAULT_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+BUILD_DIR = DEFAULT_BUILD_DIR
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -38,6 +40,14 @@ def nvcc_path() -> str:
             return c
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
                        "(the CUDA kernels build on the machine with the GPU)")
+
+
+def set_build_dir(path: str) -> None:
+    """Build the kernel libraries into ``path`` ('' = the default,
+    ``build/torch_kernels/`` in the repository); libraries this process has
+    loaded already stay loaded."""
+    global BUILD_DIR
+    BUILD_DIR = os.path.abspath(path) if path else DEFAULT_BUILD_DIR
 
 
 def library_path(name: str) -> str:

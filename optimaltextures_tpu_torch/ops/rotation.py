@@ -22,13 +22,20 @@ import torch
 _POLAR_ITERS = 30
 
 
-def polar_rotations(g: torch.Tensor) -> torch.Tensor:
-    """(n_rot, n, n) Gaussian -> its (n_rot, n, n) SO(n) polar factors."""
+def _polar_factor(g: torch.Tensor) -> torch.Tensor:
+    """(n_rot, n, n) -> the orthogonal polar factors, O(n), by
+    ``_POLAR_ITERS`` Newton-Schulz steps from the Frobenius-scaled matrix."""
     norm = torch.sqrt(torch.sum(g * g, dim=(1, 2), keepdim=True))
     x = g / norm
     for _ in range(_POLAR_ITERS):
         xtx = torch.matmul(x, x.transpose(1, 2))
         x = 1.5 * x - 0.5 * torch.matmul(xtx, x)
+    return x
+
+
+def polar_rotations(g: torch.Tensor) -> torch.Tensor:
+    """(n_rot, n, n) Gaussian -> its (n_rot, n, n) SO(n) polar factors."""
+    x = _polar_factor(g)
     sign, _ = torch.linalg.slogdet(g)   # det(Q) sign == det(G) sign (P is PSD)
     x = x.clone()
     x[:, :, -1] *= sign[:, None]
@@ -61,6 +68,38 @@ def stage_rotations(gen: torch.Generator, n_iters: int, n: int,
                     device="cpu") -> torch.Tensor:
     """The (n_iters, n, n) rotation stack of one OT stage."""
     return random_rotations_polar(gen, n_iters, n, device)
+
+
+def masked_polar_rotations(g: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(n_rot, n, n) Gaussian and a 0-d int tensor ``k`` -> the SO(n)
+    rotations blockdiag(polar(G_k), I_{n-k}), with ``k`` kept on the device.
+
+    Masking the Gaussian to blockdiag(G_k, I) before the Newton-Schulz
+    iteration gives exactly that: the iteration keeps the block structure,
+    the polar factor is scale-invariant and the identity block passes
+    through. The det fix flips column k-1, the last column inside the active
+    block (flipping a pad column would break the identity block), so
+    features zero-padded beyond k stay exactly zero under the rotations."""
+    n = g.shape[-1]
+    idx = torch.arange(n, device=g.device)
+    k = torch.as_tensor(k, device=g.device)
+    inside = (idx[:, None] < k) & (idx[None, :] < k)
+    eye = torch.eye(n, dtype=g.dtype, device=g.device)
+    g = torch.where(inside, g, eye)
+    sign, _ = torch.linalg.slogdet(g)
+    flip = (idx == k - 1)[None, None, :]
+    return _polar_factor(g) * torch.where(flip, sign[:, None, None], 1.0)
+
+
+def stage_rotations_masked(gen: torch.Generator, n_iters: int, n: int,
+                           k: torch.Tensor, device="cpu") -> torch.Tensor:
+    """The (n_iters, n, n) rotation stack of a stage whose features are
+    zero-padded beyond the true PCA rank ``k`` (pca_bucket, pca_traced_k):
+    the same Gaussian draw as :func:`stage_rotations`, masked to
+    blockdiag(SO(k), I) (:func:`masked_polar_rotations`)."""
+    g = torch.randn((n_iters, n, n), generator=gen, device=device,
+                    dtype=torch.float32)
+    return masked_polar_rotations(g, k)
 
 
 def derive_seed(*parts: int) -> int:

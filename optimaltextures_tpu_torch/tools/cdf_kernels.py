@@ -66,25 +66,18 @@ def device_breakdown(fn, reps: int) -> dict:
     """{kernel name: (device ms a call, launches a call)} for every kernel
     torch.profiler records over ``reps`` calls of ``fn``: a kernel's mean
     time over the launches recorded, times its launches a call rounded to
-    a whole number (the profiler can drop a few events of a long loop)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    a whole number (the profiler can drop a few events of a long loop).
+    If the profiler records no device time, one row of the CUDA events'
+    time a call, named so."""
+    from optimaltextures_tpu_torch.tools import edge_convs
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    rows = edge_convs.profiled_kernels(fn, reps)
+    if rows is None:
+        return {"all kernels (CUDA events)": (edge_convs.event_ms(fn, reps), 1)}
     out = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-            per_call = max(1, round(e.count / reps))
-            out[e.key] = (us / 1e3 / e.count * per_call, per_call)
-    if sum(ms for ms, _ in out.values()) <= 0.0:
-        raise RuntimeError("torch.profiler recorded no device time")
+    for key, us, count in rows:
+        per_call = max(1, round(count / reps))
+        out[key] = (us / 1e3 / count * per_call, per_call)
     return out
 
 
@@ -93,8 +86,8 @@ def _prep(synth, style, size: int):
     [(eigvecs, stats, mean)] per depth)."""
     spectra = synth._dispatch_style_prep([style], size, True)
     svals = [sv.cpu().numpy() for (_, sv, _) in spectra]
-    ks = synth._choose_widths(spectra, svals)
-    return ks, synth._finish_style_prep(spectra, ks)
+    ks, masks = synth._choose_widths(spectra, svals)
+    return ks, synth._finish_style_prep(spectra, ks, masks)
 
 
 def clouds(seed: int):

@@ -121,25 +121,41 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """The device time of every kernel torch.profiler records over ``reps``
-    calls of ``fn``, over ``reps`` (fn launches one kernel and no other)."""
+def profiled_kernels(fn, reps: int, tries: int = 3):
+    """[(kernel name, device us, launches)] of every kernel torch.profiler
+    records over ``reps`` calls of ``fn`` (after one warm-up call), or None
+    if no attempt of ``tries`` recorded any device time: now and then a
+    profiler session on the H100 delivers no device events at all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0.0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, getattr(e, "self_device_time_total",
+                                getattr(e, "self_cuda_time_total", 0.0)),
+                 e.count)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(us for _, us, _ in rows) > 0.0:
+            return rows
+    print(f"torch.profiler recorded no device time in {tries} sessions: "
+          "timed with CUDA events instead", file=sys.stderr, flush=True)
+    return None
+
+
+def device_ms(fn, reps: int) -> float:
+    """The device time of every kernel torch.profiler records over ``reps``
+    calls of ``fn``, over ``reps`` (fn launches one kernel and no other);
+    the CUDA events' time if the profiler records none."""
+    rows = profiled_kernels(fn, reps)
+    if rows is None:
+        return event_ms(fn, reps)
+    return sum(us for _, us, _ in rows) / 1e3 / reps
 
 
 def host_us(fn, reps: int) -> float:

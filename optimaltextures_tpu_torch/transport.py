@@ -7,9 +7,11 @@ only through its mean and covariance, which propagate in closed form (as
 does the content pull ``f -> f + s*(cf - f)``). So a whole stage's
 iterations compose into ONE affine map built by a C x C loop
 (:func:`compose_moment_chain`), and the (B*H*W, C) features are touched by a
-single GEMM (two with a content pull). The iterative
-``cov_propagation=False`` loop is not ported yet (ROADMAP.md, queue 1 item
-13).
+single GEMM (two with a content pull). ``cov_propagation=False`` (or
+``OPTEX_NO_COV_PROP=1``) runs the iterations one by one instead, each
+recomputing the cloud's moments from the data
+(:func:`_moment_step_with_factor`), with the style side of every iteration
+batched out of the loop.
 
 Sampled modes (cdf / sort): each iteration rotates the pastiche and style
 clouds, matches every rotated coordinate (cdf on the CUDA kernels of
@@ -23,8 +25,17 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from . import config
 from .ops import histmatch
-from .ops.rotation import random_rotation, stage_rotations
+from .ops.rotation import (random_rotation, stage_rotations,
+                           stage_rotations_masked)
+
+
+def cov_propagation_enabled() -> bool:
+    """False when OPTEX_NO_COV_PROP=1 (read at call time,
+    config.cov_propagation_env_off): the moment modes then run the
+    per-iteration loop, whatever ``OptexConfig.cov_propagation`` says."""
+    return not config.cov_propagation_env_off()
 
 
 class StyleStats(NamedTuple):
@@ -43,6 +54,46 @@ def style_stats(style_feature: torch.Tensor,
     samples = (style_feature.reshape(-1, style_feature.shape[-1])
                if need_samples else None)
     return StyleStats(mu=mu, cov_raw=cov, samples=samples)
+
+
+def _moment_step_with_rot(rot: torch.Tensor, feature: torch.Tensor,
+                          stats: StyleStats, mode: str,
+                          eps: float = 1.0) -> torch.Tensor:
+    """One moment-matching sliced-OT step with a supplied rotation:
+    ``(x - mu_t) @ (R A^T R^T) + mu_s``, A computed in the rotated basis
+    from the congruence-rotated covariances."""
+    c = feature.shape[-1]
+    mu_t, cov_t_raw = histmatch.moment_stats(feature)
+    a = histmatch.moment_transform(rot.T @ (cov_t_raw @ rot),
+                                   rot.T @ (stats.cov_raw @ rot), mode, eps)
+    m = rot @ (a.T @ rot.T)
+    out = ((feature - mu_t).reshape(-1, c) @ m).reshape(feature.shape)
+    return out + stats.mu
+
+
+def _moment_step_with_factor(rot: torch.Tensor, feature: torch.Tensor,
+                             mu_s: torch.Tensor, sfactor: torch.Tensor,
+                             mode: str, eps: float = 1.0) -> torch.Tensor:
+    """:func:`_moment_step_with_rot` with the style side precomputed
+    (histmatch.style_factor_batch): the per-iteration loop's body."""
+    c = feature.shape[-1]
+    mu_t, cov_t_raw = histmatch.moment_stats(feature)
+    a = histmatch.moment_transform_pre(rot.T @ (cov_t_raw @ rot), sfactor,
+                                       mode, eps)
+    m = rot @ (a.T @ rot.T)
+    out = ((feature - mu_t).reshape(-1, c) @ m).reshape(feature.shape)
+    return out + mu_s
+
+
+def ot_step_moment(gen: Optional[torch.Generator], feature: torch.Tensor,
+                   stats: StyleStats, mode: str, eps: float = 1.0,
+                   rotation: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One moment-mode sliced-OT iteration; the rotation is drawn from
+    ``gen`` (QR) unless ``rotation`` is given."""
+    if rotation is None:
+        rotation = random_rotation(gen, feature.shape[-1], feature.device)
+    return _moment_step_with_rot(rotation.to(feature), feature, stats, mode,
+                                 eps)
 
 
 def _sampled_step_with_rot(rot: torch.Tensor, feature: torch.Tensor,
@@ -170,6 +221,17 @@ def compose_moment_chain(rotations: torch.Tensor, sfactors: torch.Tensor,
     return A, Bc, bias
 
 
+def draw_stage_rotations(gen: torch.Generator, n_iters: int, n: int,
+                         device, k_mask: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """A stage's rotation stack from ``gen``: blockdiag(SO(k), I) rotations
+    when the features are zero-padded beyond the true rank ``k_mask``, else
+    full SO(n) ones. Both draw the same Gaussian."""
+    if k_mask is not None:
+        return stage_rotations_masked(gen, n_iters, n, k_mask, device)
+    return stage_rotations(gen, n_iters, n, device)
+
+
 def stage_affine_map(rotations: torch.Tensor, mu0: torch.Tensor,
                      cov0: torch.Tensor, stats: StyleStats, mode: str,
                      eps: float = 1.0):
@@ -186,22 +248,29 @@ def transport_loop(gen: Optional[torch.Generator], feature: torch.Tensor,
                    content_feature: Optional[torch.Tensor] = None,
                    content_strength: float = 0.0, eps: float = 1.0,
                    rotations: Optional[torch.Tensor] = None,
-                   use_pallas: bool = True) -> torch.Tensor:
+                   use_pallas: bool = True,
+                   k_mask: Optional[torch.Tensor] = None,
+                   cov_prop: Optional[bool] = None) -> torch.Tensor:
     """``n_iters`` sliced-OT steps on NHWC ``feature``, each followed by the
     reference's content pull ``feat += s * (content - feat)`` when a
     content feature is given.
 
     Moment modes compose the stage into one affine map (with or without
-    the pull); cdf/sort iterate. Rotations come from ``stage_rotations(gen,
-    ...)`` unless ``rotations`` (n_iters, C, C) is given — the injection hook
-    the parity tests use to feed the JAX package's rotation stacks."""
+    the pull) unless ``cov_prop`` is False (None = on) or OPTEX_NO_COV_PROP
+    is set: then each iteration recomputes the cloud's moments
+    (:func:`_moment_step_with_factor`); cdf/sort iterate. Rotations come
+    from :func:`draw_stage_rotations` (blockdiag(SO(k), I) with ``k_mask``,
+    the traced true rank of zero-padded features) unless ``rotations``
+    (n_iters, C, C) is given — the injection hook the parity tests use to
+    feed the JAX package's rotation stacks."""
     if n_iters == 0:
         return feature
     if mode not in ("chol", "pca", "sym", "cdf", "sort"):
         raise ValueError(f"unknown hist_mode {mode!r}")
     c = feature.shape[-1]
     if rotations is None:
-        rotations = stage_rotations(gen, n_iters, c, feature.device)
+        rotations = draw_stage_rotations(gen, n_iters, c, feature.device,
+                                         k_mask)
     if tuple(rotations.shape) != (n_iters, c, c):
         raise ValueError(f"rotations {tuple(rotations.shape)} != "
                          f"{(n_iters, c, c)}")
@@ -211,6 +280,19 @@ def transport_loop(gen: Optional[torch.Generator], feature: torch.Tensor,
         for rot in rotations:
             feature = _sampled_step_with_rot(rot, feature, stats.samples, mode,
                                              use_pallas)
+            if content_feature is not None:
+                feature = feature + content_strength * (content_feature - feature)
+        return feature
+
+    if cov_prop is False or not cov_propagation_enabled():
+        # the per-iteration loop: the style side of every iteration
+        # (congruences and decompositions) is batched out of it
+        sfactors = histmatch.style_factor_batch(
+            histmatch.style_congruence_batch(rotations, stats.cov_raw), mode,
+            eps)
+        for rot, sfac in zip(rotations, sfactors):
+            feature = _moment_step_with_factor(rot, feature, stats.mu, sfac,
+                                               mode, eps)
             if content_feature is not None:
                 feature = feature + content_strength * (content_feature - feature)
         return feature

@@ -178,10 +178,7 @@ def test_cli_batch_bf16_writes_one_png_per_image(tmp_path):
 
 
 # every setting that stays outside the port, one override each
-UNPORTED = [dict(tileable=True), dict(out_width=64), dict(init="i.png"),
-            dict(pca_bucket=8), dict(pca_traced_k=True), dict(batch_chunk=1),
-            dict(cov_propagation=False), dict(num_devices=2),
-            dict(spatial_devices=2)]
+UNPORTED = [dict(tileable=True), dict(num_devices=2), dict(spatial_devices=2)]
 
 
 def test_require_ported_still_raises_for_every_remaining_row():

@@ -913,3 +913,106 @@ def test_small_bf16_batch_run_on_gpu_matches_cpu():
                                                   rotations=rotations)
     assert gpu.shape == cpu.shape == (2, 64, 64, 3) and gpu.dtype == torch.float32
     assert float((gpu.cpu() - cpu).abs().max()) <= 0.1523
+
+
+# --- the non-square shapes of the out_width path ------------------------------
+
+# every codec call of one depth-3 stage roundtrip at 512 x 768 (out_width
+# 768): (kernel, Cin, wrapper kwargs, the call's input (H, W))
+ROUNDTRIP_512x768 = [
+    ("rgb_to_relu1", 3, {}, (512, 768)),
+    ("conv3x3_p2", 64, dict(relu=True, pool=True), (512, 768)),
+    ("conv3x3_full", 64, dict(relu=True), (256, 384)),
+    ("conv3x3_full", 128, dict(relu=True, pool=True), (256, 384)),
+    ("upconv_p2", 128, {}, (128, 192)),
+    ("conv3x3_p2", 128, dict(relu=True), (256, 384)),
+    ("upconv_p2", 64, {}, (256, 384)),
+    ("final_to_rgb", 64, {}, (512, 768))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cin,kw,hw", ROUNDTRIP_512x768)
+def test_f32_kernels_match_plain_at_512x768(name, cin, kw, hw):
+    """The f32 kernels (1-5) at the 512 x 768 roundtrip's shapes: within
+    2e-5 x max|plain| of the plain version."""
+    _need_gpu()
+    g = torch.Generator(device="cuda").manual_seed(cin + hw[0] + 3 * hw[1])
+    cout = {"rgb_to_relu1": 64, "conv3x3_p2": 64, "conv3x3_full": 128,
+            "upconv_p2": cin, "final_to_rgb": 3}[name]
+    x = torch.rand((1, *hw, cin), generator=g, device="cuda")
+    pack = codec.pack_up if name == "upconv_p2" else codec.pack
+    p = pack(torch.randn((cout, cin, 3, 3), generator=g, device="cuda") * 0.1,
+             torch.randn((cout,), generator=g, device="cuda") * 0.1)
+    plain_kw = {**kw, **_PLAIN_KW.get(name, {})}
+    plain_kw.pop("out_dtype", None)
+    before = codec.LAUNCHES[name]
+    got = getattr(codec, name)(x, p, **kw)
+    ref = codec.conv3x3_plain(x, p, **plain_kw)
+    torch.cuda.synchronize()
+    assert codec.LAUNCHES[name] == before + 1
+    assert got.shape == ref.shape and got.shape[1] != got.shape[2]
+    assert float((got - ref).abs().max()) <= REL_TOL * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cin,kw,hw", ROUNDTRIP_512x768)
+def test_bf16_kernels_match_plain_at_512x768(name, cin, kw, hw):
+    """The bf16 kernels (1b-5b) at the 512 x 768 roundtrip's shapes: within
+    2^-7 x max|plain| of the bf16 plain version."""
+    _need_gpu()
+    g = torch.Generator(device="cuda").manual_seed(cin + 3 * hw[0] + hw[1])
+    x, p = _bf16_case(name, 1, *hw, cin, g)
+    before = dict(codec.LAUNCHES)
+    got = getattr(codec, name)(x, p, **kw)
+    ref = codec.conv3x3_plain(x, p, **{**kw, **_PLAIN_KW.get(name, {})})
+    torch.cuda.synchronize()
+    assert codec.LAUNCHES[name + "_bf16"] == before[name + "_bf16"] + 1
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    got, ref = got.float(), ref.float()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= BF16_TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cin,kw,hw", [
+    ("conv3x3_p2", 64, dict(relu=True, pool=True), (512, 768)),
+    ("conv3x3_full", 128, dict(relu=True, pool=True), (256, 384)),
+    ("upconv_p2", 64, {}, (256, 384))])
+def test_wgmma_modes_repeated_launches_agree_at_512x768(name, cin, kw, hw):
+    """Each mode of the bf16 wgmma kernel at a non-square roundtrip shape:
+    20 launches equal the first bit for bit."""
+    _need_gpu()
+    g = torch.Generator(device="cuda").manual_seed(41)
+    x, p = _bf16_case(name, 1, *hw, cin, g)
+    kern = getattr(codec, name)
+    first = kern(x, p, **kw)
+    assert sum(not torch.equal(kern(x, p, **kw), first) for _ in range(20)) == 0
+
+
+@pytest.mark.cuda
+def test_chunked_bf16_run_matches_unchunked_on_gpu():
+    """128 px, batch 8, bf16, in chunks of 4 vs whole on the card, same
+    noise and generator stream: the chunks run every bf16 codec kernel once
+    each a stage roundtrip (twice the whole run's launches); the two differ
+    only in the covariance's summation order, which a bf16 rounding before
+    the decode can turn into one ulp. Bound 0.1523, as the bf16 run above;
+    the difference is printed."""
+    _need_gpu()
+    kw = dict(size=128, passes=2, iters=40, no_multires=True, seed=5, batch=8,
+              conv_dtype="bfloat16", style=["s.png"])
+    rng = np.random.default_rng(1)
+    noise = rng.uniform(size=(8, 128, 128, 3)).astype(np.float32)
+    style = rng.uniform(size=(1, 128, 128, 3)).astype(np.float32)
+    outs, launches = {}, {}
+    for chunk in (0, 4):
+        codec.reset_launches()
+        outs[chunk] = core.Synthesizer(config.OptexConfig(batch_chunk=chunk, **kw),
+                                       device="cuda").run(noise, [style])
+        torch.cuda.synchronize()
+        launches[chunk] = dict(codec.LAUNCHES)
+    for k in codec.KERNELS:
+        assert launches[4][k + "_bf16"] == 2 * launches[0][k + "_bf16"] > 0
+        assert launches[4][k] == 0
+    err = float((outs[4] - outs[0]).abs().max())
+    print(f"chunked vs unchunked bf16 at 128 px, batch 8: max abs diff {err:.3e}")
+    assert bool(torch.isfinite(outs[4]).all()) and err <= 0.1523

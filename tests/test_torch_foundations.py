@@ -184,9 +184,6 @@ def test_ported_settings_run(override):
          tileable=True),
     # so are bf16 convs and batch > 1, and neither lifts one either
     dict(conv_dtype="bfloat16", tileable=True), dict(tileable=True),
-    dict(batch=2, out_width=64),
-    dict(out_width=64), dict(init="i.png"), dict(pca_bucket=8),
-    dict(pca_traced_k=True), dict(batch_chunk=1), dict(cov_propagation=False),
     dict(num_devices=2), dict(spatial_devices=2)])
 def test_out_of_slice_settings_raise(override):
     kw = dict(size=64, style=["x.png"])
@@ -194,3 +191,22 @@ def test_out_of_slice_settings_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
         tcore.Synthesizer(tconfig.OptexConfig(**kw), device="cpu")
     assert "mixing" not in str(err.value)
+
+
+@pytest.mark.parametrize("override", [
+    dict(batch=2, out_width=64), dict(out_width=64), dict(init="i.png"),
+    dict(pca_bucket=8), dict(pca_traced_k=True),
+    dict(batch=2, batch_chunk=1), dict(cov_propagation=False)])
+def test_formerly_unported_settings_run(override):
+    """The settings this port once refused build a CPU Synthesizer and run
+    one 32-px pass (an init image is a starting pastiche: here the noise)."""
+    kw = dict(size=32, passes=1, iters=6, no_multires=True, depth=2, seed=3,
+              style=["x.png"])
+    kw.update(override)
+    cfg = tconfig.OptexConfig(**kw)
+    synth = tcore.Synthesizer(cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    style = rng.uniform(size=(1, 32, 32, 3)).astype(np.float32)
+    shape = (cfg.batch, 32, cfg.out_width or 32, 3)
+    out = synth.run(rng.uniform(size=shape).astype(np.float32), [style])
+    assert out.shape == shape and bool(torch.isfinite(out).all())

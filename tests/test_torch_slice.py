@@ -136,8 +136,10 @@ def test_pca_on_chooses_the_same_k_and_subspace(inputs):
         j_ks, j_masks = js._choose_widths(j_spec)
         j_slim = js._finish_style_prep(j_spec, j_ks, j_masks, None, 1)
         t_spec = ts._dispatch_style_prep(t_style, size, rs)
-        t_ks = ts._choose_widths(t_spec, [sv.numpy() for (_, sv, _) in t_spec])
-        t_slim = ts._finish_style_prep(t_spec, t_ks)
+        t_ks, t_masks = ts._choose_widths(
+            t_spec, [sv.numpy() for (_, sv, _) in t_spec])
+        assert t_masks == (None,) * len(t_spec)
+        t_slim = ts._finish_style_prep(t_spec, t_ks, t_masks)
         assert tuple(t_ks) == tuple(j_ks), (size, t_ks, j_ks)
         for (_, jsv, _), (_, tsv, _), (jv, jst, _), (tv, tst, _) in zip(
                 j_spec, t_spec, j_slim, t_slim):
