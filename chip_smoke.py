@@ -114,7 +114,28 @@ Phases (each raises on failure; none catches its own):
      64 x 128 out_width, an init image, cov_propagation=False and batch 4
      in chunks of 2 in f32 (each max <= 1e-3);
   8. the CLI on a style file from docs/samples/, and mixing two (needs
-     Pillow).
+     Pillow);
+  9. the HTTP server (optimaltextures_tpu_torch/serve.py, serve.serve(port=0):
+     the GPU, one worker, coalesce 8) at 512 px with the main path's defaults,
+     the style exemplar from --seed sent as a base64 PNG, every request's
+     launches counted (set to 0 just before it): a cold seeded request, then
+     8 warm ones (every body identical, the PNG byte-equal to a direct
+     Synthesizer.run(..., quantize_uint8=True) of the same noise, the main
+     path's f32 codec counts a request, no style prep: the styles_token
+     cache); two unseeded requests (they differ); a cdf request (cold and
+     warm: histogram and remap 246 launches each, path A's); jpeg and npy
+     (equal to the png's pixels); tileable -> 501; /healthz (the card's name)
+     and /metrics (exactly the requests made); a second server with fresh
+     pools importing the first one's style pack from OPTEX_PACK_DIR (its
+     first seeded request: 0 style preps, the same bytes); on it two
+     coalesced cohorts of 8 (the only worker checked out until the open
+     cohort holds 8: X-Optex-Cohort 8, 8 distinct images, each f32 codec
+     kernel launched the batch-1 counts); then the same twice on a third
+     server with config_defaults conv_dtype bfloat16 (kernels 1b-5b at the
+     batch-1 counts, no f32 codec launch). Prints the cold latency, the warm
+     p50 and max, the first request after the restart, each cohort's wall
+     and images/s beside 8 x the warm p50, and the cdf latencies, each with
+     the card's name and power limit (needs Pillow).
 
 The last two lines of standard output are the {"kernels": [...]} line (all
 nine kernels, each with its "design": ffma+tma, cluster-dsmem,
@@ -797,12 +818,11 @@ def _kept_run(synth, cfg, styles, **run_kw):
     can be read after the run. Returns (output, seconds)."""
     import torch
 
-    from optimaltextures_tpu_torch.ops.rotation import generator
+    from optimaltextures_tpu_torch import core
 
     run_key = synth.next_run_key()
-    noise = torch.rand((cfg.batch, cfg.size, cfg.out_width or cfg.size, 3),
-                       generator=generator(synth.device, run_key, 999),
-                       device=synth.device, dtype=torch.float32)
+    noise = core.draw_noise(synth.device, run_key,
+                            (cfg.batch, cfg.size, cfg.out_width or cfg.size, 3))
     t0 = time.time()
     out = synth.run(noise, styles, key=run_key, **run_kw)
     torch.cuda.synchronize()
@@ -1202,6 +1222,303 @@ def cli_phase(seed: int):
         print(f"cli: wrote {os.path.join(out_dir, pngs[0])}", flush=True)
 
 
+class _Server:
+    """serve.serve(port=0, ...) on a thread of this process; ``post`` sends
+    one request and returns (status, headers, body, seconds)."""
+
+    def __init__(self, **kw):
+        import threading
+
+        from optimaltextures_tpu_torch import serve
+
+        self.srv = serve.serve(port=0, **kw)
+        self.url = f"http://127.0.0.1:{self.srv.server_address[1]}"
+        self.thread = threading.Thread(target=self.srv.serve_forever, daemon=True)
+        self.thread.start()
+
+    def post(self, payload):
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(
+            f"{self.url}/v1/synthesize", data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.time()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return r.status, r.headers, r.read(), time.time() - t0
+        except urllib.error.HTTPError as e:
+            return e.code, e.headers, e.read(), time.time() - t0
+
+    def get(self, path):
+        import urllib.request
+
+        with urllib.request.urlopen(f"{self.url}{path}", timeout=60) as r:
+            return r.read()
+
+    def metrics(self):
+        return {ln.rsplit(" ", 1)[0]: float(ln.rsplit(" ", 1)[1])
+                for ln in self.get("/metrics").decode().splitlines()
+                if not ln.startswith("#")}
+
+    def close(self):
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join()
+
+
+def _served_ok(name, status, headers, body, seconds, expected, preps=None,
+               want_preps=None):
+    """A request's checks: 200, and the launches of the run it made (counts
+    set to 0 just before it) equal to ``expected``; ``want_preps`` the style
+    preps it may dispatch."""
+    launches = _counts()
+    print(f"serve, {name}: {seconds:.4f} s, HTTP {status}, "
+          f"{headers.get('Content-Type')}, {len(body)} bytes, style preps "
+          f"{preps}, launches {({k: v for k, v in launches.items() if v})}",
+          flush=True)
+    if status != 200:
+        raise AssertionError(f"serve, {name}: HTTP {status}: {body[:300]!r}")
+    if launches != expected:
+        raise AssertionError(f"serve, {name}: launches {launches} != "
+                             f"expected {expected}")
+    if want_preps is not None and preps != want_preps:
+        raise AssertionError(f"serve, {name}: {preps} style preps dispatched, "
+                             f"expected {want_preps}")
+
+
+def _cohort(server, payload, n, expected, name, card):
+    """n unseeded requests queued behind the server's only worker (checked
+    out here) until the open cohort holds all n, then run as one batched
+    run. Returns the bodies and the wall from the check-in to the last
+    response."""
+    import concurrent.futures
+
+    workers, co = server.srv.workers, server.srv.coalescer
+    idx = workers.checkout()
+    _reset_counts()
+    with concurrent.futures.ThreadPoolExecutor(n) as ex:
+        futs = [ex.submit(server.post, payload) for _ in range(n)]
+        t_wait = time.time()
+        while True:
+            with co.lock:
+                sizes = [len(c) for c in co._open.values()]
+            if sizes == [n]:
+                break
+            if time.time() - t_wait > 120:
+                raise AssertionError(f"serve, {name}: the open cohorts hold "
+                                     f"{sizes}, not {n}")
+            time.sleep(0.01)
+        t0 = time.time()
+        workers.checkin(idx)
+        results = [f.result() for f in futs]
+    wall = time.time() - t0
+    launches = _counts()
+    bodies = [body for _, _, body, _ in results]
+    cohorts = [h.get("X-Optex-Cohort") for _, h, _, _ in results]
+    print(f"serve, {name}: {n} requests in one cohort, wall {wall:.4f} s "
+          f"({n / wall:.2f} images/s), {len(set(bodies))} distinct images, "
+          f"launches {({k: v for k, v in launches.items() if v})} [{card}]",
+          flush=True)
+    if any(s != 200 for s, _, _, _ in results) or cohorts != [str(n)] * n:
+        raise AssertionError(f"serve, {name}: statuses "
+                             f"{[s for s, _, _, _ in results]}, cohorts {cohorts}")
+    if len(set(bodies)) != n:
+        raise AssertionError(f"serve, {name}: only {len(set(bodies))} of {n} "
+                             "images differ")
+    if launches != expected:
+        raise AssertionError(f"serve, {name}: launches {launches} != "
+                             f"{expected} (the batch-1 counts)")
+    return bodies, wall
+
+
+def serve_phase(seed: int, card: str):
+    """Phase 9: the HTTP server (optimaltextures_tpu_torch/serve.py) on the
+    GPU at 512 px with the main path's defaults, the style exemplar from
+    ``seed`` sent as a base64 PNG: cold and warm seeded requests byte-equal
+    to a direct run, the styles_token cache, a pack restart, coalesced
+    cohorts of 8 in f32 and bf16, a cdf request, the response formats,
+    /healthz, /metrics and a 501. Every request's launches are counted."""
+    import base64
+    import io
+
+    import torch
+    from PIL import Image
+
+    from optimaltextures_tpu_torch import core, serve
+    from optimaltextures_tpu_torch.config import OptexConfig
+
+    style_u8 = (np.clip(_style_exemplar(seed + 1)[0], 0, 1) * 255 + 0.5).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(style_u8).save(buf, "PNG")
+    b64 = base64.b64encode(buf.getvalue()).decode()
+    base = {"size": 512}
+    main_cfg = OptexConfig(size=512, seed=seed, style=["smoke_style"])
+    main = expected_counts(main_cfg)
+    bf16 = expected_counts(OptexConfig(size=512, conv_dtype="bfloat16",
+                                       style=["smoke_style"]))
+    cdf_counts = expected_counts(OptexConfig(size=512, hist_mode="cdf",
+                                             style=["smoke_style"]))
+    pixels = lambda body: np.asarray(Image.open(io.BytesIO(body)))
+
+    inner, preps = core.Synthesizer._dispatch_style_prep, [0]
+
+    def counted_prep(self, *args):
+        preps[0] += 1
+        return inner(self, *args)
+
+    def request(server, name, payload, expected=main, want_preps=None):
+        _reset_counts()
+        n0 = preps[0]
+        status, headers, body, seconds = server.post(payload)
+        _served_ok(name, status, headers, body, seconds, expected,
+                   preps[0] - n0, want_preps)
+        return body, seconds, preps[0] - n0
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    pack_dir = tempfile.mkdtemp(prefix="chip_smoke_packs_",
+                                dir=os.path.join(REPO, "build"))
+    os.environ["OPTEX_PACK_DIR"] = pack_dir
+    core.Synthesizer._dispatch_style_prep = counted_prep
+    seeded = {"config": {**base, "seed": seed}, "style_b64": [b64]}
+    unseeded = {"config": base, "style_b64": [b64]}
+    servers = []
+    try:
+        # the first server: cold, then warm seeded requests
+        first = _Server()
+        servers.append(first)
+        cold, cold_s, cold_preps = request(first, "cold seeded request", seeded)
+        if not cold_preps:
+            raise AssertionError("serve: the cold request dispatched no style prep")
+        packs = os.listdir(pack_dir)
+        if len(packs) != 1:
+            raise AssertionError(f"serve: the first request wrote packs {packs}")
+        warm, warm_s = [], []
+        for i in range(8):
+            body, seconds, _ = request(first, f"warm seeded request {i + 1}",
+                                       seeded, want_preps=0)
+            warm.append(body)
+            warm_s.append(seconds)
+        if any(b != cold for b in warm):
+            raise AssertionError("serve: seeded responses differ")
+        synth = core.Synthesizer(main_cfg, device="cuda")
+        key = synth.next_run_key()
+        style = serve._decode_image(b64, 512, oversize=True)
+        noise = core.draw_noise(synth.device, key, (1, 512, 512, 3))
+        direct = synth.run(noise, [style], key=key, quantize_uint8=True).cpu().numpy()
+        del synth
+        served = pixels(cold)
+        if served.shape != (512, 512, 3) or not np.array_equal(served, direct[0]):
+            raise AssertionError(
+                f"serve: the served image {served.shape} is not the direct run's "
+                f"({int((served != direct[0]).sum())} bytes differ)")
+        p50 = float(np.median(warm_s))
+        print(f"serve: cold seeded request {cold_s:.4f} s (Synthesizer built, "
+              f"{cold_preps} style preps; the kernels were built in phase 2, so no nvcc), warm "
+              f"seeded p50 {p50:.4f} s, max {max(warm_s):.4f} s over 8; every "
+              f"body identical and byte-equal to a direct Synthesizer.run "
+              f"(key={seed}, quantize_uint8=True); the warm requests dispatched "
+              f"no style prep (styles_token cache) [{card}]", flush=True)
+        # the host's share of a warm request, each part timed alone in turn
+        t0 = time.time()
+        req = serve._parse_request(seeded)
+        parse_s = time.time() - t0
+        _reset_counts()
+        t0 = time.time()
+        serve._execute(first.srv.workers.pools[0], req)
+        execute_s = time.time() - t0
+        if _counts() != main:
+            raise AssertionError(f"serve: _execute launched {_counts()}")
+        t0 = time.time()
+        serve._encode_batch(direct, "png")
+        encode_s = time.time() - t0
+        print(f"serve, a warm seeded request's parts: parse (base64 + PNG "
+              f"decode + resize + token) {parse_s:.4f} s; _execute {execute_s:.4f} "
+              f"s (the tokened run, the uint8 fetch, the PNG encode), of it the "
+              f"512^2 PNG encode {encode_s:.4f} s; HTTP and JSON the rest of the "
+              f"p50, {p50 - parse_s - execute_s:.4f} s [{card}]", flush=True)
+        a, _, _ = request(first, "unseeded request 1", unseeded, want_preps=0)
+        b, _, _ = request(first, "unseeded request 2", unseeded, want_preps=0)
+        if a == b:
+            raise AssertionError("serve: two unseeded requests returned the same bytes")
+        cdf_s = [request(first, f"cdf request ({label})",
+                         {"config": {**base, "seed": seed, "hist_mode": "cdf"},
+                          "style_b64": [b64]}, cdf_counts)[1]
+                 for label in ("cold", "warm")]
+        jpeg, _, _ = request(first, "jpeg", {**seeded, "format": "jpeg"},
+                             want_preps=0)
+        npy, _, _ = request(first, "npy", {**seeded, "format": "npy"}, want_preps=0)
+        jerr = np.abs(pixels(jpeg).astype(np.int16) - served.astype(np.int16)).mean()
+        arr = np.load(io.BytesIO(npy))
+        if jpeg[:2] != b"\xff\xd8" or jerr > 30 or not np.array_equal(arr[0], served):
+            raise AssertionError(f"serve: jpeg mean error {jerr}, npy {arr.shape}")
+        status, _, body, _ = first.post({"config": {**base, "tileable": True},
+                                         "style_b64": [b64]})
+        if status != 501 or "13c" not in json.loads(body)["error"]:
+            raise AssertionError(f"serve: tileable gave HTTP {status}: {body!r}")
+        health = json.loads(first.get("/healthz"))
+        metrics = first.metrics()
+        want = {'optex_requests_total{outcome="ok"}': 15.0,
+                'optex_requests_total{outcome="client_error"}': 1.0,
+                'optex_requests_total{outcome="server_error"}': 0.0,
+                "optex_request_seconds_count": 15.0, "optex_workers": 1.0,
+                "optex_coalesced_cohorts_total": 0.0,
+                "optex_coalesced_requests_total": 0.0}
+        print(f"serve: cdf request {cdf_s[0]:.4f} s cold (a new Synthesizer), "
+              f"{cdf_s[1]:.4f} s warm; jpeg mean |error| {jerr:.2f}, npy equal to "
+              f"the png; tileable 501; /healthz {health}; /metrics "
+              f"{ {k: metrics[k] for k in want} } [{card}]", flush=True)
+        if health["devices"] != [torch.cuda.get_device_name(0)] or any(
+                metrics[k] != v for k, v in want.items()):
+            raise AssertionError(f"serve: /healthz {health}, /metrics {metrics}")
+
+        # a restarted server: fresh pools, the pack on disk
+        second = _Server()
+        servers.append(second)
+        restart, restart_s, _ = request(
+            second, "first request after the restart", seeded, want_preps=0)
+        if restart != cold:
+            raise AssertionError("serve: the restarted server's bytes differ")
+        print(f"serve: first request after the pack restart {restart_s:.4f} s "
+              f"(a new Synthesizer, the pack imported: 0 style preps; the same "
+              f"bytes) [{card}]", flush=True)
+        walls, cohort_preps = {}, {}
+        for label in ("cold", "warm"):
+            n0 = preps[0]
+            _, walls[f"f32 {label}"] = _cohort(
+                second, unseeded, 8, main, f"f32 cohort ({label})", card)
+            cohort_preps[f"f32 {label}"] = preps[0] - n0
+        m = second.metrics()
+        if (m["optex_coalesced_cohorts_total"], m["optex_coalesced_requests_total"]) != (2, 16):
+            raise AssertionError(f"serve: coalescing counters {m}")
+
+        # bf16 by operator default; no pack directory: a pack is keyed by a
+        # signature without conv_dtype, so this server computes its own
+        # bf16 statistics
+        del os.environ["OPTEX_PACK_DIR"]
+        third = _Server(config_defaults={"conv_dtype": "bfloat16"})
+        servers.append(third)
+        for label in ("cold", "warm"):
+            n0 = preps[0]
+            _, walls[f"bf16 {label}"] = _cohort(
+                third, unseeded, 8, bf16, f"bf16 cohort ({label})", card)
+            cohort_preps[f"bf16 {label}"] = preps[0] - n0
+        print("serve: cohorts of 8 (padded batch 8), wall s / images/s: "
+              + "; ".join(f"{k} {w:.4f} / {8 / w:.2f}" for k, w in walls.items())
+              + f"; beside 8 warm single requests in turn, 8 x p50 = {8 * p50:.4f} s "
+              f"({1 / p50:.2f} images/s); style preps {cohort_preps} [{card}]",
+              flush=True)
+        if (cohort_preps["f32 cold"], cohort_preps["f32 warm"],
+                cohort_preps["bf16 warm"]) != (0, 0, 0) or not cohort_preps["bf16 cold"]:
+            raise AssertionError(f"serve: cohort style preps {cohort_preps}")
+    finally:
+        core.Synthesizer._dispatch_style_prep = inner
+        os.environ.pop("OPTEX_PACK_DIR", None)
+        for s in servers:
+            s.close()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1265,6 +1582,7 @@ def main() -> int:
         cli_phase(args.seed)
     else:
         print("cli phase not run: Pillow is not installed", flush=True)
+    serve_phase(args.seed, card)   # needs Pillow: a request's images are PNGs
 
     kernels = []
     for name, r in rows.items():

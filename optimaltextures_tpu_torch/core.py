@@ -959,6 +959,13 @@ class Synthesizer:
             self._style_prep_cache.popitem(last=False)
 
 
+def draw_noise(device, run_key: int, shape) -> torch.Tensor:
+    """Run ``run_key``'s noise pastiche: float32 uniforms in [0, 1) drawn
+    on ``device`` from the generator (run_key, 999)."""
+    return torch.rand(shape, generator=generator(device, run_key, 999),
+                      device=device, dtype=torch.float32)
+
+
 def synthesize(cfg: OptexConfig, styles, content=None, pastiche=None,
                verbose: bool = False, device=None):
     """One-call API: build the synthesizer, draw the noise pastiche (the
@@ -969,8 +976,7 @@ def synthesize(cfg: OptexConfig, styles, content=None, pastiche=None,
     if pastiche is None:
         shape = (tuple(content.shape) if content is not None else
                  (cfg.batch, cfg.size, cfg.out_width or cfg.size, 3))
-        pastiche = torch.rand(shape, generator=generator(synth.device, run_key, 999),
-                              device=synth.device, dtype=torch.float32)
+        pastiche = draw_noise(synth.device, run_key, shape)
     t0 = time.time()
     out = synth.run(pastiche, styles, content, verbose=verbose, key=run_key)
     if out.is_cuda:

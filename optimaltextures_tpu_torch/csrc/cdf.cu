@@ -448,7 +448,9 @@ int optex_batched_histogram(const float* x0, const float* x1, const float* lo,
   if (c <= 0 || c > 65535 || n0 <= 0 || clouds < 1 || clouds > 2 ||
       (clouds == 2 && n1 <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  // per device, so set at every launch: a server's workers launch on
+  // several GPUs from one process
+  const cudaError_t attr = cudaFuncSetAttribute(
       histogram_cluster, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const HistCloud a{x0, out0, n0};

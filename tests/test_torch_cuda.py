@@ -1016,3 +1016,97 @@ def test_chunked_bf16_run_matches_unchunked_on_gpu():
     err = float((outs[4] - outs[0]).abs().max())
     print(f"chunked vs unchunked bf16 at 128 px, batch 8: max abs diff {err:.3e}")
     assert bool(torch.isfinite(outs[4]).all()) and err <= 0.1523
+
+
+@pytest.mark.cuda
+def test_served_request_equals_direct_run_on_gpu():
+    """A seeded 64-px request through the HTTP server on the card (its
+    default device) returns the direct run's uint8 bytes, through the codec
+    kernels."""
+    _need_gpu()
+    import base64
+    import io
+    import json
+    import os
+    import threading
+    import urllib.request
+
+    from optimaltextures_tpu_torch import serve
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "docs", "samples", "graffiti_cholhist_256.png")
+    with open(path, "rb") as f:
+        b64 = base64.b64encode(f.read()).decode()
+    cfg_kw = dict(size=64, passes=2, iters=40, depth=2, seed=7)
+    srv = serve.serve(port=0, coalesce=1)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        codec.reset_launches()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.server_address[1]}/v1/synthesize",
+            data=json.dumps({"config": cfg_kw, "style_b64": [b64],
+                             "format": "npy"}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            got = np.load(io.BytesIO(r.read()))
+        served = dict(codec.LAUNCHES)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join()
+    assert all(served[k] > 0 for k in codec.KERNELS)
+    synth = core.Synthesizer(config.OptexConfig(style=["x"], **cfg_kw),
+                             device="cuda")
+    key = synth.next_run_key()
+    noise = core.draw_noise(synth.device, key, (1, 64, 64, 3))
+    style = serve._decode_image(b64, 64, oversize=True)
+    want = synth.run(noise, [style], key=key, quantize_uint8=True).cpu().numpy()
+    assert got.dtype == np.uint8 and got.shape == (1, 64, 64, 3)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_two_workers_serve_on_two_gpus():
+    """--workers 2: one pool per GPU, each request on its worker's card
+    (CUDA's current device set in the request's thread), sequential
+    requests rotating over the two; a seeded chol and a seeded cdf request
+    give the same bytes on both cards."""
+    _need_gpu()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    import base64
+    import json
+    import os
+    import threading
+    import urllib.request
+
+    from optimaltextures_tpu_torch import serve
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "docs", "samples", "graffiti_cholhist_256.png")
+    with open(path, "rb") as f:
+        b64 = base64.b64encode(f.read()).decode()
+    srv = serve.serve(port=0, workers=2, coalesce=1)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}/v1/synthesize"
+        for mode in ("chol", "cdf"):
+            got = {}
+            for _ in range(2):
+                req = urllib.request.Request(url, data=json.dumps({
+                    "config": dict(size=64, passes=2, iters=40, depth=2,
+                                   seed=3, hist_mode=mode),
+                    "style_b64": [b64], "format": "npy"}).encode(),
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    got[r.headers["X-Optex-Worker"]] = r.read()
+            assert set(got) == {"0", "1"} and got["0"] == got["1"], mode
+        for i, pool in enumerate(srv.workers.pools):
+            assert pool.device == torch.device("cuda", i)
+            assert {s.device for s in pool._cache.values()} == {pool.device}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join()

@@ -133,7 +133,11 @@ def test_package_imports_without_jax():
                   "optimaltextures_tpu_torch.ops.codec",
                   "optimaltextures_tpu_torch.ops.cdf",
                   "optimaltextures_tpu_torch.ops.colors",
-                  "optimaltextures_tpu_torch.utils.imageio"):
+                  "optimaltextures_tpu_torch.utils.imageio",
+                  "optimaltextures_tpu_torch.utils.stylepack",
+                  "optimaltextures_tpu_torch.serve",
+                  "optimaltextures_tpu_torch.tools.bake_packs",
+                  "optimaltextures_tpu_torch.tools.serve_loadtest"):
             importlib.import_module(m)
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "optimaltextures_tpu" or m.startswith("optimaltextures_tpu.")]
