@@ -17,9 +17,10 @@ Phases (each raises on failure; none catches its own):
      rgb_to_relu1's TMA stores (UTMASTG), their bf16 functions
      (final_to_rgb_mma and rgb_to_relu1_mma, csrc/edge_mma.cu) BF16 HMMA
      beside those and final_to_rgb_mma's ldmatrix (LDSM), and no bf16 FFMA
-     edge kernel is left; no kernel of csrc/edge_mma.cu may spill; the
-     histogram's 128-bit loads and cluster barrier, and the 128-bit loads
-     and stores of the remap and of the legacy fused apply;
+     edge kernel is left; no kernel of csrc/edge_mma.cu or csrc/conv_wg.cu
+     may spill; the histogram's 128-bit loads and cluster barrier, and the
+     128-bit loads and stores of the remap and of the legacy fused apply;
+     each codec kernel's reflect and wrap instantiations are checked apart;
   3. every codec kernel at its 512-px main-path shapes, on inputs made by a
      512-px decode->encode roundtrip of the real depth-3 weights: held
      against its plain PyTorch version (|kernel - plain| <= 2e-5 *
@@ -44,6 +45,16 @@ Phases (each raises on failure; none catches its own):
      device time and by events beside its plain version, one cuDNN bf16
      F.conv2d and its bound (operations at the dense bf16 rate, bytes at
      the memory rate) (optimaltextures_tpu_torch/tools/bf16_codec.py);
+  3w. the wrap mode (circular padding, tileable runs) of the ten codec
+     kernel functions: the f32 five at the eight 512-px roundtrip shapes
+     at batch 1 (2e-5 x max|plain| against the plain versions in wrap
+     mode, the signed mean error printed), the bf16 five there at batch 1
+     and 128 (2^-7 x max|plain|, repeated launches bit-equal), each timed
+     by the profiler's device time beside its reflect instantiation on the
+     same inputs; then every mode at 2 x 40 x 56 (every tile and strip an
+     edge one, ragged) and 100 launches of final_to_rgb's wrap mode, f32
+     and bf16, bit-equal to the first (its edge tiles' repair writes the
+     image's far edge into a ring slot that TMA refills later);
   4. the three cdf kernels at the cdf step's shapes: the rotated relu1
      clouds of the 512-px pass at the C the PCA rule picks (k1), the rotated
      512x512 pixel clouds of the color tail (C = 3) and the rotated relu3
@@ -105,6 +116,21 @@ Phases (each raises on failure; none catches its own):
      128, cold and warm (walls, images/s, peak memory, the bf16 codec
      launches twice the batch-1 path's, no f32 one, 256 distinct images),
      then one unchunked batch-256 run, whose peak memory must be higher;
+  6d. tileable output at 512 px: path T, the main path's defaults with
+     tileable=True (f32), cold, warm and one profiled run (walls, device
+     busy), every wrap kernel launched the main path's count of its
+     reflect mode and no reflect codec kernel; path T-bf16, the same at
+     batch 8 in bf16 on kernels 1b-5b in wrap mode, then once with
+     hist_mode="cdf" (path A's histogram and remap counts beside the wrap
+     codec); each output's seam ratio (the mean |step| across the wrap
+     seam over the interior neighbours', all of them and those at the
+     seam's phase of the 32-px grid of shifts the run commutes with,
+     seam_ratio) beside the main path's;
+  6e. JAX tests/test_tileable.py's shift-equivariance on the kernels: 64
+     px, depth 2, one pass of 6 iterations, the noise rolled by 16 px:
+     |run(roll) - roll(run)| < 1e-2 tileable, in chol and cdf mode, the
+     reflect run's error more than 10x that; 2 passes with multires (64 ->
+     256 -> 64) < 2e-2;
   7. 64-px runs on the GPU against the same runs on the CPU (the kernels'
      plain versions), with the same inputs, injected rotations and mixing
      masks: the main path and chol mixing (max |gpu - cpu| <= 1e-3), cdf
@@ -112,7 +138,9 @@ Phases (each raises on failure; none catches its own):
      pass granularity) and transfer + opt (mean <= 3e-3, max <= 5e-2); and
      the main path at batch 2 in bf16 (max <= 0.1523, the bound of 6b);
      64 x 128 out_width, an init image, cov_propagation=False and batch 4
-     in chunks of 2 in f32 (each max <= 1e-3);
+     in chunks of 2 in f32 (each max <= 1e-3); tileable, without and with
+     multires (1e-3), at batch 2 in bf16 (0.1523) and in cdf mode (by
+     distribution);
   8. the CLI on a style file from docs/samples/, and mixing two (needs
      Pillow);
   9. the HTTP server (optimaltextures_tpu_torch/serve.py, serve.serve(port=0):
@@ -124,7 +152,9 @@ Phases (each raises on failure; none catches its own):
      path's f32 codec counts a request, no style prep: the styles_token
      cache); two unseeded requests (they differ); a cdf request (cold and
      warm: histogram and remap 246 launches each, path A's); jpeg and npy
-     (equal to the png's pixels); tileable -> 501; /healthz (the card's name)
+     (equal to the png's pixels); a tileable request (200, the wrap
+     kernels at the main path's counts, the image decoded); spatial_devices
+     2 -> 501; /healthz (the card's name)
      and /metrics (exactly the requests made); a second server with fresh
      pools importing the first one's style pack from OPTEX_PACK_DIR (its
      first seeded request: 0 style preps, the same bytes); on it two
@@ -147,7 +177,11 @@ function of kernels 1-5, "<name>_bf16" with "dtype": "bfloat16", designs
 wgmma-resident (conv3x3_p2_bf16, conv3x3_full_bf16 and upconv_p2_bf16,
 csrc/conv_wg.cu) and mma+tma (final_to_rgb_bf16 and rgb_to_relu1_bf16,
 csrc/edge_mma.cu), their times summed over the eight shapes at batch 128
-and their launches those of the slice's path;
+and their launches those of the slice's path; then the wrap mode of the
+ten, "<name>[_bf16]_wrap" with "pad": "wrap", their designs unchanged,
+"device_ms" summed over the eight shapes (the bf16 ones at batch 128) with
+"reflect_device_ms" beside it, their launches those of path T and path
+T-bf16;
 conv64 and cdf_remap are on no path of the program, so their launches are
 those of their own check phase, which the "phase" field names) and
 {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -188,10 +222,19 @@ REPLACES = {
 }
 REPLACES.update({k + "_bf16": REPLACES[k] for k in (
     "rgb_to_relu1", "conv3x3_p2", "conv3x3_full", "upconv_p2", "final_to_rgb")})
+# the wrap mode (circular padding, tileable runs) of the ten codec kernel
+# functions: no TPU kernel computes it (the JAX package leaves tileable runs
+# to XLA's convs); each row names the Pallas kernel whose function it pads
+# the other way
+REPLACES.update({k + "_wrap": REPLACES[k] for k in list(REPLACES)
+                 if k.split("_bf16")[0] in ("rgb_to_relu1", "conv3x3_p2",
+                                            "conv3x3_full", "upconv_p2",
+                                            "final_to_rgb")})
 SOURCES = {"batched_histogram": "cdf", "pwl_remap": "cdf", "cdf_remap": "cdf",
            "conv64": "conv64", "conv3x3_p2_bf16": "conv_wg",
            "conv3x3_full_bf16": "conv_wg", "upconv_p2_bf16": "conv_wg",
            "final_to_rgb_bf16": "edge_mma", "rgb_to_relu1_bf16": "edge_mma"}   # else codec
+SOURCES.update({k + "_wrap": v for k, v in list(SOURCES.items()) if k.endswith("_bf16")})
 LIBRARIES = ("codec", "cdf", "conv64", "conv_wg", "edge_mma")
 
 # how each kernel computes: FFMA convs on the FP32 cores with their
@@ -213,6 +256,8 @@ DESIGNS = {"conv64": "wgmma+tma", **{k: "3xtf32-mma" for k in TENSOR_CORE_CODEC}
            **{k + "_bf16": "mma+tma" for k in EDGE_CODEC},
            "batched_histogram": "cluster-dsmem", "pwl_remap": "smem-tables",
            "cdf_remap": "smem-segments"}
+DESIGNS.update({k + "_wrap": DESIGNS[k] for k in list(DESIGNS)
+                if k.split("_bf16")[0] in _CODEC})
 # JAX's own max|bf16 - f32| gap on tests/test_torch_batch.py's inputs (64
 # px, batch 2, 2 passes, no PCA, injected rotations): the bound of every
 # bf16 run held against another run here
@@ -227,19 +272,27 @@ BF16_RUN_GAP = 0.1523
 # must show (the cdf kernels' names as cuobjdump -sass prints them on the
 # H100: 128-bit loads LDG.E.128.CONSTANT, stores STG.E.128, the cluster
 # barrier UCGABAR_ARV / UCGABAR_WAIT)
-SASS_CHECKS = (("conv64", r"conv64_wgmma", (("HGMMA", "HGMMA"),)),
-               ("conv3x3_p2", r"conv3x3_tf32x3ILi\d+ELi64E", (("HMMA", "TF32"),)),
-               ("conv3x3_full", r"conv3x3_tf32x3ILi\d+ELi128E", (("HMMA", "TF32"),)),
-               ("upconv_p2", r"upconv_tf32x3ILi\d+E", (("HMMA", "TF32"),)),
-               ("final_to_rgb", r"final_to_rgb_tmaE", (("UTMALDG", "UTMALDG"),)),
-               ("rgb_to_relu1", r"rgb_to_relu1_tmaE", (("UTMASTG", "UTMASTG"),)),
-               ("conv3x3_p2_bf16", r"conv3x3_wgILi64E", (("HGMMA", "HGMMA"),)),
-               ("conv3x3_full_bf16", r"conv3x3_wgILi128E", (("HGMMA", "HGMMA"),)),
-               ("upconv_p2_bf16", r"upconv_wgILi\d+E", (("HGMMA", "HGMMA"),)),
-               ("final_to_rgb_bf16", r"final_to_rgb_mma",
+# Each codec kernel's last template argument is its pad mode, WRAP (Lb0:
+# reflect, Lb1: wrap); both instantiations must show the design.
+_CODEC_SASS = (("conv3x3_p2", r"conv3x3_tf32x3ILi\d+ELi64ELb[01]ELb[01]ELb{}E",
+                (("HMMA", "TF32"),)),
+               ("conv3x3_full", r"conv3x3_tf32x3ILi\d+ELi128ELb[01]ELb[01]ELb{}E",
+                (("HMMA", "TF32"),)),
+               ("upconv_p2", r"upconv_tf32x3ILi\d+ELb{}E", (("HMMA", "TF32"),)),
+               ("final_to_rgb", r"final_to_rgb_tmaILb{}E", (("UTMALDG", "UTMALDG"),)),
+               ("rgb_to_relu1", r"rgb_to_relu1_tmaILb{}E", (("UTMASTG", "UTMASTG"),)),
+               ("conv3x3_p2_bf16", r"conv3x3_wgILi64ELi\d+ELb[01]ELb[01]ELb{}E",
+                (("HGMMA", "HGMMA"),)),
+               ("conv3x3_full_bf16", r"conv3x3_wgILi128ELi\d+ELb[01]ELb[01]ELb{}E",
+                (("HGMMA", "HGMMA"),)),
+               ("upconv_p2_bf16", r"upconv_wgILi\d+ELb{}E", (("HGMMA", "HGMMA"),)),
+               ("final_to_rgb_bf16", r"final_to_rgb_mmaILb{}E",
                 (("HMMA", "BF16"), ("UTMALDG", "UTMALDG"), ("LDSM", "LDSM"))),
-               ("rgb_to_relu1_bf16", r"rgb_to_relu1_mma",
-                (("HMMA", "BF16"), ("UTMASTG", "UTMASTG"))),
+               ("rgb_to_relu1_bf16", r"rgb_to_relu1_mmaILb{}E",
+                (("HMMA", "BF16"), ("UTMASTG", "UTMASTG"))))
+SASS_CHECKS = (("conv64", r"conv64_wgmma", (("HGMMA", "HGMMA"),)),
+               *((k, rx.format(0), needs) for k, rx, needs in _CODEC_SASS),
+               *((k + "_wrap", rx.format(1), needs) for k, rx, needs in _CODEC_SASS),
                ("batched_histogram", r"histogram_cluster",
                 (("LDG", "LDG.E.128"), ("UCGABAR", "UCGABAR_WAIT"))),
                ("pwl_remap", r"pwl_tables", (("LDG", "LDG.E.128"),
@@ -253,7 +306,7 @@ SASS_GONE = (("conv3x3_full_bf16 on mma.sync", r"conv3x3_bf16ILi\d+ELi128E"),
              ("final_to_rgb_bf16 on FFMA", r"final_to_rgb_tmaI13__nv_bfloat16E"),
              ("rgb_to_relu1_bf16 on FFMA", r"rgb_to_relu1_tmaI13__nv_bfloat16E"))
 # the libraries none of whose kernels may spill (ptxas -v)
-NO_SPILL = ("edge_mma",)
+NO_SPILL = ("edge_mma", "conv_wg")
 
 
 def _peaks(name: str, kind: str = "f32"):
@@ -335,9 +388,12 @@ def _expected_launches(layer_depths, passes: int) -> dict:
     return {k: v * passes for k, v in per_pass.items()}
 
 
-def check_kernels(seed: int, reps: int, card: str):
-    """Phase 3: every kernel at its 512-px main-path shapes vs its plain
-    version, with times. Returns the per-kernel summary rows."""
+def check_kernels(seed: int, reps: int, card: str, pad: str = "reflect"):
+    """Phase 3 (phase 3w with ``pad="wrap"``): every kernel at its 512-px
+    main-path shapes vs its plain version in pad mode ``pad``, with times.
+    Returns the per-kernel summary rows (``<name>_wrap`` in wrap mode, each
+    shape also timed by the profiler's device time in both modes on the
+    same inputs: ``device_ms`` and ``reflect_device_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -358,11 +414,13 @@ def check_kernels(seed: int, reps: int, card: str):
     rgb, r11, r11p, r2a, d128, up128, d64, up64 = (
         t[k] for k in ("rgb", "r11", "r11p", "r2a", "d128", "up128", "d64", "up64"))
 
+    wrap = pad == "wrap"
+
     def conv_call(x, p, up=False):
         t = x.permute(0, 3, 1, 2)
         if up:
             t = F.interpolate(t, scale_factor=2, mode="nearest")
-        t = F.pad(t, (1, 1, 1, 1), mode="reflect").contiguous(
+        t = F.pad(t, (1, 1, 1, 1), mode="circular" if wrap else "reflect").contiguous(
             memory_format=torch.channels_last)
         return lambda: F.conv2d(t, p.w, p.b)
 
@@ -388,13 +446,14 @@ def check_kernels(seed: int, reps: int, card: str):
     ]
     rows = {}
     for name, label, kern, x, p, kw, plain_kw in cases:
+        kw, plain_kw = {**kw, "pad": pad}, {**plain_kw, "pad": pad}
         got = kern(x, p, **kw)
         ref = plain(x, p, **plain_kw)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         scale = float(ref.abs().max())
         if not (torch.isfinite(got).all() and err <= 2e-5 * max(scale, 1.0)):
-            raise AssertionError(f"{name} [{label}]: max|kernel - plain| = "
+            raise AssertionError(f"{name} [{label}, {pad}]: max|kernel - plain| = "
                                  f"{err:.3e} over max|plain| = {scale:.3e}")
         cout, cin = p.w.shape[:2]
         if name == "upconv_p2":
@@ -413,18 +472,31 @@ def check_kernels(seed: int, reps: int, card: str):
             # bias would show here before the cdf runs feel it
             t_fp32, t_flops = t_flops, 3 * flops / peak_tf32 * 1e3
             lean = float(((got - ref) * torch.sign(ref)).mean()) / scale
-            print(f"kernel {name} {label}: bound on the FP32 cores "
+            print(f"kernel {name}{'_wrap' * wrap} {label}: bound on the FP32 cores "
                   f"{max(t_fp32, t_bytes):.4f} ms, 3xTF32 on the tensor cores "
                   f"{t_flops:.4f} ms; signed mean error {lean:.3e} of "
                   f"max|plain|", flush=True)
         ms = _time_ms(lambda: kern(x, p, **kw), reps)
         plain_ms = _time_ms(lambda: plain(x, p, **plain_kw), reps)
         lib_ms = _time_ms(conv_call(x, p, name == "upconv_p2"), reps)
-        print(f"kernel {name:13s} {label:36s} err {err:.2e} (max|plain| "
-              f"{scale:.3e})  {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        key = name + "_wrap" * wrap
+        beside = ""
+        if wrap:
+            # the device's own record, this mode beside the reflect one
+            dev = edge_convs.device_ms(lambda: kern(x, p, **kw), reps)
+            dev_reflect = edge_convs.device_ms(
+                lambda: kern(x, p, **{**kw, "pad": "reflect"}), reps)
+            beside = f"  device {dev:.4f} ms (reflect {dev_reflect:.4f} ms)"
+        print(f"kernel {key:18s} {label:36s} err {err:.2e} (max|plain| "
+              f"{scale:.3e})  {ms:.4f} ms{beside}  plain {plain_ms:.4f} ms  "
               f"F.conv2d {lib_ms:.4f} ms  bound {max(t_flops, t_bytes):.4f} ms "
               f"({'operations' if t_flops >= t_bytes else 'bytes'})", flush=True)
-        _add_row(rows, name, err, ms, plain_ms, lib_ms, t_flops, t_bytes)
+        _add_row(rows, key, err, ms, plain_ms, lib_ms, t_flops, t_bytes)
+        if wrap:
+            for k, v in (("device_ms", dev), ("reflect_device_ms", dev_reflect)):
+                rows[key][k] = rows[key].get(k, 0.0) + v
+    if wrap:
+        return rows
 
     # the two bytes-bound kernels at both ends of the pass sizes, by the
     # device's own record: the event-timed loop above can carry host time
@@ -448,31 +520,100 @@ def _add_row(rows, name, err, ms, plain_ms, lib_ms, t_flops, t_bytes):
             r[k] += v
 
 
-def check_bf16_kernels(seed: int, reps: int, card: str):
-    """Phase 3b: the bf16 function of every codec kernel at its eight 512-px
-    roundtrip shapes, at batch 1 and 128, vs its bf16 plain version, timed
+def check_bf16_kernels(seed: int, reps: int, card: str, pad: str = "reflect"):
+    """Phase 3b (in phase 3w with ``pad="wrap"``): the bf16 function of
+    every codec kernel at its eight 512-px roundtrip shapes, at batch 1 and
+    128, vs its bf16 plain version in pad mode ``pad``, timed
     (tools/bf16_codec.py). Returns the per-kernel summary rows
-    ("<name>_bf16"): the error the larger of both batches', every time
-    summed over the batch-128 shapes, the path's batch."""
+    ("<name>_bf16", "<name>_bf16_wrap"): the error the larger of both
+    batches', every time summed over the batch-128 shapes, the path's
+    batch (a wrap row with the reflect mode's device time beside)."""
     from optimaltextures_tpu_torch.tools import bf16_codec
 
-    timed = bf16_codec.check_and_time(seed, reps, card, (1, 128))
+    timed = bf16_codec.check_and_time(seed, reps, card, (1, 128), pad=pad)
     rows, errs = {}, {}
     for (name, _, batch), r in timed.items():
-        key = name + "_bf16"
+        key = name + "_bf16" + "_wrap" * (pad == "wrap")
         errs[key] = max(errs.get(key, 0.0), r["err"])
         if batch != 128:
             continue
         _add_row(rows, key, r["err"], r["ms"], r["plain_ms"], r["lib_ms"],
                  r["t_flops"], r["t_bytes"])
-        rows[key]["device_ms"] = rows[key].get("device_ms", 0.0) + r["device_ms"]
+        for k in ("device_ms", "reflect_device_ms"):
+            if k in r:
+                rows[key][k] = rows[key].get(k, 0.0) + r[k]
     for key, r in rows.items():
         r["err"] = errs[key]
-        print(f"bf16 {key}: batch 128, eight shapes: device {r['device_ms']:.4f} ms, "
-              f"events {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, cuDNN bf16 "
-              f"{r['lib_ms']:.4f} ms, bound {r['bound']:.4f} ms; max err "
+        beside = (f" (reflect {r['reflect_device_ms']:.4f} ms)"
+                  if "reflect_device_ms" in r else "")
+        print(f"bf16 {key}: batch 128, eight shapes: device {r['device_ms']:.4f} ms"
+              f"{beside}, events {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"cuDNN bf16 {r['lib_ms']:.4f} ms, bound {r['bound']:.4f} ms; max err "
               f"{r['err']:.3e} (batches 1 and 128)", flush=True)
     return rows
+
+
+# every mode of the ten codec kernel functions on the stage roundtrip:
+# (kernel, Cin, wrapper kwargs)
+_WRAP_MODES = (("rgb_to_relu1", 3, {}), ("conv3x3_p2", 64, dict(relu=True, pool=True)),
+               ("conv3x3_p2", 128, dict(relu=True)), ("conv3x3_full", 64, dict(relu=True)),
+               ("conv3x3_full", 128, dict(relu=True, pool=True)), ("upconv_p2", 64, {}),
+               ("upconv_p2", 128, {}), ("final_to_rgb", 64, {}))
+
+
+def check_wrap_edges(seed: int):
+    """Phase 3w, last part: every mode of the ten wrap functions at a size
+    whose 16 x 16 tiles and strips all meet an edge and are ragged (2 x 40 x
+    56; the upconv's coarse 20 x 28), random inputs, against the plain
+    versions in wrap mode (2e-5 x max|plain| in f32, 2^-7 x max|plain| in
+    bf16); then 100 launches of final_to_rgb's wrap mode, f32 and bf16, at 2
+    x 40 x 56 x 64, bit-equal to the first (its repair writes the far edge
+    into a ring slot that TMA refills later)."""
+    import torch
+
+    from optimaltextures_tpu_torch.ops import codec
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 29)
+    plain_kw = {"rgb_to_relu1": dict(relu=True), "upconv_p2": dict(relu=True, up=True)}
+
+    def case(name, cin, dtype):
+        cout = {"rgb_to_relu1": 64, "conv3x3_p2": 64, "conv3x3_full": 128,
+                "upconv_p2": cin, "final_to_rgb": 3}[name]
+        h, w = (20, 28) if name == "upconv_p2" else (40, 56)
+        x = torch.rand((2, h, w, cin), generator=g, device="cuda")
+        wt = torch.randn((cout, cin, 3, 3), generator=g, device="cuda") * 0.1
+        b = torch.randn((cout,), generator=g, device="cuda") * 0.1
+        if dtype == torch.bfloat16:
+            x = x if name == "rgb_to_relu1" else x.to(dtype)
+            wt, b = wt.to(dtype), b.to(dtype)
+        return x, (codec.pack_up if name == "upconv_p2" else codec.pack)(wt, b)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        for name, cin, kw in _WRAP_MODES:
+            x, p = case(name, cin, dtype)
+            got = getattr(codec, name)(x, p, pad="wrap", **kw)
+            ref = codec.conv3x3_plain(x, p, pad="wrap", out_dtype=got.dtype,
+                                      **{**kw, **plain_kw.get(name, {})})
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            bound = 2.0 ** -7 * scale if bf16 else 2e-5 * max(scale, 1.0)
+            print(f"wrap edges {name}{'_bf16' * bf16}_wrap Cin {cin} "
+                  f"{tuple(x.shape)}: err {err:.3e} (bound {bound:.3e})", flush=True)
+            if not (torch.isfinite(got).all() and err <= bound):
+                raise AssertionError(f"{name}{'_bf16' * bf16}_wrap at {tuple(x.shape)}: "
+                                     f"max|kernel - plain| {err:.3e} > {bound:.3e}")
+        x, p = case("final_to_rgb", 64, dtype)
+        first = codec.final_to_rgb(x, p, pad="wrap")
+        differ = sum(not torch.equal(codec.final_to_rgb(x, p, pad="wrap"), first)
+                     for _ in range(100))
+        print(f"wrap edges final_to_rgb{'_bf16' * bf16}_wrap at {tuple(x.shape)}: "
+              f"{100 - differ} of 100 repeated launches bit-equal to the first",
+              flush=True)
+        if differ:
+            raise AssertionError(f"final_to_rgb{'_bf16' * bf16}_wrap: {differ} of 100 "
+                                 "repeated launches differ")
 
 
 def check_cdf_kernels(seed: int, reps: int, card: str):
@@ -617,8 +758,9 @@ def mixing_matches(cfg) -> int:
 
 def expected_counts(cfg) -> dict:
     """Every kernel's launches in one run of ``cfg``: the codec's per stage
-    roundtrip (its bf16 kernels' in a bf16 run, whatever the batch; the
-    other dtype's none), one histogram launch (both clouds) and one remap
+    roundtrip (its bf16 kernels' in a bf16 run, whatever the batch, their
+    wrap mode's in a tileable run; the other dtype's and the other pad
+    mode's none), one histogram launch (both clouds) and one remap
     per cdf step (each sliced-OT iteration of hist_mode "cdf", each step of
     the opt color tail, and each cross-matching of cdf-mode mixing);
     cdf_remap and conv64 are on no path."""
@@ -638,8 +780,10 @@ def expected_counts(cfg) -> dict:
               if cfg.batch_chunk and cfg.batch > cfg.batch_chunk else 1)
     codec_counts = {k: v * chunks for k, v in
                     _expected_launches(depths, cfg.passes).items()}
-    suffix = "_bf16" if cfg.conv_dtype == "bfloat16" else ""
-    return {**{k: 0 for k in codec_counts}, **{k + "_bf16": 0 for k in codec_counts},
+    suffix = ("_bf16" if cfg.conv_dtype == "bfloat16" else "") + (
+        "_wrap" if cfg.tileable else "")
+    return {**{k + dt + pd: 0 for k in codec_counts for dt in ("", "_bf16")
+               for pd in ("", "_wrap")},
             **{k + suffix: v for k, v in codec_counts.items()},
             "batched_histogram": steps, "pwl_remap": steps,
             "cdf_remap": 0, "conv64": 0}
@@ -1014,6 +1158,147 @@ def settings_paths(seed: int, main_counts, main_out, main_walls,
         torch.cuda.empty_cache()
 
 
+def shift_period(cfg) -> int:
+    """The least shift (output pixels) a tileable run of ``cfg`` commutes
+    with: at every pass size it must be a whole multiple of the pooling
+    stride 2^(depth-1) (32 for the 512-px default schedule, whose passes are
+    256, 320, 384, 448 and 512 px)."""
+    from optimaltextures_tpu_torch.utils import schedule
+
+    _, sizes = schedule.iters_and_sizes(cfg.size, cfg.iters, cfg.passes,
+                                        not cfg.no_multires, num_layers=3)
+    stride = 2 ** (cfg.depth or 3) // 2
+    return next(s for s in range(1, cfg.size + 1)
+                if all(s * n % cfg.size == 0 and s * n // cfg.size % stride == 0
+                       for n in sizes))
+
+
+def seam_ratio(out, period: int = 32):
+    """How visible an output's wrap seam is: the mean |step| across it (the
+    last column to the first, the last row to the first) over (a) the mean
+    |step| between all interior neighbours and (b) that between interior
+    neighbours at the seam's phase of the grid of shifts the run commutes
+    with (columns P k - 1 and P k, rows the same, P = ``period``,
+    shift_period: a step across a pool window's edge is larger than one
+    inside it, and the seam lies on such an edge at every scale). (b) is
+    about 1 for an output that tiles; both are larger where the tiles would
+    meet at a seam."""
+    o = np.asarray(out, np.float64)
+    p = period
+    seam = (np.abs(o[:, :, -1] - o[:, :, 0]).mean() + np.abs(o[:, -1] - o[:, 0]).mean()) / 2
+    inner = (np.abs(np.diff(o, axis=2)).mean() + np.abs(np.diff(o, axis=1)).mean()) / 2
+    phase = (np.abs(o[:, :, p::p] - o[:, :, p - 1:-1:p]).mean()
+             + np.abs(o[:, p::p] - o[:, p - 1:-1:p]).mean()) / 2
+    return float(seam / inner), float(seam / phase)
+
+
+def tileable_paths(seed: int, main_counts, main_out, main_walls, cdf_counts,
+                   card: str):
+    """Phase 6d: tileable output at 512 px. Path T: the main path's
+    defaults (chol, PCA, 5 passes, 500 iterations, real depth-3 weights,
+    f32) with tileable=True, cold and warm, then one profiled run: every
+    wrap kernel launched the main path's count of its reflect mode, no
+    reflect codec kernel launched. Path T-bf16: the same at batch 8 in
+    bf16 (kernels 1b-5b in wrap mode), cold and warm, one profiled run,
+    then once with hist_mode="cdf" (the cdf kernels beside the wrap codec,
+    path A's counts). The seam statistic (seam_ratio) of each output beside
+    the main path's. Returns {kernel: launches} of T and of T-bf16."""
+    from optimaltextures_tpu_torch.config import OptexConfig
+
+    style = _style_exemplar(seed + 1)
+    base = dict(size=512, seed=seed, style=["smoke_style"], tileable=True)
+    out_counts = {}
+    for tag, kw, suffix in (("path T, tileable", {}, "_wrap"),
+                            ("path T-bf16, tileable, batch 8",
+                             dict(batch=8, conv_dtype="bfloat16"), "_bf16_wrap")):
+        cfg = OptexConfig(**base, **kw)
+        counts, walls, out, peaks = drive_path(tag, cfg, [style])
+        want = {k + suffix: main_counts[k] for k in _CODEC}
+        reflect = {k: counts[k] for k in _CODEC + tuple(k + "_bf16" for k in _CODEC)
+                   if counts[k]}
+        if {k: counts[k] for k in want} != want or reflect:
+            raise AssertionError(f"{tag}: launches {counts}: not the main path's "
+                                 f"counts on the wrap kernels, or a reflect launch "
+                                 f"{reflect}")
+        if len({image.tobytes() for image in out}) != cfg.batch:
+            raise AssertionError(f"{tag}: two images of the batch are equal")
+        wall, busy = profile_run("tileable" + suffix.replace("_wrap", ""), cfg, [style])
+        period = shift_period(cfg)
+        seams = [seam_ratio(o[None], period) for o in out]
+        main_seam = seam_ratio(main_out, period)
+        print(f"{tag}: walls cold {walls[0]:.4f} s, warm {walls[1]:.4f} s "
+              f"({cfg.batch / walls[1]:.2f} images/s warm), beside the main path's "
+              f"{main_walls[0]:.4f} / {main_walls[1]:.4f} s; peak "
+              f"{peaks[1] / 2**30:.2f} GiB; one profiled run: wall {wall:.4f} s, "
+              f"device busy {busy:.1f} ms; launches {want} (the main path's, on "
+              f"the wrap kernels), no reflect codec launch; seam ratio (vs all "
+              f"neighbours, vs the seam's phase of the {period}-px grid) "
+              f"{np.round(seams, 4).tolist()} (the "
+              f"main path's output {np.round(main_seam, 4).tolist()}) [{card}]",
+              flush=True)
+        out_counts[suffix] = counts
+    cfg = OptexConfig(**base, batch=8, conv_dtype="bfloat16", hist_mode="cdf")
+    counts, walls, out, _ = drive_path("path T-bf16, tileable, batch 8, cdf", cfg,
+                                       [style], labels=("warm",))
+    for name in ("batched_histogram", "pwl_remap"):
+        if counts[name] != cdf_counts[name]:
+            raise AssertionError(f"path T-bf16 (cdf): {name} {counts[name]} != path "
+                                 f"A's {cdf_counts[name]}")
+    print(f"path T-bf16, cdf: wall {walls[0]:.4f} s; histogram and remap "
+          f"{counts['batched_histogram']} launches each (path A's) beside the wrap "
+          f"codec's {_codec_part(counts, '_bf16_wrap')}; seam ratio "
+          f"{np.round([seam_ratio(o[None], shift_period(cfg)) for o in out], 4).tolist()} "
+          f"[{card}]",
+          flush=True)
+    return out_counts
+
+
+def equivariance_phase(seed: int):
+    """Phase 6e: JAX tests/test_tileable.py's shift-equivariance check on
+    the kernels. 64 px, depth 2 (the real weights), one pass of 6
+    iterations, noise rolled by 16 px: |run(roll(noise)) -
+    roll(run(noise))| < 1e-2 in chol and cdf mode, the reflect run's error
+    more than 10x the wrap run's; 2 passes with multires (64 -> 256 -> 64,
+    the circular pass resizes) < 2e-2."""
+    from optimaltextures_tpu_torch import core
+    from optimaltextures_tpu_torch.config import OptexConfig
+
+    style = _style_exemplar(seed + 1, 64)
+    noise = np.random.default_rng(seed + 7).uniform(size=(1, 64, 64, 3)).astype(np.float32)
+    m = 16
+    roll = lambda a: np.roll(a, (m, m), (1, 2))
+
+    def error(tileable, **extra):
+        kw = dict(size=64, passes=1, iters=6, no_multires=True, depth=2, seed=0,
+                  style=["smoke_style"], tileable=tileable)
+        kw.update(extra)
+        cfg = OptexConfig(**kw)
+        _reset_counts()
+        out = core.Synthesizer(cfg, device="cuda").run(noise, [style]).cpu().numpy()
+        shifted = core.Synthesizer(cfg, device="cuda").run(roll(noise),
+                                                           [style]).cpu().numpy()
+        launches = _counts()
+        on = [k + "_wrap" * tileable for k in _CODEC]
+        off = [k + "_wrap" * (not tileable) for k in _CODEC]
+        if not all(launches[k] for k in on) or any(launches[k] for k in off):
+            raise AssertionError(f"equivariance run (tileable={tileable}): "
+                                 f"launches {launches}")
+        return float(np.abs(shifted - roll(out)).max())
+
+    for mode in ("chol", "cdf"):
+        wrap, reflect = error(True, hist_mode=mode), error(False, hist_mode=mode)
+        print(f"equivariance on the kernels, {mode}: max |run(roll) - roll(run)| "
+              f"{wrap:.3e} tileable (bound 1e-2), {reflect:.3e} reflect "
+              f"({reflect / max(wrap, 1e-12):.1f}x)", flush=True)
+        if not (wrap < 1e-2 and reflect > 10 * max(wrap, 1e-4)):
+            raise AssertionError(f"equivariance ({mode}): wrap {wrap}, reflect {reflect}")
+    multi = error(True, no_multires=False, passes=2, iters=4)
+    print(f"equivariance on the kernels, multires 64 -> 256 -> 64: {multi:.3e} "
+          f"(bound 2e-2)", flush=True)
+    if not multi < 2e-2:
+        raise AssertionError(f"equivariance (multires): {multi}")
+
+
 def _rotation_stream(seed: int):
     """Deterministic SO(n) stacks per (pass, stage) from numpy (QR with the
     sign fix), as tests/test_torch_slice.py's RotationStream draws them."""
@@ -1039,7 +1324,8 @@ def profile_run(name, cfg, styles, content=None, shapes=False):
     wall, the ported kernels' share, and the top device kernels (the whole
     table goes to profile_<name>.txt in the output directory; with
     ``shapes`` the ops' input shapes are recorded and a table of the cuDNN
-    convolutions by input shape follows it)."""
+    convolutions by input shape follows it). Returns (wall s, device busy
+    ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1087,6 +1373,7 @@ def profile_run(name, cfg, styles, content=None, shapes=False):
             for e in sorted(convs, key=total_us, reverse=True):
                 f.write(f"{total_us(e):12.1f} {e.count:4d} {e.input_shapes}\n")
     torch.cuda.synchronize()
+    return wall, busy
 
 
 def _gpu_vs_cpu(cfg, seed: int, content_shape=None, pastiche=None):
@@ -1190,6 +1477,19 @@ def small_agreement(seed: int):
         **kw), seed))
     _hold_max("64-px batch 4, batch_chunk 2, f32", *_gpu_vs_cpu(OptexConfig(
         passes=2, iters=48, batch=4, batch_chunk=2, style=["smoke_style"],
+        **kw), seed))
+    # tileable: the wrap kernels against the plain versions in wrap mode
+    _hold_max("64-px tileable", *_gpu_vs_cpu(OptexConfig(
+        passes=2, iters=48, tileable=True, style=["smoke_style"], **kw), seed))
+    _hold_max("64-px tileable, multires (64 -> 256 -> 64, circular resizes)",
+              *_gpu_vs_cpu(OptexConfig(size=64, passes=2, iters=48, no_pca=True,
+                                       seed=seed, tileable=True,
+                                       style=["smoke_style"]), seed))
+    _hold_max("64-px tileable, batch 2, bf16", *_gpu_vs_cpu(OptexConfig(
+        passes=2, iters=48, batch=2, conv_dtype="bfloat16", tileable=True,
+        style=["smoke_style"], **kw), seed), BF16_RUN_GAP)
+    _hold_distribution("64-px tileable cdf synthesis", *_gpu_vs_cpu(OptexConfig(
+        passes=1, iters=60, hist_mode="cdf", tileable=True, style=["smoke_style"],
         **kw), seed))
 
     gpu, cpu = _gpu_vs_cpu(OptexConfig(
@@ -1357,6 +1657,8 @@ def serve_phase(seed: int, card: str):
     main = expected_counts(main_cfg)
     bf16 = expected_counts(OptexConfig(size=512, conv_dtype="bfloat16",
                                        style=["smoke_style"]))
+    tile_counts = expected_counts(OptexConfig(size=512, tileable=True,
+                                              style=["smoke_style"]))
     cdf_counts = expected_counts(OptexConfig(size=512, hist_mode="cdf",
                                              style=["smoke_style"]))
     pixels = lambda body: np.asarray(Image.open(io.BytesIO(body)))
@@ -1452,21 +1754,31 @@ def serve_phase(seed: int, card: str):
         arr = np.load(io.BytesIO(npy))
         if jpeg[:2] != b"\xff\xd8" or jerr > 30 or not np.array_equal(arr[0], served):
             raise AssertionError(f"serve: jpeg mean error {jerr}, npy {arr.shape}")
-        status, _, body, _ = first.post({"config": {**base, "tileable": True},
+        status, _, body, _ = first.post({"config": {**base, "spatial_devices": 2},
                                          "style_b64": [b64]})
-        if status != 501 or "13c" not in json.loads(body)["error"]:
-            raise AssertionError(f"serve: tileable gave HTTP {status}: {body!r}")
+        if status != 501 or "item 15" not in json.loads(body)["error"]:
+            raise AssertionError(f"serve: spatial_devices 2 gave HTTP {status}: "
+                                 f"{body!r}")
+        tile, tile_s, _ = request(first, "tileable request",
+                                  {"config": {**base, "seed": seed, "tileable": True},
+                                   "style_b64": [b64]}, tile_counts)
+        if pixels(tile).shape != (512, 512, 3):
+            raise AssertionError(f"serve: the tileable image is {pixels(tile).shape}")
         health = json.loads(first.get("/healthz"))
         metrics = first.metrics()
-        want = {'optex_requests_total{outcome="ok"}': 15.0,
+        want = {'optex_requests_total{outcome="ok"}': 16.0,
                 'optex_requests_total{outcome="client_error"}': 1.0,
                 'optex_requests_total{outcome="server_error"}': 0.0,
-                "optex_request_seconds_count": 15.0, "optex_workers": 1.0,
+                "optex_request_seconds_count": 16.0, "optex_workers": 1.0,
                 "optex_coalesced_cohorts_total": 0.0,
                 "optex_coalesced_requests_total": 0.0}
         print(f"serve: cdf request {cdf_s[0]:.4f} s cold (a new Synthesizer), "
               f"{cdf_s[1]:.4f} s warm; jpeg mean |error| {jerr:.2f}, npy equal to "
-              f"the png; tileable 501; /healthz {health}; /metrics "
+              f"the png; tileable {tile_s:.4f} s cold (a new Synthesizer; the wrap "
+              f"kernels at the main path's counts, seam ratio "
+              f"{np.round(seam_ratio(pixels(tile)[None] / 255.0), 4).tolist()}); "
+              f"spatial_devices 2 "
+              f"501; /healthz {health}; /metrics "
               f"{ {k: metrics[k] for k in want} } [{card}]", flush=True)
         if health["devices"] != [torch.cuda.get_device_name(0)] or any(
                 metrics[k] != v for k, v in want.items()):
@@ -1537,6 +1849,7 @@ def main() -> int:
     from optimaltextures_tpu_torch import core
     from optimaltextures_tpu_torch.ops import cuda_build
 
+    t_start = time.time()
     core.full_f32_precision()   # TF32 off: plain versions and F.conv2d in f32
     card = _smi()
     print(f"device: {card}", flush=True)
@@ -1567,11 +1880,17 @@ def main() -> int:
     rows.update(check_cdf_kernels(args.seed, args.reps * 10, card))
     rows.update(check_conv64(args.reps, card))
     rows.update(check_bf16_kernels(args.seed, args.reps, card))
+    rows.update(check_kernels(args.seed, args.reps, card, pad="wrap"))
+    rows.update(check_bf16_kernels(args.seed, args.reps, card, pad="wrap"))
+    check_wrap_edges(args.seed)
     main_counts, cdf_counts, main_out, main_walls = paths(args.seed,
                                                           args.profile)
     slice_counts = slice_path(args.seed, main_counts, main_out, args.profile)
     bf16_vs_f32_batch8()
     settings_paths(args.seed, main_counts, main_out, main_walls, args.profile)
+    tile_counts = tileable_paths(args.seed, main_counts, main_out, main_walls,
+                                 cdf_counts, card)
+    equivariance_phase(args.seed)
     small_agreement(args.seed)
     try:
         import PIL  # noqa: F401
@@ -1588,6 +1907,11 @@ def main() -> int:
     for name, r in rows.items():
         if "launches" in r:     # on no path: its own check phase's launches
             launches, phase = r["launches"], f"{name} check phase"
+        elif name.endswith("_bf16_wrap"):
+            launches = tile_counts["_bf16_wrap"][name]
+            phase = "path T-bf16 (tileable, batch 8, bf16)"
+        elif name.endswith("_wrap"):
+            launches, phase = tile_counts["_wrap"][name], "path T (tileable)"
         elif name.endswith("_bf16"):
             launches, phase = slice_counts[name], "slice path (batch 128, bf16)"
         elif name in SOURCES:
@@ -1605,9 +1929,14 @@ def main() -> int:
             "bound_by": "operations" if r["t_flops"] >= r["t_bytes"] else "bytes",
             "library_ms": r["lib_ms"],
             **({"device_ms": r["device_ms"]} if "device_ms" in r else {}),
+            **({"reflect_device_ms": r["reflect_device_ms"]}
+               if "reflect_device_ms" in r else {}),
             **({"device_ms_by_shape": r["device_ms_by_shape"]}
                if "device_ms_by_shape" in r else {}),
-            **({"dtype": "bfloat16"} if name.endswith("_bf16") else {})})
+            **({"dtype": "bfloat16"} if "_bf16" in name else {}),
+            **({"pad": "wrap"} if name.endswith("_wrap") else {})})
+    print(f"chip_smoke: {time.time() - t_start:.1f} s from the first phase to "
+          f"the last, the kernels' build included", flush=True)
     print(f"device: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Command line for texture synthesis, style transfer, texture mixing and
-color transfer on the GPU (the counterpart of ``optimaltextures_tpu/cli.py``;
-``--tileable`` and the multi-device flags are not ported yet).
+color transfer on the GPU, tileable or not (the counterpart of
+``optimaltextures_tpu/cli.py``; the multi-device flags are not ported yet).
 
 Run: python -m optimaltextures_tpu_torch.cli --style style.jpg --size 512
+     python -m optimaltextures_tpu_torch.cli --style style.jpg --tileable
      python -m optimaltextures_tpu_torch.cli --style a.jpg b.jpg --mixing_alpha 0.5
 """
 
@@ -63,6 +64,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_dir", type=str, default="output/")
     p.add_argument("--depth", type=int, default=None,
                    help="max VGG depth (default: deepest available weights)")
+    p.add_argument("--tileable", action="store_true",
+                   help="seamlessly tileable output: circular conv padding "
+                        "and wrap-tap multires resizes on the pastiche path "
+                        "(every pass size must divide by 2^(depth-1))")
     p.add_argument("--content_anchor", type=str, default="index",
                    choices=["index", "depth"],
                    help="depth<5 content-matching rule: 'index' = the "

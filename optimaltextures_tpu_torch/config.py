@@ -155,7 +155,6 @@ class OptexConfig:
 
 # (condition, feature, ROADMAP.md queue-1 item that ports it)
 _NOT_PORTED = [
-    (lambda c: c.tileable, "tileable output", "13c"),
     (lambda c: c.num_devices != 1 or c.spatial_devices != 1,
      "multi-device runs", 15),
 ]

@@ -313,7 +313,7 @@ def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
                       resize_mats=None, stage_codecs=None, run_key: int = 0,
                       pass_idx: int = 0, use_pallas: bool = True,
                       rotations: Optional[RotationSource] = None,
-                      cov_prop: bool = True):
+                      cov_prop: bool = True, pad_mode: str = "reflect"):
     """All of a pass's layer stages: the multires resize (``resize_mats``:
     the (wh, ww) weights, or None) in f32, the cast to the conv dtype, then
     for each depth (deepest first) encode -> widen to f32 -> project -> OT
@@ -325,7 +325,8 @@ def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
     Stage i of pass p draws its rotations from a generator seeded by
     (run_key, p, i), or takes them from ``rotations(p, i, n_iters, C)``
     (:func:`_stage_rotations`). ``cov_prop`` False runs the moment modes'
-    per-iteration loop."""
+    per-iteration loop. ``pad_mode="wrap"`` pads every conv circularly
+    (tileable runs; the caller gives circular ``resize_mats``)."""
     if resize_mats is not None:
         pastiche = apply_resample(pastiche, *resize_mats)
     pastiche = pastiche.to(enc_params[0][0][0].dtype)
@@ -352,12 +353,13 @@ def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
         rgb = fastcodec.pixels_to_rgb(enc_params[0][0], pastiche)
         for i, sc in enumerate(stage_codecs):
             rgb = fastcodec.decode_tail(
-                sc, ot_stage(i, fastcodec.encode_head(sc, rgb)))
+                sc, ot_stage(i, fastcodec.encode_head(sc, rgb, pad_mode)),
+                pad_mode)
         return rgb
 
     for i, d in enumerate(depths):
-        feat = ot_stage(i, encode(enc_params[i], d, pastiche))
-        pastiche = decode(dec_params[i], d, feat.to(pastiche.dtype))
+        feat = ot_stage(i, encode(enc_params[i], d, pastiche, pad_mode))
+        pastiche = decode(dec_params[i], d, feat.to(pastiche.dtype), pad_mode)
     return pastiche.float()
 
 
@@ -366,7 +368,8 @@ def _pass_stages_chunked_impl(enc_params, dec_params, pastiche, targets, *,
                               n_chunks: int, resize_mats=None,
                               stage_codecs=None, run_key: int = 0,
                               pass_idx: int = 0,
-                              rotations: Optional[RotationSource] = None):
+                              rotations: Optional[RotationSource] = None,
+                              pad_mode: str = "reflect"):
     """One pass with the batch run through the codec in ``n_chunks`` equal
     chunks, so that the conv activations scale with the chunk,
     not the batch (the counterpart of the JAX package's
@@ -396,8 +399,9 @@ def _pass_stages_chunked_impl(enc_params, dec_params, pastiche, targets, *,
         tgt = targets[i]
         feats = []
         for j, x in enumerate(imgs):
-            f = (fastcodec.encode_head(stage_codecs[i], x)
-                 if stage_codecs is not None else encode(enc_params[i], d, x))
+            f = (fastcodec.encode_head(stage_codecs[i], x, pad_mode)
+                 if stage_codecs is not None
+                 else encode(enc_params[i], d, x, pad_mode))
             f = f.float()
             imgs[j] = None
             feats.append(f @ tgt.eigvecs if pca_flags[i] else f)
@@ -422,9 +426,10 @@ def _pass_stages_chunked_impl(enc_params, dec_params, pastiche, targets, *,
                 f = (f.reshape(-1, c) @ affine[0]).reshape(f.shape) + affine[1][j]
             if pca_flags[i]:
                 f = f @ tgt.eigvecs.T
-            imgs[j] = (fastcodec.decode_tail(stage_codecs[i], f)
+            imgs[j] = (fastcodec.decode_tail(stage_codecs[i], f, pad_mode)
                        if stage_codecs is not None
-                       else decode(dec_params[i], d, f.to(conv_dtype)))
+                       else decode(dec_params[i], d, f.to(conv_dtype),
+                                   pad_mode))
     return torch.cat(imgs).float()
 
 
@@ -432,7 +437,8 @@ def _run_stages_chunked_impl(enc_params, dec_params, pastiche, targets_all,
                              run_key, *, depths, plans, mode: str,
                              pca_flags_all, n_chunks: int, resize_mats_all,
                              stage_codecs=None,
-                             rotations: Optional[RotationSource] = None):
+                             rotations: Optional[RotationSource] = None,
+                             pad_mode: str = "reflect"):
     """The whole run's pass chain, batch-chunked (see
     :func:`_pass_stages_chunked_impl`)."""
     for p, (_, iters) in enumerate(plans):
@@ -441,7 +447,7 @@ def _run_stages_chunked_impl(enc_params, dec_params, pastiche, targets_all,
             iters=iters, mode=mode, pca_flags=pca_flags_all[p],
             n_chunks=n_chunks, resize_mats=resize_mats_all[p],
             stage_codecs=stage_codecs, run_key=run_key, pass_idx=p,
-            rotations=rotations)
+            rotations=rotations, pad_mode=pad_mode)
     return pastiche
 
 
@@ -451,7 +457,8 @@ def _run_stages_impl(enc_params, dec_params, pastiche, targets_all, run_key,
                      use_pallas: bool = True, content_px=None,
                      color_mode: Optional[str] = None,
                      rotations: Optional[RotationSource] = None,
-                     color_rotations=None, cov_prop: bool = True):
+                     color_rotations=None, cov_prop: bool = True,
+                     pad_mode: str = "reflect"):
     """The whole run's pass chain, then the color-transfer tail.
     ``plans``: per pass (resize_to | None, iters tuple); ``resize_mats_all``:
     the matching (wh, ww) or None.
@@ -467,7 +474,8 @@ def _run_stages_impl(enc_params, dec_params, pastiche, targets_all, run_key,
             iters=iters, mode=mode, strengths=strengths_all[p],
             pca_flags=pca_flags_all[p], resize_mats=resize_mats_all[p],
             stage_codecs=stage_codecs, run_key=run_key, pass_idx=p,
-            use_pallas=use_pallas, rotations=rotations, cov_prop=cov_prop)
+            use_pallas=use_pallas, rotations=rotations, cov_prop=cov_prop,
+            pad_mode=pad_mode)
     if color_mode is None:
         return pastiche
     target = colors.swap_lightness(content_px, pastiche)
@@ -508,6 +516,18 @@ class Synthesizer:
         self.iters_table, self.sizes = schedule.iters_and_sizes(
             cfg.size, cfg.iters, cfg.passes, not cfg.no_multires,
             quirk=cfg.compat_schedule_quirk, num_layers=self.depth)
+        if cfg.tileable:
+            # an odd size reaches ceil-mode pooling's -inf pad row, which
+            # breaks the torus equivariance that makes the output tile
+            stride = 2 ** (self.depth - 1)
+            for size in self.sizes:
+                if size % stride:
+                    raise ValueError(
+                        f"tileable needs every pass size divisible by "
+                        f"{stride} (2^(depth-1)); pass size {size} is not")
+        # tileable: circular conv padding and wrap-tap pastiche resizes;
+        # style and content prep keep reflect taps (vgg.encode_taps)
+        self.pad_mode = "wrap" if cfg.tileable else "reflect"
         # layer-loop position l uses depth D-l (deepest first)
         self.layer_depths = [self.depth - l for l in range(self.depth)]
         self.stage_codecs = (fastcodec.pack_stages(
@@ -611,8 +631,10 @@ class Synthesizer:
                         * channels[d - 1] * 4
         return total
 
-    def _resample_mats(self, in_hw, out_hw):
-        key = (tuple(in_hw), tuple(out_hw))
+    def _resample_mats(self, in_hw, out_hw, circular: bool = False):
+        """The (wh, ww) resize weights on the device, cached; ``circular``
+        wraps the taps (the tileable pastiche's pass resizes only)."""
+        key = (tuple(in_hw), tuple(out_hw), circular)
         if key not in self._resample:
             wh, ww = resample_pair(*key)
             self._resample[key] = (torch.from_numpy(wh).to(self.device),
@@ -921,7 +943,8 @@ class Synthesizer:
             pca_flags_all.append(tuple(t.eigvecs is not None for t in targets))
             plans.append((hw if rs else None,
                           tuple(int(i) for i in self.iters_table[p])))
-            mats_all.append(self._resample_mats(cur_hw, hw) if rs else None)
+            mats_all.append(self._resample_mats(cur_hw, hw, cfg.tileable)
+                            if rs else None)
             if rs:
                 cur_hw = tuple(hw)
         self.last_run_ks = [e.widths for e in entries]
@@ -941,7 +964,8 @@ class Synthesizer:
                 depths=tuple(self.layer_depths), plans=plans,
                 mode=cfg.hist_mode, pca_flags_all=pca_flags_all,
                 n_chunks=n_chunks, resize_mats_all=mats_all,
-                stage_codecs=self.stage_codecs, rotations=rotations)
+                stage_codecs=self.stage_codecs, rotations=rotations,
+                pad_mode=self.pad_mode)
         else:
             out = _run_stages_impl(
                 enc_all, dec_all, pastiche, targets_all, run_key,
@@ -951,7 +975,7 @@ class Synthesizer:
                 stage_codecs=self.stage_codecs, use_pallas=cfg.use_pallas,
                 content_px=content, color_mode=cfg.color_transfer,
                 rotations=rotations, color_rotations=color_rotations,
-                cov_prop=cfg.cov_propagation)
+                cov_prop=cfg.cov_propagation, pad_mode=self.pad_mode)
         return _quant_u8(out) if quantize_uint8 else out
 
     def _evict_style_preps(self) -> None:

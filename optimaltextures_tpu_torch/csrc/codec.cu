@@ -4,7 +4,13 @@
 // All five compute one operation: a 3x3 convolution with 1-px reflect
 // padding and a bias, on NHWC tensors, with an optional nearest-x2
 // upsample in front, and an optional ReLU and 2x2 max-pool (taken after the
-// ReLU, ceil mode) behind. Each also has the bf16 function the Pallas
+// ReLU, ceil mode) behind. Each kernel also has a wrap mode, a bool WRAP
+// template parameter (the reflect instantiations are the code they were):
+// 1-px circular padding, the tileable runs' halo, which no Pallas kernel
+// computes (the JAX package leaves tileable runs to XLA's convs). Where a
+// kernel resolves its halo by index, the wrap is another index function;
+// final_to_rgb_tma, whose box TMA fills with zeros past the image, reads
+// the far edge of the image for its edge tiles with plain loads. Each also has the bf16 function the Pallas
 // kernels compute on the TPU (bf16 activations and weights, f32
 // accumulate, f32 bias, one rounding to bf16 at the store; rgb_to_relu1
 // rounds its f32 RGB input to bf16 first, final_to_rgb writes f32 RGB),
@@ -12,11 +18,11 @@
 // wgmma) and csrc/edge_mma.cu (the two narrow ones, mma.sync). What bounds
 // each f32 kernel on the H100 sets its design:
 //
-//   rgb_to_relu1  rgb_to_relu1_tma                              bytes
-//   final_to_rgb  final_to_rgb_tma                              bytes
-//   conv3x3_p2    conv3x3_tf32x3<64|128, 64, RELU, POOL>        operations
-//   conv3x3_full  conv3x3_tf32x3<64|128, 128, RELU, POOL>       operations
-//   upconv_p2     upconv_tf32x3<64|128>                         operations
+//   rgb_to_relu1  rgb_to_relu1_tma<WRAP>                              bytes
+//   final_to_rgb  final_to_rgb_tma<WRAP>                              bytes
+//   conv3x3_p2    conv3x3_tf32x3<64|128, 64, RELU, POOL, WRAP>        operations
+//   conv3x3_full  conv3x3_tf32x3<64|128, 128, RELU, POOL, WRAP>       operations
+//   upconv_p2     upconv_tf32x3<64|128, WRAP>                         operations
 //
 // The narrow entry and final convs do 54 / 1152 FLOPs per 4+256 / 256+12
 // bytes of pixel traffic, below the card's ridge: FFMA direct convolutions
@@ -26,8 +32,9 @@
 // 2 x 4 x Cin) against 8 bytes of traffic, far above it: implicit GEMMs on
 // the tensor cores, three TF32 products per f32 product.
 //
-// Every entry point launches on the caller's stream, allocates nothing and
-// returns cudaGetLastError() (or cudaErrorInvalidValue for a configuration
+// Every entry point takes the pad mode last before the stream (wrap: 0
+// reflect, 1 circular), launches on the caller's stream, allocates nothing
+// and returns cudaGetLastError() (or cudaErrorInvalidValue for a configuration
 // it was not built for, cudaErrorMisalignedAddress for a TMA operand whose
 // base is not 16-byte aligned).
 
@@ -47,6 +54,21 @@ constexpr int kThreads = 256;
 __device__ __forceinline__ int reflect1(int i, int n) {
   i = i < 0 ? -i : i;
   return i >= n ? 2 * n - 2 - i : i;
+}
+
+// 1-px circular wrap into [0, n) for i in [-1, n]; n >= 1. No % or /: a
+// signed % on an index made ptxas spill in the register-bound kernels.
+__device__ __forceinline__ int wrap1(int i, int n) {
+  return i < 0 ? i + n : (i >= n ? i - n : i);
+}
+
+// the halo index of pad mode WRAP
+template <bool WRAP>
+__device__ __forceinline__ int pad1(int i, int n) {
+  if constexpr (WRAP)
+    return wrap1(i, n);
+  else
+    return reflect1(i, n);
 }
 
 // ---------------------------------------------------------------------------
@@ -78,6 +100,8 @@ __device__ __forceinline__ int reflect1(int i, int n) {
 //   the image with zeros; the 1-px reflect
 //   halo is repaired in shared memory after the box lands (columns, then
 //   whole rows, so corners follow), as the TPU kernel's DMA-then-repair.
+//   Under wrap the missing halo lies in no edge tile's box: an edge tile's
+//   repair reads it from the far edge of the image (wrap_fetch, wrap_store).
 // * Compute: warp w takes channels 4w..4w+3 of each half (its 108 weights
 //   of the half in registers, read once from shared memory), and every
 //   warp the whole tile: lane (cx, rg) owns column cx, rows 8rg..8rg+7,
@@ -223,6 +247,69 @@ __device__ __forceinline__ void copy_line_chunk(uint8_t* slot, int dst, int src,
       *reinterpret_cast<const float4*>(slot + sw128(src, j));
 }
 
+// The wrap repair of an edge tile's box (18 x 18 halo pixels, a 128-byte
+// line each at sw128): the halo pixels TMA fills with zeros, because they
+// lie past the image, read with plain 16-byte loads at the wrapped
+// coordinates. Halo columns 0 (image column -1) and cmax (image column W;
+// the box's last on a ragged tile is past it and feeds no stored output)
+// come for every row up to rmax with the rows wrapped, so the corners come
+// out right; then halo rows 0 and rmax for the columns those left: 576
+// (line, 16-byte chunk) items over the 256 consumers, each pixel written
+// once. A thread loads its (at most 3) items into registers before the box
+// lands, so that the loads overlap the TMA (wrap_fetch), and writes them
+// into the landed box (wrap_store); the caller's conditions are
+// block-uniform, and it syncs the consumers after the stores.
+constexpr int kRepairItems = 4 * kEdgeHalo * 8;
+constexpr int kRepairPer = (kRepairItems + kThreads - 1) / kThreads;
+
+// item i of thread tid's share: whether the tile has it, and its halo
+// pixel (r, c) and 16-byte chunk j
+__device__ __forceinline__ bool repair_item(int i, int tid, const EdgeTile& e, int H, int W,
+                                            int& r, int& c, int& j) {
+  const bool left = e.x0 == 0, right = e.x0 + kEdgeTile >= W;
+  const bool top = e.y0 == 0, bottom = e.y0 + kEdgeTile >= H;
+  const int cmax = min(kEdgeHalo - 1, W - e.x0 + 1);
+  const int rmax = min(kEdgeHalo - 1, H - e.y0 + 1);
+  const int k = tid + i * kThreads, l = k >> 3;
+  j = k & 7;
+  if (l < 2 * kEdgeHalo) {                                  // a halo column
+    const bool far = l >= kEdgeHalo;
+    r = far ? l - kEdgeHalo : l;
+    c = far ? cmax : 0;
+    return k < kRepairItems && (far ? right : left) && r <= rmax;
+  }
+  const bool far = l >= 3 * kEdgeHalo;                       // a halo row
+  c = far ? l - 3 * kEdgeHalo : l - 2 * kEdgeHalo;
+  r = far ? rmax : 0;
+  return k < kRepairItems && (far ? bottom : top) && c <= cmax && !(left && c == 0) &&
+         !(right && c == cmax);
+}
+
+// base: image pixel 0's line (the box's channels); stride: uint4 a pixel
+__device__ __forceinline__ void wrap_fetch(uint4 (&v)[kRepairPer],
+                                           const uint4* __restrict__ base, int stride,
+                                           int tid, const EdgeTile& e, int H, int W) {
+#pragma unroll
+  for (int i = 0; i < kRepairPer; ++i) {
+    int r, c, j;
+    if (repair_item(i, tid, e, H, W, r, c, j)) {
+      const size_t px = (static_cast<size_t>(e.n) * H + wrap1(e.y0 - 1 + r, H)) * W +
+                        wrap1(e.x0 - 1 + c, W);
+      v[i] = __ldg(base + px * stride + j);
+    }
+  }
+}
+
+__device__ __forceinline__ void wrap_store(const uint4 (&v)[kRepairPer], uint8_t* slot,
+                                           int tid, const EdgeTile& e, int H, int W) {
+#pragma unroll
+  for (int i = 0; i < kRepairPer; ++i) {
+    int r, c, j;
+    if (repair_item(i, tid, e, H, W, r, c, j))
+      *reinterpret_cast<uint4*>(slot + sw128(r * kEdgeHalo + c, j)) = v[i];
+  }
+}
+
 // one arrival on the barrier (an "empty" barrier counts 8: one per consumer warp)
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
@@ -233,13 +320,15 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
 
+template <bool WRAP>
 __global__ void __launch_bounds__(kFinThreads, 1)
-final_to_rgb_tma(const __grid_constant__ CUtensorMap xmap, const float* __restrict__ w,
-                 const float* __restrict__ bias, float* __restrict__ y, int n, int H,
-                 int W) {
+final_to_rgb_tma(const __grid_constant__ CUtensorMap xmap, const float* __restrict__ x,
+                 const float* __restrict__ w, const float* __restrict__ bias,
+                 float* __restrict__ y, int n, int H, int W) {
   // xmap: x (N, H, W, 64) float32, boxes of {32 channels, 18 columns, 18
-  // rows, 1}, half a tile; w: (3, 3, 64, 3) HWIO float32; y: (N, H, W, 3)
-  // float32. Item i: half i & 1 of this block's tile i / 2, in ring slot i % 3.
+  // rows, 1}, half a tile (x itself: the wrap repair's plain loads); w: (3,
+  // 3, 64, 3) HWIO float32; y: (N, H, W, 3) float32. Item i: half i & 1 of
+  // this block's tile i / 2, in ring slot i % 3.
   constexpr int kItems = 2;                              // items a tile
   extern __shared__ uint8_t fin_smem[];
   uint8_t* sm = fin_smem + ((1024u - (saddr(fin_smem) & 1023u)) & 1023u);
@@ -285,32 +374,49 @@ final_to_rgb_tma(const __grid_constant__ CUtensorMap xmap, const float* __restri
     const int slot = i % kFinStages;
     const EdgeTile e = edge_tile(blockIdx.x + (i / kItems) * gridDim.x, tiles_x, tiles_y);
     uint8_t* st = sm + slot * kFinSlot;
+    // WRAP: an edge tile's far-edge pixels (this half's 32 channels, 8 of a
+    // pixel's 16 uint4), loaded while the box is in flight
+    uint4 rep[kRepairPer];
+    bool edge = false;
+    if constexpr (WRAP) {
+      edge = e.x0 == 0 || e.x0 + kEdgeTile >= W || e.y0 == 0 || e.y0 + kEdgeTile >= H;
+      if (edge)
+        wrap_fetch(rep, reinterpret_cast<const uint4*>(x) + 8 * (i & 1), 16, tid, e, H, W);
+    }
     mbar_wait(s_full + 8 * slot, (i / kFinStages) & 1);
     // reflect repair: halo column 0 (image column -1) takes halo column 2,
     // the halo column of image column W takes that of W - 2; then whole
-    // rows the same way. Block-uniform conditions, so every consumer warp
-    // meets the same sequence of named barriers.
+    // rows the same way (WRAP: the far edge's pixels, wrap_store).
+    // Block-uniform conditions, so every consumer warp meets the same
+    // sequence of named barriers.
     const bool left = e.x0 == 0, right = e.x0 + kEdgeTile >= W;
     const bool top = e.y0 == 0, bottom = e.y0 + kEdgeTile >= H;
-    if (left || right) {
-      for (int k = tid; k < 2 * kEdgeHalo * 8; k += kThreads) {
-        const int side = k >= kEdgeHalo * 8, r = (k >> 3) - side * kEdgeHalo;
-        if (side ? right : left) {
-          const int dst = side ? W - e.x0 + 1 : 0, src = side ? W - e.x0 - 1 : 2;
-          copy_line_chunk(st, r * kEdgeHalo + dst, r * kEdgeHalo + src, k & 7);
-        }
+    if constexpr (WRAP) {
+      if (edge) {
+        wrap_store(rep, st, tid, e, H, W);
+        consumer_sync();
       }
-      consumer_sync();
-    }
-    if (top || bottom) {
-      for (int k = tid; k < 2 * kEdgeHalo * 8; k += kThreads) {
-        const int side = k >= kEdgeHalo * 8, c = (k >> 3) - side * kEdgeHalo;
-        if (side ? bottom : top) {
-          const int dst = side ? H - e.y0 + 1 : 0, src = side ? H - e.y0 - 1 : 2;
-          copy_line_chunk(st, dst * kEdgeHalo + c, src * kEdgeHalo + c, k & 7);
+    } else {
+      if (left || right) {
+        for (int k = tid; k < 2 * kEdgeHalo * 8; k += kThreads) {
+          const int side = k >= kEdgeHalo * 8, r = (k >> 3) - side * kEdgeHalo;
+          if (side ? right : left) {
+            const int dst = side ? W - e.x0 + 1 : 0, src = side ? W - e.x0 - 1 : 2;
+            copy_line_chunk(st, r * kEdgeHalo + dst, r * kEdgeHalo + src, k & 7);
+          }
         }
+        consumer_sync();
       }
-      consumer_sync();
+      if (top || bottom) {
+        for (int k = tid; k < 2 * kEdgeHalo * 8; k += kThreads) {
+          const int side = k >= kEdgeHalo * 8, c = (k >> 3) - side * kEdgeHalo;
+          if (side ? bottom : top) {
+            const int dst = side ? H - e.y0 + 1 : 0, src = side ? H - e.y0 - 1 : 2;
+            copy_line_chunk(st, dst * kEdgeHalo + c, src * kEdgeHalo + c, k & 7);
+          }
+        }
+        consumer_sync();
+      }
     }
     const int half = i & 1;
     // this warp's 4 input channels of the half: weights [tap][ci][co]
@@ -387,6 +493,7 @@ final_to_rgb_tma(const __grid_constant__ CUtensorMap xmap, const float* __restri
   }
 }
 
+template <bool WRAP>
 __global__ void __launch_bounds__(kThreads, 1)
 rgb_to_relu1_tma(const __grid_constant__ CUtensorMap ymap, const float* __restrict__ x,
                  const float* __restrict__ w, const float* __restrict__ bias, int n,
@@ -421,8 +528,8 @@ rgb_to_relu1_tma(const __grid_constant__ CUtensorMap ymap, const float* __restri
         const int ci = el / kEdgeHaloPx, p = el % kEdgeHaloPx;
         // rows/cols past the image (a ragged last tile) feed no stored
         // output: clamp them to stay in bounds
-        const int gy = reflect1(min(e.y0 + p / kEdgeHalo - 1, H), H);
-        const int gx = reflect1(min(e.x0 + p % kEdgeHalo - 1, W), W);
+        const int gy = pad1<WRAP>(min(e.y0 + p / kEdgeHalo - 1, H), H);
+        const int gx = pad1<WRAP>(min(e.x0 + p % kEdgeHalo - 1, W), W);
         pre[l] = __ldg(xn + (static_cast<size_t>(gy) * W + gx) * 3 + ci);
       }
     }
@@ -553,36 +660,43 @@ int edge_grid(int n, int h, int w, int* grid) {
   return 0;
 }
 
+// the least image side a pad mode takes: the reflection needs 2 pixels
+int min_side(int wrap) { return wrap ? 1 : 2; }
+
 // (N, H, W, 3) -> relu(conv) (N, H, W, 64); y 16-byte aligned (TMA stores)
+template <bool WRAP>
 int launch_entry(const float* x, const float* w, const float* b, float* y, int n, int h,
                  int wd, void* stream) {
-  if (n <= 0 || n > 65535 || h < 2 || wd < 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || n > 65535 || h < min_side(WRAP) || wd < min_side(WRAP))
+    return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap ymap;
   int grid = 0;
   if (int rc = map_nhwc64(&ymap, y, n, h, wd, kEdgeTile, kEdgeTile)) return rc;
   if (int rc = edge_grid(n, h, wd, &grid)) return rc;
   cudaError_t err = cudaFuncSetAttribute(
-      rgb_to_relu1_tma, cudaFuncAttributeMaxDynamicSharedMemorySize, kEntSmem);
+      rgb_to_relu1_tma<WRAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kEntSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  rgb_to_relu1_tma<<<grid, kThreads, kEntSmem, static_cast<cudaStream_t>(stream)>>>(
+  rgb_to_relu1_tma<WRAP><<<grid, kThreads, kEntSmem, static_cast<cudaStream_t>(stream)>>>(
       ymap, x, w, b, n, h, wd);
   return static_cast<int>(cudaGetLastError());
 }
 
 // (N, H, W, 64) -> conv (N, H, W, 3), no ReLU (the renorm is folded into w,
 // b); x 16-byte aligned (TMA loads)
+template <bool WRAP>
 int launch_final(const float* x, const float* w, const float* b, float* y, int n, int h,
                  int wd, void* stream) {
-  if (n <= 0 || n > 65535 || h < 2 || wd < 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || n > 65535 || h < min_side(WRAP) || wd < min_side(WRAP))
+    return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap xmap;
   int grid = 0;
   if (int rc = map_nhwc64(&xmap, x, n, h, wd, kEdgeHalo, kEdgeHalo)) return rc;
   if (int rc = edge_grid(n, h, wd, &grid)) return rc;
   cudaError_t err = cudaFuncSetAttribute(
-      final_to_rgb_tma, cudaFuncAttributeMaxDynamicSharedMemorySize, kFinSmem);
+      final_to_rgb_tma<WRAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kFinSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  final_to_rgb_tma<<<grid, kFinThreads, kFinSmem, static_cast<cudaStream_t>(stream)>>>(
-      xmap, w, b, y, n, h, wd);
+  final_to_rgb_tma<WRAP><<<grid, kFinThreads, kFinSmem, static_cast<cudaStream_t>(stream)>>>(
+      xmap, x, w, b, y, n, h, wd);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -622,21 +736,23 @@ int launch_final(const float* x, const float* w, const float* b, float* y, int n
 //   more registers) that one rounded FADD adds to the total (bias ~5e-7).
 // * One block of 8 warps per SM, bounded by registers.
 //
-// conv3x3_tf32x3<CIN, COUT, RELU, POOL>, COUT in {64, 128}:
+// conv3x3_tf32x3<CIN, COUT, RELU, POOL, WRAP>, COUT in {64, 128}:
 // * A block computes kRows x 16 output pixels for all COUT channels. Warp w
 //   owns rows 2(w % RP) and 2(w % RP) + 1 (one m16 tile each: the tile's
 //   row m is column m of the image row) and channels 64(w / RP)..+63: 8
 //   rows (RP = 4 row pairs, two channel halves) at COUT = 128, 16 rows (RP
-//   = 8) at COUT = 64. The halo is (kRows + 2) x 18, reflect-padded.
+//   = 8) at COUT = 64. The halo is (kRows + 2) x 18, reflect-padded (WRAP:
+//   circularly padded).
 // * Epilogue: bias, ReLU, then the ceil-mode 2x2 pool in registers: a
 //   thread holds both rows of a window (its two m16 tiles), and the
 //   horizontal neighbour is lane ^ 4, one shuffle away. Pixels past the
 //   image enter the max as -inf.
 // 158,976 (COUT 128) or 94,464 (COUT 64) bytes of dynamic shared memory.
 //
-// upconv_tf32x3<C>, C in {64, 128}: relu(conv3x3_reflect(nearest_up_x2(x)))
-// from the coarse x. A fine-scale reflection of a nearest-upsampled image
-// is a coarse-scale edge pad, and the upsample folds into the conv: fine
+// upconv_tf32x3<C, WRAP>, C in {64, 128}: relu(conv3x3_reflect(
+// nearest_up_x2(x))) from the coarse x. A fine-scale reflection of a
+// nearest-upsampled image is a coarse-scale edge pad (and a fine-scale wrap
+// a coarse-scale wrap: WRAP), and the upsample folds into the conv: fine
 // pixel (2i + a, 2j + b) is a 2x2 conv of the edge-padded coarse image at
 // rows i + a - 1 + u and columns j + b - 1 + v (u, v in {0, 1}) with the
 // folded taps of phase (a, b) (ops/codec.py pack_up). 4 taps a fine pixel
@@ -749,7 +865,7 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-template <int CIN, int COUT, bool RELU, bool POOL>
+template <int CIN, int COUT, bool RELU, bool POOL, bool WRAP>
 __global__ void __launch_bounds__(kThreads, 1)
 conv3x3_tf32x3(const float* __restrict__ x, const float4* __restrict__ wtc,
                const float* __restrict__ bias, float* __restrict__ y, int H, int W) {
@@ -779,8 +895,8 @@ conv3x3_tf32x3(const float* __restrict__ x, const float4* __restrict__ wtc,
 #pragma unroll
   for (int i = 0; i < S::kLoads; ++i) {
     const int p = (tid >> 1) + i * (kThreads / 2);
-    const int gy = reflect1(min(ty0 + p / kTcHaloW - 1, H), H);
-    const int gx = reflect1(min(tx0 + p % kTcHaloW - 1, W), W);
+    const int gy = pad1<WRAP>(min(ty0 + p / kTcHaloW - 1, H), H);
+    const int gx = pad1<WRAP>(min(tx0 + p % kTcHaloW - 1, W), W);
     src[i] = gy * W + gx;
   }
 
@@ -901,7 +1017,7 @@ conv3x3_tf32x3(const float* __restrict__ x, const float4* __restrict__ wtc,
   }
 }
 
-template <int C>
+template <int C, bool WRAP>
 __global__ void __launch_bounds__(kThreads, 1)
 upconv_tf32x3(const float* __restrict__ x, const float4* __restrict__ wup,
               const float* __restrict__ bias, float* __restrict__ y, int Hc, int Wc) {
@@ -928,11 +1044,18 @@ upconv_tf32x3(const float* __restrict__ x, const float4* __restrict__ wup,
 
   // thread t < 216 copies 16-byte half t & 1 of halo pixel t / 2: coarse row
   // i0 - 1 + t / 2 / 18, column j0 - 1 + t / 2 % 18, clamped into the image
-  // (the edge pad; past a ragged edge it feeds no stored output)
+  // (the edge pad; WRAP: wrapped; past a ragged edge it feeds no stored
+  // output)
   const int half = tid & 1, hp = tid >> 1;
   const bool copies = tid < 2 * kUpHalo;
-  const int gy = min(max(i0 - 1 + hp / kTcHaloW, 0), Hc - 1);
-  const int gx = min(max(j0 - 1 + hp % kTcHaloW, 0), Wc - 1);
+  int gy, gx;
+  if constexpr (WRAP) {
+    gy = wrap1(min(i0 - 1 + hp / kTcHaloW, Hc), Hc);
+    gx = wrap1(min(j0 - 1 + hp % kTcHaloW, Wc), Wc);
+  } else {
+    gy = min(max(i0 - 1 + hp / kTcHaloW, 0), Hc - 1);
+    gx = min(max(j0 - 1 + hp % kTcHaloW, 0), Wc - 1);
+  }
   const float* src = xn + (static_cast<size_t>(gy) * Wc + gx) * C + (kTcK / 2) * half;
   const int dst = hp * kTcChunk + 4 * (half ^ ((hp >> 2) & 1));
 
@@ -1037,47 +1160,61 @@ int launch_dyn(Kernel kern, dim3 grid, int smem, void* stream, const float* x,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int CIN, int COUT, bool RELU, bool POOL>
+template <int CIN, int COUT, bool RELU, bool POOL, bool WRAP>
 int launch_tc(const float* x, const void* wtc, const float* b, float* y, int n, int h,
               int wd, void* stream) {
   using S = TcConv<COUT>;
   const dim3 grid((wd + kTcCols - 1) / kTcCols, (h + S::kRows - 1) / S::kRows, n);
-  return launch_dyn(conv3x3_tf32x3<CIN, COUT, RELU, POOL>, grid, S::kSmem, stream, x, wtc,
-                    b, y, h, wd);
+  return launch_dyn(conv3x3_tf32x3<CIN, COUT, RELU, POOL, WRAP>, grid, S::kSmem, stream,
+                    x, wtc, b, y, h, wd);
 }
 
-template <int CIN, int COUT>
+template <int CIN, int COUT, bool WRAP>
 int launch_tc_rp(const float* x, const void* wtc, const float* b, float* y, int n, int h,
                  int wd, int relu, int pool, void* stream) {
-  if (relu && pool) return launch_tc<CIN, COUT, true, true>(x, wtc, b, y, n, h, wd, stream);
-  if (relu) return launch_tc<CIN, COUT, true, false>(x, wtc, b, y, n, h, wd, stream);
-  if (pool) return launch_tc<CIN, COUT, false, true>(x, wtc, b, y, n, h, wd, stream);
-  return launch_tc<CIN, COUT, false, false>(x, wtc, b, y, n, h, wd, stream);
+  if (relu && pool)
+    return launch_tc<CIN, COUT, true, true, WRAP>(x, wtc, b, y, n, h, wd, stream);
+  if (relu) return launch_tc<CIN, COUT, true, false, WRAP>(x, wtc, b, y, n, h, wd, stream);
+  if (pool) return launch_tc<CIN, COUT, false, true, WRAP>(x, wtc, b, y, n, h, wd, stream);
+  return launch_tc<CIN, COUT, false, false, WRAP>(x, wtc, b, y, n, h, wd, stream);
 }
 
-// the wide convs at 64 or 128 input channels, ReLU and pool chosen at run time
-template <int COUT>
-int launch_tc_conv(const float* x, const void* wtc, const float* b, float* y, int n, int h,
-                   int wd, int cin, int relu, int pool, void* stream) {
-  if (n <= 0 || n > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (cin == 64) return launch_tc_rp<64, COUT>(x, wtc, b, y, n, h, wd, relu, pool, stream);
-  if (cin == 128) return launch_tc_rp<128, COUT>(x, wtc, b, y, n, h, wd, relu, pool, stream);
+template <int COUT, bool WRAP>
+int launch_tc_cin(const float* x, const void* wtc, const float* b, float* y, int n, int h,
+                  int wd, int cin, int relu, int pool, void* stream) {
+  if (cin == 64)
+    return launch_tc_rp<64, COUT, WRAP>(x, wtc, b, y, n, h, wd, relu, pool, stream);
+  if (cin == 128)
+    return launch_tc_rp<128, COUT, WRAP>(x, wtc, b, y, n, h, wd, relu, pool, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int C>
+// the wide convs at 64 or 128 input channels, ReLU, pool and the pad mode
+// chosen at run time
+template <int COUT>
+int launch_tc_conv(const float* x, const void* wtc, const float* b, float* y, int n, int h,
+                   int wd, int cin, int relu, int pool, int wrap, void* stream) {
+  if (n <= 0 || n > 65535 || h < min_side(wrap) || wd < min_side(wrap))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (wrap)
+    return launch_tc_cin<COUT, true>(x, wtc, b, y, n, h, wd, cin, relu, pool, stream);
+  return launch_tc_cin<COUT, false>(x, wtc, b, y, n, h, wd, cin, relu, pool, stream);
+}
+
+template <int C, bool WRAP>
 int launch_up(const float* x, const void* wup, const float* b, float* y, int n, int hc,
               int wc, void* stream) {
   const int blocks_y = (hc + kUpRows - 1) / kUpRows * (C == 64 ? 1 : 2);
   const dim3 grid((wc + kTcCols - 1) / kTcCols, blocks_y, n);
-  return launch_dyn(upconv_tf32x3<C>, grid, UpConv::kSmem, stream, x, wup, b, y, hc, wc);
+  return launch_dyn(upconv_tf32x3<C, WRAP>, grid, UpConv::kSmem, stream, x, wup, b, y, hc,
+                    wc);
 }
 
+template <bool WRAP>
 int launch_up_c(const float* x, const void* wup, const float* b, float* y, int n, int hc,
                 int wc, int c, void* stream) {
-  if (n <= 0 || n > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (c == 64) return launch_up<64>(x, wup, b, y, n, hc, wc, stream);
-  if (c == 128) return launch_up<128>(x, wup, b, y, n, hc, wc, stream);
+  if (c == 64) return launch_up<64, WRAP>(x, wup, b, y, n, hc, wc, stream);
+  if (c == 128) return launch_up<128, WRAP>(x, wup, b, y, n, hc, wc, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1085,40 +1222,47 @@ int launch_up_c(const float* x, const void* wup, const float* b, float* y, int n
 
 extern "C" {
 
+// Every entry point: wrap 0 pads by reflection, 1 circularly.
+
 // (N, H, W, 3) -> relu(conv) (N, H, W, 64); y 16-byte aligned (TMA stores)
 int optex_rgb_to_relu1(const float* x, const float* w, const float* b, float* y,
-                       int n, int h, int wd, void* stream) {
-  return launch_entry(x, w, b, y, n, h, wd, stream);
+                       int n, int h, int wd, int wrap, void* stream) {
+  return wrap ? launch_entry<true>(x, w, b, y, n, h, wd, stream)
+              : launch_entry<false>(x, w, b, y, n, h, wd, stream);
 }
 
 // (N, H, W, cin) -> (N, H, W, 64), or (N, ceil(H/2), ceil(W/2), 64) when
 // pooled; wtc: the split weights in fragment order (ops/codec.py pack_tc)
 int optex_conv3x3_p2(const float* x, const float* wtc, const float* b, float* y,
-                     int n, int h, int wd, int cin, int relu, int pool,
+                     int n, int h, int wd, int cin, int relu, int pool, int wrap,
                      void* stream) {
-  return launch_tc_conv<64>(x, wtc, b, y, n, h, wd, cin, relu, pool, stream);
+  return launch_tc_conv<64>(x, wtc, b, y, n, h, wd, cin, relu, pool, wrap, stream);
 }
 
 // (N, H, W, cin) -> (N, H, W, 128), or (N, ceil(H/2), ceil(W/2), 128) when
 // pooled; wtc as for conv3x3_p2
 int optex_conv3x3_full(const float* x, const float* wtc, const float* b, float* y,
-                       int n, int h, int wd, int cin, int relu, int pool,
+                       int n, int h, int wd, int cin, int relu, int pool, int wrap,
                        void* stream) {
-  return launch_tc_conv<128>(x, wtc, b, y, n, h, wd, cin, relu, pool, stream);
+  return launch_tc_conv<128>(x, wtc, b, y, n, h, wd, cin, relu, pool, wrap, stream);
 }
 
 // coarse (N, Hc, Wc, c) -> relu(conv(nearest_up_x2)) (N, 2Hc, 2Wc, c); wup:
 // the folded per-phase taps, split, in fragment order (ops/codec.py pack_up)
 int optex_upconv_p2(const float* x, const float* wup, const float* b, float* y,
-                    int n, int hc, int wc, int c, void* stream) {
-  return launch_up_c(x, wup, b, y, n, hc, wc, c, stream);
+                    int n, int hc, int wc, int c, int wrap, void* stream) {
+  if (n <= 0 || n > 65535 || hc < 1 || wc < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return wrap ? launch_up_c<true>(x, wup, b, y, n, hc, wc, c, stream)
+              : launch_up_c<false>(x, wup, b, y, n, hc, wc, c, stream);
 }
 
 // (N, H, W, 64) -> conv (N, H, W, 3), no ReLU (the renorm is folded into w, b);
 // x 16-byte aligned (TMA loads)
 int optex_final_to_rgb(const float* x, const float* w, const float* b, float* y,
-                       int n, int h, int wd, void* stream) {
-  return launch_final(x, w, b, y, n, h, wd, stream);
+                       int n, int h, int wd, int wrap, void* stream) {
+  return wrap ? launch_final<true>(x, w, b, y, n, h, wd, stream)
+              : launch_final<false>(x, w, b, y, n, h, wd, stream);
 }
 
 const char* optex_error_string(int code) {

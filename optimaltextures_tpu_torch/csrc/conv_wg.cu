@@ -5,7 +5,7 @@
 //                               conv3x3_p2 (body _conv_p2_kernel :244, COUT
 //                               64) and :376 conv3x3_full (_conv_full_kernel
 //                               :340, COUT 128)
-//   upconv_wg<C>                :449 upconv_p2 (body _upconv_kernel :424)
+//   upconv_wg<C, ...>           :449 upconv_p2 (body _upconv_kernel :424)
 //
 //   conv:   y[n, h, w, co] = [pool2x2] [relu] (b[co] + sum_{r, s, ci}
 //                              xpad[n, h + r, w + s, ci] * W[r, s, ci, co])
@@ -17,7 +17,12 @@
 // and the 3x3 conv fold, per output phase (a, b), into the 2x2 taps F of
 // ops/codec.py fold_up on the edge-padded coarse image), bf16 weights, f32
 // accumulate, an f32 bias, ReLU and the ceil-mode 2x2 max-pool in f32, one
-// rounding to bf16 at the store.
+// rounding to bf16 at the store. Each mode also has a wrap instantiation
+// (the last template parameter, WRAP; the reflect ones are the code they
+// were): 1-px circular padding, the tileable runs' halo, under which the
+// conv and the upconv alike read the wrapped (coarse) image: a fine-scale
+// wrap of a nearest-upsampled image is the coarse-scale wrap. Only the
+// producer's row and pixel index changes (halo1).
 //
 // What bounds them on the H100: operations, or nearly. The conv does 2 x 9
 // x Cin FLOPs an output value against 4 bytes of traffic (bf16 in and out):
@@ -138,6 +143,24 @@ __device__ __forceinline__ int reflect1(int i, int n) {
 
 // the edge pad: i clamped into [0, n)
 __device__ __forceinline__ int clamp1(int i, int n) { return min(max(i, 0), n - 1); }
+
+// 1-px circular wrap into [0, n) for i in [-1, n]; n >= 1 (no % or /)
+__device__ __forceinline__ int wrap1(int i, int n) {
+  return i < 0 ? i + n : (i >= n ? i - n : i);
+}
+
+// the producer's halo row or pixel index, i in [-1, n + 1] (past n: a last
+// pair's second row, which feeds no stored output): the conv reflects, the
+// upconv clamps (the coarse edge pad), and under WRAP both wrap
+template <bool UP, bool WRAP>
+__device__ __forceinline__ int halo1(int i, int n) {
+  if constexpr (WRAP)
+    return wrap1(min(i, n), n);
+  else if constexpr (UP)
+    return clamp1(i, n);
+  else
+    return reflect1(min(i, n), n);
+}
 
 __device__ __forceinline__ uint32_t saddr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -279,9 +302,9 @@ __device__ __forceinline__ void release_to(uint32_t s_bar, uint32_t& seen,
 
 // The kernel body. UP: the folded upconv (C -> C, 4 taps, kinds (a, b,
 // half), the edge pad, the strided store; RELU, no POOL); else the 3x3 conv
-// (9 taps, kinds = co halves, the reflect pad). h, w: the input's (coarse)
-// size.
-template <bool UP, int CIN, int COUT, bool RELU, bool POOL>
+// (9 taps, kinds = co halves, the reflect pad). WRAP: the circular pad in
+// either. h, w: the input's (coarse) size.
+template <bool UP, int CIN, int COUT, bool RELU, bool POOL, bool WRAP>
 __device__ __forceinline__ void wg_body(const __nv_bfloat16* __restrict__ x,
                                         const __nv_bfloat16* __restrict__ wwg,
                                         const float* __restrict__ bias,
@@ -336,13 +359,13 @@ __device__ __forceinline__ void wg_body(const __nv_bfloat16* __restrict__ x,
         const int slot = g % kRing;
         mbar_wait(s_bar + 8 * (kRing + slot), ((g / kRing) & 1) ^ 1);
         // rows past the image (a last pair's second row) feed no stored output
-        const int iy = UP ? clamp1(m.y0 - 1 + r, h) : reflect1(min(m.y0 - 1 + r, h), h);
+        const int iy = halo1<UP, WRAP>(m.y0 - 1 + r, h);
         const __nv_bfloat16* src =
             x + (static_cast<int64_t>(m.n) * h + iy) * w * CIN;
         const uint32_t dst = s_ring + slot * C::kSlot;
         for (int e = lane; e < C::kPx * C::kGroups; e += 32) {
           const int p = e / C::kGroups, gi = e % C::kGroups;
-          const int ix = UP ? clamp1(m.w0 - 1 + p, w) : reflect1(min(m.w0 - 1 + p, w), w);
+          const int ix = halo1<UP, WRAP>(m.w0 - 1 + p, w);
           cp_async16(dst + gi * C::kPitch + p * 16,
                      src + static_cast<int64_t>(ix) * CIN + gi * 8);
         }
@@ -465,20 +488,20 @@ __device__ __forceinline__ void wg_body(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int COUT, int CIN, bool RELU, bool POOL>
+template <int COUT, int CIN, bool RELU, bool POOL, bool WRAP>
 __global__ void __launch_bounds__(kThreads, 1)
 conv3x3_wg(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wwg,
            const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int n_img,
            int h, int w, int band, int bands) {
-  wg_body<false, CIN, COUT, RELU, POOL>(x, wwg, bias, y, n_img, h, w, band, bands);
+  wg_body<false, CIN, COUT, RELU, POOL, WRAP>(x, wwg, bias, y, n_img, h, w, band, bands);
 }
 
-template <int C>
+template <int C, bool WRAP>
 __global__ void __launch_bounds__(kThreads, 1)
 upconv_wg(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wwg,
           const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int n_img,
           int h, int w, int band, int bands) {
-  wg_body<true, C, C, true, false>(x, wwg, bias, y, n_img, h, w, band, bands);
+  wg_body<true, C, C, true, false, WRAP>(x, wwg, bias, y, n_img, h, w, band, bands);
 }
 
 // the band height (even) that spreads n_tiles x bands items best over the
@@ -524,63 +547,80 @@ int launch(Kernel kern, const __nv_bfloat16* x, const void* wwg, const float* b,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int COUT, int CIN>
+template <int COUT, int CIN, bool WRAP>
 int launch_rp(const __nv_bfloat16* x, const void* wwg, const float* b, __nv_bfloat16* y,
               int n, int h, int w, int relu, int pool, cudaStream_t stream) {
   if (relu && pool)
-    return launch<false, CIN, COUT>(conv3x3_wg<COUT, CIN, true, true>, x, wwg, b, y, n, h,
-                                    w, stream);
+    return launch<false, CIN, COUT>(conv3x3_wg<COUT, CIN, true, true, WRAP>, x, wwg, b, y,
+                                    n, h, w, stream);
   if (relu)
-    return launch<false, CIN, COUT>(conv3x3_wg<COUT, CIN, true, false>, x, wwg, b, y, n,
-                                    h, w, stream);
+    return launch<false, CIN, COUT>(conv3x3_wg<COUT, CIN, true, false, WRAP>, x, wwg, b, y,
+                                    n, h, w, stream);
   if (pool)
-    return launch<false, CIN, COUT>(conv3x3_wg<COUT, CIN, false, true>, x, wwg, b, y, n,
-                                    h, w, stream);
-  return launch<false, CIN, COUT>(conv3x3_wg<COUT, CIN, false, false>, x, wwg, b, y, n, h,
-                                  w, stream);
+    return launch<false, CIN, COUT>(conv3x3_wg<COUT, CIN, false, true, WRAP>, x, wwg, b, y,
+                                    n, h, w, stream);
+  return launch<false, CIN, COUT>(conv3x3_wg<COUT, CIN, false, false, WRAP>, x, wwg, b, y,
+                                  n, h, w, stream);
 }
 
+template <int COUT, bool WRAP>
+int launch_cin(const __nv_bfloat16* x, const void* wwg, const float* b, __nv_bfloat16* y,
+               int n, int h, int wd, int cin, int relu, int pool, cudaStream_t s) {
+  if (cin == 64) return launch_rp<COUT, 64, WRAP>(x, wwg, b, y, n, h, wd, relu, pool, s);
+  if (cin == 128) return launch_rp<COUT, 128, WRAP>(x, wwg, b, y, n, h, wd, relu, pool, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the reflection needs 2 pixels a side, the wrap 1
 template <int COUT>
 int launch_conv(const __nv_bfloat16* x, const void* wwg, const float* b, __nv_bfloat16* y,
-                int n, int h, int wd, int cin, int relu, int pool, void* stream) {
-  if (n <= 0 || h < 2 || wd < 2 || h > INT_MAX - 8 || wd > INT_MAX - 64)
+                int n, int h, int wd, int cin, int relu, int pool, int wrap, void* stream) {
+  const int least = wrap ? 1 : 2;
+  if (n <= 0 || h < least || wd < least || h > INT_MAX - 8 || wd > INT_MAX - 64)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cin == 64) return launch_rp<COUT, 64>(x, wwg, b, y, n, h, wd, relu, pool, s);
-  if (cin == 128) return launch_rp<COUT, 128>(x, wwg, b, y, n, h, wd, relu, pool, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (wrap) return launch_cin<COUT, true>(x, wwg, b, y, n, h, wd, cin, relu, pool, s);
+  return launch_cin<COUT, false>(x, wwg, b, y, n, h, wd, cin, relu, pool, s);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Every entry point: wrap 0 pads by reflection (the upconv: the coarse
+// edge pad), 1 circularly.
+
 // (N, H, W, cin) bf16 -> [relu] conv (N, H, W, 64) bf16, or its 2x2 ceil-mode
 // max-pool (N, ceil(H/2), ceil(W/2), 64); wwg: ops/codec.py pack_wg's one
 // image (Cout 64); b: (64,) f32
 int optex_conv3x3_p2_bf16(const __nv_bfloat16* x, const void* wwg, const float* b,
                           __nv_bfloat16* y, int n, int h, int wd, int cin, int relu,
-                          int pool, void* stream) {
-  return launch_conv<64>(x, wwg, b, y, n, h, wd, cin, relu, pool, stream);
+                          int pool, int wrap, void* stream) {
+  return launch_conv<64>(x, wwg, b, y, n, h, wd, cin, relu, pool, wrap, stream);
 }
 
 // the same to 128 channels; wwg: pack_wg's two co halves; b: (128,) f32
 int optex_conv3x3_full_bf16(const __nv_bfloat16* x, const void* wwg, const float* b,
                             __nv_bfloat16* y, int n, int h, int wd, int cin, int relu,
-                            int pool, void* stream) {
-  return launch_conv<128>(x, wwg, b, y, n, h, wd, cin, relu, pool, stream);
+                            int pool, int wrap, void* stream) {
+  return launch_conv<128>(x, wwg, b, y, n, h, wd, cin, relu, pool, wrap, stream);
 }
 
-// coarse (N, Hc, Wc, c) bf16 -> relu(conv3x3_reflect(nearest_up_x2)) (N, 2Hc,
+// coarse (N, Hc, Wc, c) bf16 -> relu(conv3x3_<pad>(nearest_up_x2)) (N, 2Hc,
 // 2Wc, c) bf16; wwg: ops/codec.py pack_wg_up's images, kind (a, b, co half);
 // b: (c,) f32
 int optex_upconv_p2_bf16(const __nv_bfloat16* x, const void* wwg, const float* b,
-                         __nv_bfloat16* y, int n, int hc, int wc, int c, void* stream) {
+                         __nv_bfloat16* y, int n, int hc, int wc, int c, int wrap,
+                         void* stream) {
   if (n <= 0 || hc < 1 || wc < 1 || hc > INT_MAX / 2 - 8 || wc > INT_MAX / 2 - 64)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c == 64) return launch<true, 64, 64>(upconv_wg<64>, x, wwg, b, y, n, hc, wc, s);
-  if (c == 128) return launch<true, 128, 128>(upconv_wg<128>, x, wwg, b, y, n, hc, wc, s);
+  if (c == 64)
+    return wrap ? launch<true, 64, 64>(upconv_wg<64, true>, x, wwg, b, y, n, hc, wc, s)
+                : launch<true, 64, 64>(upconv_wg<64, false>, x, wwg, b, y, n, hc, wc, s);
+  if (c == 128)
+    return wrap ? launch<true, 128, 128>(upconv_wg<128, true>, x, wwg, b, y, n, hc, wc, s)
+                : launch<true, 128, 128>(upconv_wg<128, false>, x, wwg, b, y, n, hc, wc, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

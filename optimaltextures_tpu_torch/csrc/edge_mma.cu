@@ -12,8 +12,10 @@
 //   final_to_rgb: y[n, h, w, co] = b[co] + sum_{r, s, ci}
 //                     xpad[n, h + r, w + s, ci] * W[r, s, ci, co]          64 -> 3
 //
-// on NHWC tensors with 1-px reflect padding, bf16 weights, products summed
-// in f32, an f32 bias; rgb_to_relu1 reads f32 RGB, rounds it to bf16 (the
+// on NHWC tensors with 1-px reflect padding (or, in the wrap instantiation
+// of each, WRAP, 1-px circular padding: the tileable runs' halo; the
+// reflect instantiations are the code they were), bf16 weights, products
+// summed in f32, an f32 bias; rgb_to_relu1 reads f32 RGB, rounds it to bf16 (the
 // Pallas kernel's p0.astype(dt)) and rounds each output to bf16 once;
 // final_to_rgb reads bf16 features and writes f32 RGB. As the Pallas
 // kernels do on the MXU, the products run on the tensor cores: bf16
@@ -66,6 +68,10 @@
 //   TMA fills coordinates outside the image with zeros; the 1-px reflect
 //   halo is repaired in shared memory after the box lands (columns, then
 //   whole rows, so corners follow), as the TPU kernel's DMA-then-repair.
+//   Under wrap the missing halo lies in no edge tile's box: an edge tile's
+//   repair reads it from the far edge of the image with plain 16-byte
+//   loads (wrap_fetch, issued before the box lands, and wrap_store), interior
+//   tiles keep the TMA box as it landed.
 // * Product: Z[p][j] = sum_ci x[p][ci] W[ci][j] for the tile's 324 halo
 //   pixels p, j = 3 (3 kh + kw) + co: M = 324 (21 m16 tiles of 16
 //   consecutive halo pixels, warp w taking tiles w, w + 8, w + 16), K = 64
@@ -137,6 +143,20 @@ static_assert(kFinSmem <= 232448 && kEntSmem <= 232448, "shared memory");
 __device__ __forceinline__ int reflect1(int i, int n) {
   i = i < 0 ? -i : i;
   return i >= n ? 2 * n - 2 - i : i;
+}
+
+// 1-px circular wrap into [0, n) for i in [-1, n]; n >= 1 (no % or /)
+__device__ __forceinline__ int wrap1(int i, int n) {
+  return i < 0 ? i + n : (i >= n ? i - n : i);
+}
+
+// the halo index of pad mode WRAP
+template <bool WRAP>
+__device__ __forceinline__ int pad1(int i, int n) {
+  if constexpr (WRAP)
+    return wrap1(i, n);
+  else
+    return reflect1(i, n);
 }
 
 __device__ __forceinline__ uint32_t saddr(const void* p) {
@@ -280,13 +300,79 @@ __device__ __forceinline__ void copy_line_chunk(uint8_t* slot, int dst, int src,
       *reinterpret_cast<const uint4*>(slot + sw128(src, j));
 }
 
+// The wrap repair of an edge tile's box (18 x 18 halo pixels, a 128-byte
+// line each at sw128): the halo pixels TMA fills with zeros, because they
+// lie past the image, read with plain 16-byte loads at the wrapped
+// coordinates. Halo columns 0 (image column -1) and cmax (image column W;
+// the box's last on a ragged tile is past it and feeds no stored output)
+// come for every row up to rmax with the rows wrapped, so the corners come
+// out right; then halo rows 0 and rmax for the columns those left: 576
+// (line, 16-byte chunk) items over the 256 consumers, each pixel written
+// once. A thread loads its (at most 3) items into registers before the box
+// lands, so that the loads overlap the TMA (wrap_fetch), and writes them
+// into the landed box (wrap_store); the caller's conditions are
+// block-uniform, and it syncs the consumers after the stores.
+constexpr int kRepairItems = 4 * kHalo * 8;
+constexpr int kRepairPer = (kRepairItems + kConsumers - 1) / kConsumers;
+
+// item i of thread tid's share: whether the tile has it, and its halo
+// pixel (r, c) and 16-byte chunk j
+__device__ __forceinline__ bool repair_item(int i, int tid, const EdgeTile& e, int H, int W,
+                                            int& r, int& c, int& j) {
+  const bool left = e.x0 == 0, right = e.x0 + kTile >= W;
+  const bool top = e.y0 == 0, bottom = e.y0 + kTile >= H;
+  const int cmax = min(kHalo - 1, W - e.x0 + 1);
+  const int rmax = min(kHalo - 1, H - e.y0 + 1);
+  const int k = tid + i * kConsumers, l = k >> 3;
+  j = k & 7;
+  if (l < 2 * kHalo) {                                  // a halo column
+    const bool far = l >= kHalo;
+    r = far ? l - kHalo : l;
+    c = far ? cmax : 0;
+    return k < kRepairItems && (far ? right : left) && r <= rmax;
+  }
+  const bool far = l >= 3 * kHalo;                       // a halo row
+  c = far ? l - 3 * kHalo : l - 2 * kHalo;
+  r = far ? rmax : 0;
+  return k < kRepairItems && (far ? bottom : top) && c <= cmax && !(left && c == 0) &&
+         !(right && c == cmax);
+}
+
+// base: image pixel 0's line (the box's channels); stride: uint4 a pixel
+__device__ __forceinline__ void wrap_fetch(uint4 (&v)[kRepairPer],
+                                           const uint4* __restrict__ base, int stride,
+                                           int tid, const EdgeTile& e, int H, int W) {
+#pragma unroll
+  for (int i = 0; i < kRepairPer; ++i) {
+    int r, c, j;
+    if (repair_item(i, tid, e, H, W, r, c, j)) {
+      const size_t px = (static_cast<size_t>(e.n) * H + wrap1(e.y0 - 1 + r, H)) * W +
+                        wrap1(e.x0 - 1 + c, W);
+      v[i] = __ldg(base + px * stride + j);
+    }
+  }
+}
+
+__device__ __forceinline__ void wrap_store(const uint4 (&v)[kRepairPer], uint8_t* slot,
+                                           int tid, const EdgeTile& e, int H, int W) {
+#pragma unroll
+  for (int i = 0; i < kRepairPer; ++i) {
+    int r, c, j;
+    if (repair_item(i, tid, e, H, W, r, c, j))
+      *reinterpret_cast<uint4*>(slot + sw128(r * kHalo + c, j)) = v[i];
+  }
+}
+
+template <bool WRAP>
 __global__ void __launch_bounds__(kFinThreads, 1)
-final_to_rgb_mma(const __grid_constant__ CUtensorMap xmap, const uint4* __restrict__ wedge,
+final_to_rgb_mma(const __grid_constant__ CUtensorMap xmap,
+                 const __nv_bfloat16* __restrict__ x, const uint4* __restrict__ wedge,
                  const float* __restrict__ bias, float* __restrict__ y, int n, int H,
                  int W) {
   // xmap: x (N, H, W, 64) bf16, boxes of {64 channels, 18 columns, 18 rows,
-  // 1}, one a tile, tile i of this block in ring slot i % 3; wedge: B[ci][3
-  // tap + co] (64 x 32) in fragment order; y: (N, H, W, 3) float32
+  // 1}, one a tile, tile i of this block in ring slot i % 3 (x itself: the
+  // wrap repair's plain loads); wedge: B[ci][3 tap + co] (64 x 32) in
+  // fragment order; y: (N, H, W, 3) float32
   extern __shared__ uint8_t fin_smem[];
   uint8_t* sm = align1024(fin_smem);
   const uint32_t s_ring = saddr(sm), s_full = saddr(sm + kFinOffBar);
@@ -336,32 +422,48 @@ final_to_rgb_mma(const __grid_constant__ CUtensorMap xmap, const uint4* __restri
     const int slot = i % kFinStages;
     const EdgeTile e = edge_tile(blockIdx.x + i * gridDim.x, tiles_x, tiles_y);
     uint8_t* st = sm + slot * kFinSlot;
+    // WRAP: an edge tile's far-edge pixels (a pixel's 64 channels, 8 uint4),
+    // loaded while the box is in flight
+    uint4 rep[kRepairPer];
+    bool edge = false;
+    if constexpr (WRAP) {
+      edge = e.x0 == 0 || e.x0 + kTile >= W || e.y0 == 0 || e.y0 + kTile >= H;
+      if (edge) wrap_fetch(rep, reinterpret_cast<const uint4*>(x), 8, tid, e, H, W);
+    }
     mbar_wait(s_full + 8 * slot, (i / kFinStages) & 1);
     // reflect repair: halo column 0 (image column -1) takes halo column 2,
     // the halo column of image column W takes that of W - 2; then whole
-    // rows the same way. Block-uniform conditions, so every consumer warp
-    // meets the same sequence of named barriers.
+    // rows the same way (WRAP: the far edge's pixels, wrap_store).
+    // Block-uniform conditions, so every consumer warp meets the same
+    // sequence of named barriers.
     const bool left = e.x0 == 0, right = e.x0 + kTile >= W;
     const bool top = e.y0 == 0, bottom = e.y0 + kTile >= H;
-    if (left || right) {
-      for (int k = tid; k < 2 * kHalo * 8; k += kConsumers) {
-        const int side = k >= kHalo * 8, r = (k >> 3) - side * kHalo;
-        if (side ? right : left) {
-          const int dst = side ? W - e.x0 + 1 : 0, src = side ? W - e.x0 - 1 : 2;
-          copy_line_chunk(st, r * kHalo + dst, r * kHalo + src, k & 7);
-        }
+    if constexpr (WRAP) {
+      if (edge) {
+        wrap_store(rep, st, tid, e, H, W);
+        consumer_sync();
       }
-      consumer_sync();
-    }
-    if (top || bottom) {
-      for (int k = tid; k < 2 * kHalo * 8; k += kConsumers) {
-        const int side = k >= kHalo * 8, c = (k >> 3) - side * kHalo;
-        if (side ? bottom : top) {
-          const int dst = side ? H - e.y0 + 1 : 0, src = side ? H - e.y0 - 1 : 2;
-          copy_line_chunk(st, dst * kHalo + c, src * kHalo + c, k & 7);
+    } else {
+      if (left || right) {
+        for (int k = tid; k < 2 * kHalo * 8; k += kConsumers) {
+          const int side = k >= kHalo * 8, r = (k >> 3) - side * kHalo;
+          if (side ? right : left) {
+            const int dst = side ? W - e.x0 + 1 : 0, src = side ? W - e.x0 - 1 : 2;
+            copy_line_chunk(st, r * kHalo + dst, r * kHalo + src, k & 7);
+          }
         }
+        consumer_sync();
       }
-      consumer_sync();
+      if (top || bottom) {
+        for (int k = tid; k < 2 * kHalo * 8; k += kConsumers) {
+          const int side = k >= kHalo * 8, c = (k >> 3) - side * kHalo;
+          if (side ? bottom : top) {
+            const int dst = side ? H - e.y0 + 1 : 0, src = side ? H - e.y0 - 1 : 2;
+            copy_line_chunk(st, dst * kHalo + c, src * kHalo + c, k & 7);
+          }
+        }
+        consumer_sync();
+      }
     }
 
     // the product: Z[j][p] for this warp's m16 tiles of halo pixels. Z
@@ -421,6 +523,7 @@ final_to_rgb_mma(const __grid_constant__ CUtensorMap xmap, const uint4* __restri
   }
 }
 
+template <bool WRAP>
 __global__ void __launch_bounds__(kConsumers, kEntBlocks)
 rgb_to_relu1_mma(const __grid_constant__ CUtensorMap ymap, const float* __restrict__ x,
                  const uint4* __restrict__ wedge, const float* __restrict__ bias, int n,
@@ -471,8 +574,8 @@ rgb_to_relu1_mma(const __grid_constant__ CUtensorMap ymap, const float* __restri
         const int ci = el / kHaloPx, p = el % kHaloPx;
         // rows/cols past the image (a ragged last tile) feed no stored
         // output: clamp them to stay in bounds
-        const int gy = reflect1(min(e.y0 + p / kHalo - 1, H), H);
-        const int gx = reflect1(min(e.x0 + p % kHalo - 1, W), W);
+        const int gy = pad1<WRAP>(min(e.y0 + p / kHalo - 1, H), H);
+        const int gx = pad1<WRAP>(min(e.x0 + p % kHalo - 1, W), W);
         pre[l] = __ldg(xn + (static_cast<size_t>(gy) * W + gx) * 3 + ci);
       }
     }
@@ -592,44 +695,67 @@ int edge_grid(int n, int h, int w, int per_sm, int* grid) {
   return 0;
 }
 
-}  // namespace
-
-extern "C" {
-
-// (N, H, W, 3) f32 -> relu(conv) (N, H, W, 64) bf16; wedge: ops/codec.py
-// pack_edge of the (27 -> 32) x 64 weights; b: (64,) f32; y 16-byte aligned
-// (TMA stores)
-int optex_rgb_to_relu1_bf16(const float* x, const void* wedge, const float* b,
-                            __nv_bfloat16* y, int n, int h, int wd, void* stream) {
-  if (n <= 0 || n > 65535 || h < 2 || wd < 2) return static_cast<int>(cudaErrorInvalidValue);
+template <bool WRAP>
+int launch_entry(const float* x, const void* wedge, const float* b, __nv_bfloat16* y,
+                 int n, int h, int wd, void* stream) {
   CUtensorMap ymap;
   int grid = 0;
   if (int rc = map_nhwc64(&ymap, y, n, h, wd, kTile, kTile)) return rc;
   if (int rc = edge_grid(n, h, wd, kEntBlocks, &grid)) return rc;
   cudaError_t err = cudaFuncSetAttribute(
-      rgb_to_relu1_mma, cudaFuncAttributeMaxDynamicSharedMemorySize, kEntSmem);
+      rgb_to_relu1_mma<WRAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kEntSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  rgb_to_relu1_mma<<<grid, kConsumers, kEntSmem, static_cast<cudaStream_t>(stream)>>>(
+  rgb_to_relu1_mma<WRAP><<<grid, kConsumers, kEntSmem, static_cast<cudaStream_t>(stream)>>>(
       ymap, x, static_cast<const uint4*>(wedge), b, n, h, wd);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool WRAP>
+int launch_final(const __nv_bfloat16* x, const void* wedge, const float* b, float* y,
+                 int n, int h, int wd, void* stream) {
+  CUtensorMap xmap;
+  int grid = 0;
+  if (int rc = map_nhwc64(&xmap, x, n, h, wd, kHalo, kHalo)) return rc;
+  if (int rc = edge_grid(n, h, wd, 1, &grid)) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      final_to_rgb_mma<WRAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kFinSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  final_to_rgb_mma<WRAP><<<grid, kFinThreads, kFinSmem, static_cast<cudaStream_t>(stream)>>>(
+      xmap, x, static_cast<const uint4*>(wedge), b, y, n, h, wd);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the sizes a launch takes: the reflection needs 2 pixels a side, the wrap 1
+bool bad_size(int n, int h, int wd, int wrap) {
+  const int least = wrap ? 1 : 2;
+  return n <= 0 || n > 65535 || h < least || wd < least;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Every entry point: wrap 0 pads by reflection, 1 circularly.
+
+// (N, H, W, 3) f32 -> relu(conv) (N, H, W, 64) bf16; wedge: ops/codec.py
+// pack_edge of the (27 -> 32) x 64 weights; b: (64,) f32; y 16-byte aligned
+// (TMA stores)
+int optex_rgb_to_relu1_bf16(const float* x, const void* wedge, const float* b,
+                            __nv_bfloat16* y, int n, int h, int wd, int wrap,
+                            void* stream) {
+  if (bad_size(n, h, wd, wrap)) return static_cast<int>(cudaErrorInvalidValue);
+  return wrap ? launch_entry<true>(x, wedge, b, y, n, h, wd, stream)
+              : launch_entry<false>(x, wedge, b, y, n, h, wd, stream);
 }
 
 // (N, H, W, 64) bf16 -> conv (N, H, W, 3) f32, no ReLU (the renorm is folded
 // into the weights); wedge: pack_edge of the 64 x (27 -> 32) weights; b:
 // (3,) f32; x 16-byte aligned (TMA loads)
 int optex_final_to_rgb_bf16(const __nv_bfloat16* x, const void* wedge, const float* b,
-                            float* y, int n, int h, int wd, void* stream) {
-  if (n <= 0 || n > 65535 || h < 2 || wd < 2) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap xmap;
-  int grid = 0;
-  if (int rc = map_nhwc64(&xmap, x, n, h, wd, kHalo, kHalo)) return rc;
-  if (int rc = edge_grid(n, h, wd, 1, &grid)) return rc;
-  cudaError_t err = cudaFuncSetAttribute(
-      final_to_rgb_mma, cudaFuncAttributeMaxDynamicSharedMemorySize, kFinSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  final_to_rgb_mma<<<grid, kFinThreads, kFinSmem, static_cast<cudaStream_t>(stream)>>>(
-      xmap, static_cast<const uint4*>(wedge), b, y, n, h, wd);
-  return static_cast<int>(cudaGetLastError());
+                            float* y, int n, int h, int wd, int wrap, void* stream) {
+  if (bad_size(n, h, wd, wrap)) return static_cast<int>(cudaErrorInvalidValue);
+  return wrap ? launch_final<true>(x, wedge, b, y, n, h, wd, stream)
+              : launch_final<false>(x, wedge, b, y, n, h, wd, stream);
 }
 
 const char* optex_error_string(int code) {

@@ -17,7 +17,9 @@ lanes; here it stays (N, H, W, 3)). Each stage's kernel weights are packed
 once per synthesizer (:func:`pack_stages`), in the bank's dtype: with
 bfloat16 weights every conv here computes the bf16 function (the JAX
 package's ``conv_dtype="bfloat16"``): the features are bf16, the RGB
-between stages stays float32.
+between stages stays float32. ``pad="wrap"`` (tileable runs) pads every
+conv here circularly: the kernels' wrap mode and circular ``F.conv2d``
+padding.
 """
 
 from __future__ import annotations
@@ -36,11 +38,12 @@ def eligible(fast_codec: bool, device) -> bool:
     """The port's gate: whether the stage roundtrips run on this module.
 
     The JAX gate (``optimaltextures_tpu/models/fastcodec.eligible``) sends a
-    run to the Pallas kernels only at batch == 128, bfloat16 and sizes that
-    are multiples of 32: the TPU's lane width and tiling. The port's kernels
-    take any batch, any size (reflect padding needs >= 2 px at every level,
-    as on the F.conv2d path) and either float32 or bfloat16, so none of
-    those conditions applies. On a GPU every roundtrip runs on the kernels,
+    run to the Pallas kernels only at batch == 128, bfloat16, reflect
+    padding and sizes that are multiples of 32: the TPU's lane width and
+    tiling, and the Pallas kernels' one halo. The port's kernels take any
+    batch, any size (reflect padding needs >= 2 px at every level, as on
+    the F.conv2d path), either float32 or bfloat16 and either pad mode, so
+    none of those conditions applies. On a GPU every roundtrip runs on the kernels,
     in the bank's dtype; ``fast_codec=False`` (the F.conv2d codec, the
     reference the CPU tests hold this module against) is for the CPU
     only."""
@@ -100,41 +103,43 @@ def pixels_to_rgb(renorm_params, pastiche: torch.Tensor) -> torch.Tensor:
     return conv2d_nhwc(pastiche, w0, b0).float()
 
 
-def encode_head(sc: StageCodec, rgb: torch.Tensor) -> torch.Tensor:
+def encode_head(sc: StageCodec, rgb: torch.Tensor,
+                pad: str = "reflect") -> torch.Tensor:
     """Post-renorm RGB (float32) -> relu{depth}_1 features, NHWC, in the
-    conv dtype.
+    conv dtype; every conv padded by ``pad`` (reflect | wrap).
 
     Kernel-covered encoder prefix (arch._ENCODER_FULL indices): [1] entry
     3->64, [2] conv1_2 + [3]'s pre-pool, [3] 64->128, [4] 128->128 + [5]'s
     pre-pool; F.conv2d from 256 channels on."""
-    t = codec.rgb_to_relu1(rgb, sc.head[0])
+    t = codec.rgb_to_relu1(rgb, sc.head[0], pad=pad)
     if sc.depth == 1:
         return t
-    t = codec.conv3x3_p2(t, sc.head[1], relu=True, pool=True)
-    t = codec.conv3x3_full(t, sc.head[2], relu=True)
+    t = codec.conv3x3_p2(t, sc.head[1], relu=True, pool=True, pad=pad)
+    t = codec.conv3x3_full(t, sc.head[2], relu=True, pad=pad)
     if sc.depth == 2:
         return t
-    t = codec.conv3x3_full(t, sc.head[3], relu=True, pool=True)
+    t = codec.conv3x3_full(t, sc.head[3], relu=True, pool=True, pad=pad)
     specs = arch.encoder_specs(sc.depth)[5:]
     # spec[5]'s pre-pool is fused into the 128->128 kernel above
     s0 = specs[0]
     specs = [(s0[0], s0[1], s0[2], "", s0[4])] + list(specs[1:])
-    return _run_stack(sc.enc_rest, specs, t, "reflect")
+    return _run_stack(sc.enc_rest, specs, t, pad)
 
 
-def decode_tail(sc: StageCodec, feat: torch.Tensor) -> torch.Tensor:
+def decode_tail(sc: StageCodec, feat: torch.Tensor,
+                pad: str = "reflect") -> torch.Tensor:
     """relu{depth}_1 features (NHWC; the OT's float32, cast to the conv
     dtype here) -> RGB (NHWC, float32): post-renorm for the next stage, or
-    raw pixels after the pass's last stage.
+    raw pixels after the pass's last stage; every conv padded by ``pad``.
 
     Kernel-covered decoder suffix: [-4] 128->128 upconv, [-3] 128->64, [-2]
     64->64 upconv, [-1] final; F.conv2d above 128 channels."""
     x = feat.to(sc.dtype)
     if sc.depth > 2:
         x = _run_stack(sc.dec_rest, arch.decoder_specs(sc.depth)[:-4], x,
-                       "reflect")
-        x = codec.upconv_p2(x, sc.tail[0])
+                       pad)
+        x = codec.upconv_p2(x, sc.tail[0], pad=pad)
     if sc.depth > 1:
-        x = codec.conv3x3_p2(x, sc.tail[-2], relu=True)
-        x = codec.upconv_p2(x, sc.tail[-1])
-    return codec.final_to_rgb(x, sc.final)
+        x = codec.conv3x3_p2(x, sc.tail[-2], relu=True, pad=pad)
+        x = codec.upconv_p2(x, sc.tail[-1], pad=pad)
+    return codec.final_to_rgb(x, sc.final, pad=pad)

@@ -17,17 +17,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..ops.convops import (conv2d_nhwc, maxpool_2x2_ceil, reflect_pad,
-                           upsample_nearest_2x)
+from ..ops.convops import (conv2d_nhwc, maxpool_2x2_ceil, pad_spatial,
+                           reflect_pad, upsample_nearest_2x)
 from . import arch, weights
-
-
-def _pad(x: torch.Tensor, pad_mode: str) -> torch.Tensor:
-    if pad_mode != "reflect":
-        raise NotImplementedError(
-            f"pad mode {pad_mode!r} (tileable output) is not ported to the "
-            "torch package yet (ROADMAP.md, queue 1 item 13c)")
-    return reflect_pad(x, 1)
 
 
 def _run_stack(params, specs, x: torch.Tensor,
@@ -38,7 +30,7 @@ def _run_stack(params, specs, x: torch.Tensor,
         elif pre == "up":
             x = upsample_nearest_2x(x)
         if k == 3:
-            x = _pad(x, pad_mode)
+            x = pad_spatial(x, 1, pad_mode)
         x = conv2d_nhwc(x, w, b)
         if post == "relu":
             x = torch.relu(x)
@@ -47,13 +39,16 @@ def _run_stack(params, specs, x: torch.Tensor,
 
 def encode(params, depth: int, image: torch.Tensor,
            pad_mode: str = "reflect") -> torch.Tensor:
-    """NHWC image -> relu{depth}_1 NHWC features."""
+    """NHWC image -> relu{depth}_1 NHWC features. ``pad_mode="wrap"``
+    pads circularly (tileable runs)."""
     return _run_stack(params, arch.encoder_specs(depth), image, pad_mode)
 
 
 def encode_taps(params, depth: int, image: torch.Tensor):
     """NHWC image -> [relu1_1, ..., relu{depth}_1] in one forward pass.
-    ``params`` must be the depth-``depth`` encoder parameters."""
+    ``params`` must be the depth-``depth`` encoder parameters. Always
+    reflect-padded, as the JAX package's: the style and content prep of a
+    tileable run encode like any other run's."""
     specs = arch.encoder_specs(depth)
     tap_after = {arch._ENCODER_LEN[d] - 1 for d in range(1, depth + 1)}
     taps = []

@@ -23,7 +23,14 @@ Each wrapper below:
   in interpret mode);
 * on a CUDA tensor launches its kernel on the current stream, or raises —
   nothing falls back;
-* counts its launches in ``LAUNCHES[name]`` (plain versions do not count).
+* takes ``pad="reflect"`` (the reference's padding) or ``pad="wrap"``
+  (circular: tileable runs). The Pallas kernels reflect only, and the JAX
+  package leaves tileable runs to XLA's convs; here every kernel has a
+  wrap instantiation (a compile-time mode: the reflect instantiations are
+  the code they were), whose halo reads the far edge of the image;
+* counts its launches in ``LAUNCHES[name]``, ``name`` with ``_bf16`` for
+  the bf16 function and ``_wrap`` for the wrap mode (plain versions do not
+  count).
 
 What bounds them on the H100 (67 TFLOP/s FFMA, 495 TFLOP/s dense TF32 on
 the tensor cores and 3.35 TB/s HBM on the SXM part), and what the design
@@ -82,7 +89,9 @@ from .convops import to_nchw, to_nhwc
 
 KERNELS = ("rgb_to_relu1", "conv3x3_p2", "conv3x3_full", "upconv_p2",
            "final_to_rgb")
-LAUNCHES = {**{k: 0 for k in KERNELS}, **{k + "_bf16": 0 for k in KERNELS}}
+LAUNCHES = {k + dt + pad: 0 for k in KERNELS for dt in ("", "_bf16")
+            for pad in ("", "_wrap")}
+PADS = ("reflect", "wrap")
 
 
 def reset_launches() -> None:
@@ -268,7 +277,9 @@ def fold_up(w_hwio: torch.Tensor) -> torch.Tensor:
     u, v]: nearest-x2 upsample, reflect pad and this conv equal, at fine
     pixel (2i + a, 2j + b), a 2x2 conv of the EDGE-padded coarse image at
     rows i + a - 1 + u, columns j + b - 1 + v (a fine-scale reflection of a
-    nearest-upsampled image is a coarse-scale edge pad). Row phase a = 0
+    nearest-upsampled image is a coarse-scale edge pad). Under wrap padding
+    the same taps apply to the circularly padded coarse image: fine row -1
+    wraps to fine row 2 Hc - 1, which is coarse row Hc - 1. Row phase a = 0
     takes coarse rows (i - 1, i) with weight rows (W0, W1 + W2), a = 1
     takes (i, i + 1) with (W0 + W1, W2); columns fold the same way. Summed
     in the dtype given, rows first, then columns: the folded taps are
@@ -304,12 +315,13 @@ def pack_final(w_fin: torch.Tensor, b_fin: torch.Tensor,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# (x, w, b, y, n, h, w, [cin, relu, pool | c], wrap, stream)
 _ARGTYPES = {
-    "optex_rgb_to_relu1": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "optex_conv3x3_p2": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "optex_conv3x3_full": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "optex_upconv_p2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "optex_final_to_rgb": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "optex_rgb_to_relu1": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "optex_conv3x3_p2": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "optex_conv3x3_full": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "optex_upconv_p2": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "optex_final_to_rgb": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 _ARGTYPES.update({k + "_bf16": v for k, v in _ARGTYPES.items()})
 # the kernels whose entry point is in a library of its own
@@ -344,27 +356,30 @@ def build() -> None:
 
 def conv3x3_plain(x: torch.Tensor, p: Packed, relu: bool = False,
                   pool: bool = False, up: bool = False,
-                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                  out_dtype: Optional[torch.dtype] = None,
+                  pad: str = "reflect") -> torch.Tensor:
     """The plain PyTorch version of every kernel here: NHWC x ->
-    [2x2 ceil max-pool] [relu] conv3x3_reflect([nearest_up_x2] x), NHWC.
-    bfloat16 weights take :func:`conv3x3_plain_bf16` (``out_dtype``: its
-    result's dtype, default bfloat16). A batch whose padded activations
-    would pass 2^31 elements runs in pieces of images (PyTorch's reflect pad
-    takes 32-bit index math only)."""
+    [2x2 ceil max-pool] [relu] conv3x3_<pad>([nearest_up_x2] x), NHWC,
+    ``pad`` "reflect" or "wrap" (circular). bfloat16 weights take
+    :func:`conv3x3_plain_bf16` (``out_dtype``: its result's dtype, default
+    bfloat16). A batch whose padded activations would pass 2^31 elements
+    runs in pieces of images (PyTorch's reflect pad takes 32-bit index math
+    only; the circular pad is cut the same way)."""
     n, h, w, _ = x.shape
     per_image = (max(x.shape[-1], p.w.shape[0]) * (2 * h + 2 if up else h + 2)
                  * (2 * w + 2 if up else w + 2))
     if n > 1 and n * per_image >= 2 ** 31:
         step = max(1, (2 ** 31 - 1) // per_image)
         return torch.cat([conv3x3_plain(x[i:i + step], p, relu, pool, up,
-                                        out_dtype) for i in range(0, n, step)])
+                                        out_dtype, pad)
+                          for i in range(0, n, step)])
     if p.w.dtype == torch.bfloat16:
         return conv3x3_plain_bf16(x, p, relu, pool, up,
-                                  out_dtype or torch.bfloat16)
+                                  out_dtype or torch.bfloat16, pad)
     t = to_nchw(x)
     if up:
         t = F.interpolate(t, scale_factor=2, mode="nearest")
-    t = F.conv2d(F.pad(t, (1, 1, 1, 1), mode="reflect"), p.w, p.b)
+    t = F.conv2d(F.pad(t, (1, 1, 1, 1), mode=_torch_pad(pad)), p.w, p.b)
     if relu:
         t = torch.relu(t)
     if pool:
@@ -372,28 +387,48 @@ def conv3x3_plain(x: torch.Tensor, p: Packed, relu: bool = False,
     return to_nhwc(t)
 
 
+def _torch_pad(pad: str) -> str:
+    """The ``F.pad`` mode of a pad mode."""
+    if pad not in PADS:
+        raise ValueError(f"pad must be reflect|wrap, got {pad!r}")
+    return "reflect" if pad == "reflect" else "circular"
+
+
+def folded_upconv(t: torch.Tensor, fold: torch.Tensor,
+                  pad: str = "reflect") -> torch.Tensor:
+    """NCHW coarse t (N, C, Hc, Wc) -> the conv of its nearest-x2 upsample
+    (N, Cout, 2 Hc, 2 Wc), no bias, computed as :func:`fold_up`'s 2x2 taps
+    ``fold`` (a, b, u, v, ci, co) per output phase on the coarse image
+    padded by one pixel: edge-padded for ``pad="reflect"``, circularly for
+    ``pad="wrap"``. Sums in ``t``'s dtype."""
+    n, _, hc, wc = t.shape
+    tp = F.pad(t, (1, 1, 1, 1), mode="replicate" if pad == "reflect"
+               else _torch_pad(pad))
+    t = torch.stack([torch.stack([
+        F.conv2d(tp[:, :, a:a + hc + 1, b:b + wc + 1],
+                 fold[a, b].permute(3, 2, 0, 1)) for b in (0, 1)], -1)
+        for a in (0, 1)], 3)                           # (n, co, hc, a, wc, b)
+    return t.reshape(n, -1, 2 * hc, 2 * wc)
+
+
 def conv3x3_plain_bf16(x: torch.Tensor, p: Packed, relu: bool = False,
                        pool: bool = False, up: bool = False,
-                       out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                       out_dtype: torch.dtype = torch.bfloat16,
+                       pad: str = "reflect") -> torch.Tensor:
     """The bf16 kernels' function, as the Pallas kernels compute it: x
     rounded to bf16 (a no-op on bf16 features; ``rgb_to_relu1``'s f32 RGB
     rounds here), x and the bf16 weights widened to f32, the conv in f32
     plus the f32 bias, [relu], [pool], then one rounding to ``out_dtype``.
     The upconv convolves with its folded bf16 taps (``p.w_fold``: the sums
     rounded to bf16, as ``pack_upconv_fold`` rounds them) on the
-    edge-padded coarse image, per output phase."""
+    edge-padded (under wrap: circularly padded) coarse image, per output
+    phase (:func:`folded_upconv`)."""
     t = to_nchw(x.to(torch.bfloat16).float())
     if up:
-        n, _, hc, wc = t.shape
-        tp = F.pad(t, (1, 1, 1, 1), mode="replicate")
-        taps = p.w_fold.float()                        # (a, b, u, v, ci, co)
-        t = torch.stack([torch.stack([
-            F.conv2d(tp[:, :, a:a + hc + 1, b:b + wc + 1],
-                     taps[a, b].permute(3, 2, 0, 1)) for b in (0, 1)], -1)
-            for a in (0, 1)], 3)                       # (n, co, hc, a, wc, b)
-        t = t.reshape(n, -1, 2 * hc, 2 * wc) + p.b[:, None, None]
+        t = folded_upconv(t, p.w_fold.float(), pad) + p.b[:, None, None]
     else:
-        t = F.conv2d(F.pad(t, (1, 1, 1, 1), mode="reflect"), p.w.float(), p.b)
+        t = F.conv2d(F.pad(t, (1, 1, 1, 1), mode=_torch_pad(pad)),
+                     p.w.float(), p.b)
     if relu:
         t = torch.relu(t)
     if pool:
@@ -416,11 +451,13 @@ _TMA_INPUT = ("final_to_rgb",)
 
 def _conv(name: str, x: torch.Tensor, p: Packed, cins, cout: int,
           relu: bool = False, pool: bool = False, up: bool = False,
-          args=()) -> torch.Tensor:
+          args=(), pad: str = "reflect") -> torch.Tensor:
     """Validate the operands, then run the plain version on a CPU tensor or
     launch the kernel ``optex_<name>[_bf16](x, w, b, y, N, H, W, *args,
-    stream)`` on a CUDA one (H, W: the input's); the weights' dtype picks
-    the function."""
+    wrap, stream)`` on a CUDA one (H, W: the input's); the weights' dtype
+    picks the function, ``pad`` its halo (wrap = 1: circular)."""
+    if pad not in PADS:
+        raise ValueError(f"{name}: pad must be reflect|wrap, got {pad!r}")
     if x.dim() != 4 or x.shape[-1] not in cins:
         raise ValueError(f"{name}: x must be NHWC with C in {cins}, got "
                          f"{tuple(x.shape)}")
@@ -431,16 +468,18 @@ def _conv(name: str, x: torch.Tensor, p: Packed, cins, cout: int,
                          f"{tuple(p.b.shape)}")
     n, h, wd, _ = x.shape
     scale = 2 if up else 1
-    if scale * h < 2 or scale * wd < 2:
+    if pad == "reflect" and (scale * h < 2 or scale * wd < 2):
         raise ValueError(f"{name}: reflect padding needs H, W >= 2 at the "
                          "conv's resolution")
+    if h < 1 or wd < 1:
+        raise ValueError(f"{name}: empty image {tuple(x.shape)}")
     if not (x.device == p.w.device == p.b.device):
         raise ValueError(f"{name}: operands on different devices")
     bf16 = p.w.dtype == torch.bfloat16
     out_dtype = (torch.bfloat16 if bf16 and name != "final_to_rgb"
                  else torch.float32)
     if x.device.type == "cpu":
-        return conv3x3_plain(x, p, relu, pool, up, out_dtype)
+        return conv3x3_plain(x, p, relu, pool, up, out_dtype, pad)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
     if p.w.dtype not in (torch.float32, torch.bfloat16):
@@ -478,13 +517,15 @@ def _conv(name: str, x: torch.Tensor, p: Packed, cins, cout: int,
         name += "_bf16"
     lib = _lib(name)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    wrap = pad == "wrap"
     rc = getattr(lib, "optex_" + name)(
         x.data_ptr(), w.data_ptr(), p.b.data_ptr(),
-        y.data_ptr(), n, h, wd, *[int(a) for a in args], stream)
+        y.data_ptr(), n, h, wd, *[int(a) for a in args], int(wrap), stream)
     if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {rc} "
+        raise RuntimeError(f"{name}{'_wrap' * wrap}: kernel launch failed: "
+                           f"CUDA error {rc} "
                            f"({lib.optex_error_string(rc).decode()})")
-    LAUNCHES[name] += 1
+    LAUNCHES[name + "_wrap" * wrap] += 1
     return y
 
 
@@ -497,11 +538,12 @@ def _conv(name: str, x: torch.Tensor, p: Packed, cins, cout: int,
 #    co's weights resident a block (pack_wg), row pairs of a column strip
 #    over a ring of halo rows.
 
-def conv3x3_p2(x, p: Packed, relu: bool = True, pool: bool = False):
-    """x (N, H, W, Cin), Cin in {64, 128} -> [relu] conv3x3_reflect (N, H, W,
+def conv3x3_p2(x, p: Packed, relu: bool = True, pool: bool = False,
+               pad: str = "reflect"):
+    """x (N, H, W, Cin), Cin in {64, 128} -> [relu] conv3x3_<pad> (N, H, W,
     64), or its 2x2 ceil-mode max-pool when ``pool``."""
     return _conv("conv3x3_p2", x, p, (64, 128), 64, relu, pool,
-                 args=(x.shape[-1], relu, pool))
+                 args=(x.shape[-1], relu, pool), pad=pad)
 
 
 # ---------------------------------------------------------------------------
@@ -512,11 +554,12 @@ def conv3x3_p2(x, p: Packed, relu: bool = True, pool: bool = False):
 #    (csrc/conv_wg.cu) on wgmma, one co half's weights resident a block
 #    (pack_wg), row pairs of a column strip over a ring of halo rows.
 
-def conv3x3_full(x, p: Packed, relu: bool = True, pool: bool = False):
-    """x (N, H, W, Cin), Cin in {64, 128} -> [relu] conv3x3_reflect (N, H, W,
+def conv3x3_full(x, p: Packed, relu: bool = True, pool: bool = False,
+                 pad: str = "reflect"):
+    """x (N, H, W, Cin), Cin in {64, 128} -> [relu] conv3x3_<pad> (N, H, W,
     128), or its 2x2 ceil-mode max-pool when ``pool``."""
     return _conv("conv3x3_full", x, p, (64, 128), 128, relu, pool,
-                 args=(x.shape[-1], relu, pool))
+                 args=(x.shape[-1], relu, pool), pad=pad)
 
 
 # ---------------------------------------------------------------------------
@@ -532,12 +575,12 @@ def conv3x3_full(x, p: Packed, relu: bool = True, pool: bool = False):
 #    and co half with that kind's folded taps resident (pack_wg_up), each
 #    output pixel's 64 channels stored as one 128-byte line.
 
-def upconv_p2(x, p: Packed):
-    """coarse x (N, Hc, Wc, C), C in {64, 128} -> relu(conv3x3_reflect(
+def upconv_p2(x, p: Packed, pad: str = "reflect"):
+    """coarse x (N, Hc, Wc, C), C in {64, 128} -> relu(conv3x3_<pad>(
     nearest_up_x2(x))) (N, 2Hc, 2Wc, C); ``p`` from :func:`pack_up`."""
     c = x.shape[-1] if x.dim() == 4 else -1
     return _conv("upconv_p2", x, p, (64, 128), c, relu=True, up=True,
-                 args=(c,))
+                 args=(c,), pad=pad)
 
 
 # ---------------------------------------------------------------------------
@@ -546,7 +589,9 @@ def upconv_p2(x, p: Packed):
 #    next stage's 1x1 RGB renorm folded into its weights (pack_final, the
 #    math of pack_final_rgb :121). Bytes-bound: 64 input channels read once
 #    per pixel by TMA into a 3-slot ring of halo boxes (reflect halo repaired
-#    in shared memory) that a producer warp keeps filling, 3 written;
+#    in shared memory; in wrap mode an edge tile reads the image's far edge
+#    into its box with plain loads) that a producer warp keeps filling, 3
+#    written;
 #    persistent over 16 x 16 tiles. f32: final_to_rgb_tma, each of 8 warps
 #    4 channels of a half on the FP32 cores, the 8 warps' partial sums added
 #    once per tile. bf16: final_to_rgb_mma (csrc/edge_mma.cu), every halo
@@ -554,10 +599,10 @@ def upconv_p2(x, p: Packed):
 #    the ring slot, B = pack_edge's fragments in registers) into Z in shared
 #    memory, then one thread per output pixel sums its 9 taps.
 
-def final_to_rgb(x, p: Packed):
-    """x (N, H, W, 64) -> conv3x3_reflect (N, H, W, 3), no ReLU; ``p`` from
+def final_to_rgb(x, p: Packed, pad: str = "reflect"):
+    """x (N, H, W, 64) -> conv3x3_<pad> (N, H, W, 3), no ReLU; ``p`` from
     :func:`pack_final`."""
-    return _conv("final_to_rgb", x, p, (64,), 3)
+    return _conv("final_to_rgb", x, p, (64,), 3, pad=pad)
 
 
 # ---------------------------------------------------------------------------
@@ -572,6 +617,6 @@ def final_to_rgb(x, p: Packed):
 #    gathered from the staged bf16 halo, B = pack_edge's fragments in
 #    registers.
 
-def rgb_to_relu1(x, p: Packed):
-    """x (N, H, W, 3) -> relu(conv3x3_reflect) (N, H, W, 64)."""
-    return _conv("rgb_to_relu1", x, p, (3,), 64, relu=True)
+def rgb_to_relu1(x, p: Packed, pad: str = "reflect"):
+    """x (N, H, W, 3) -> relu(conv3x3_<pad>) (N, H, W, 64)."""
+    return _conv("rgb_to_relu1", x, p, (3,), 64, relu=True, pad=pad)

@@ -1,5 +1,5 @@
-"""Conv building blocks on NHWC tensors: reflection pad, ceil-mode max-pool,
-nearest x2 upsample and the VALID conv.
+"""Conv building blocks on NHWC tensors: reflection and circular pads,
+ceil-mode max-pool, nearest x2 upsample and the VALID conv.
 
 Public functions take and return NHWC, as in ``optimaltextures_tpu/ops/
 convops.py``; inside, they view the tensor as NCHW with channels-last strides
@@ -24,6 +24,22 @@ def to_nhwc(x: torch.Tensor) -> torch.Tensor:
 def reflect_pad(x: torch.Tensor, pad: int = 1) -> torch.Tensor:
     """Reflection-pad the two spatial dims of an NHWC tensor."""
     return to_nhwc(F.pad(to_nchw(x), (pad, pad, pad, pad), mode="reflect"))
+
+
+def circular_pad(x: torch.Tensor, pad: int = 1) -> torch.Tensor:
+    """Circular (wrap) padding of the two spatial dims of an NHWC tensor:
+    the tileable runs' padding, under which encode and decode commute with
+    circular shifts (the JAX package's ``circular_pad``)."""
+    return to_nhwc(F.pad(to_nchw(x), (pad, pad, pad, pad), mode="circular"))
+
+
+def pad_spatial(x: torch.Tensor, pad: int, mode: str) -> torch.Tensor:
+    """``reflect`` (the reference's padding) or ``wrap`` (tileable)."""
+    if mode == "reflect":
+        return reflect_pad(x, pad)
+    if mode == "wrap":
+        return circular_pad(x, pad)
+    raise ValueError(f"pad mode must be reflect|wrap, got {mode!r}")
 
 
 def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,8 @@
 Each separable 1-D bicubic-antialias resampling (torch's
 ``interpolate(mode="bicubic", antialias=True)``, the reference's resize) is a
 dense (out, in) weight matrix built on the host in float64, cached, and
-applied as a matmul with the weights passed as runtime tensors. The mixing
+applied as a matmul with the weights passed as runtime tensors; tileable
+runs resize the pastiche with the taps wrapped around the circle. The mixing
 mask resizes by nearest-neighbour gathers (:func:`resize_nearest_nhwc`).
 """
 
@@ -54,9 +55,44 @@ def resample_matrix(in_size: int, out_size: int) -> np.ndarray:
     return W.astype(np.float32)
 
 
-def resample_pair(in_hw: Tuple[int, int], out_hw: Tuple[int, int]):
-    """Host (wh, ww) float32 matrices for an (H, W) -> (H, W) resize."""
-    return resample_matrix(in_hw[0], out_hw[0]), resample_matrix(in_hw[1], out_hw[1])
+@lru_cache(maxsize=256)
+def resample_matrix_circular(in_size: int, out_size: int) -> np.ndarray:
+    """(out_size, in_size) float32 bicubic-antialias resampling matrix on the
+    circle: :func:`resample_matrix`'s kernel and taps, but a tap outside
+    [0, in_size) wraps around instead of being cut and renormalised, so
+    every output sees the whole kernel and the resize commutes with
+    circular shifts (the tileable runs' pastiche resize)."""
+    if in_size == out_size:
+        return np.eye(in_size, dtype=np.float32)
+    scale = in_size / out_size
+    support = 2.0 * scale if scale > 1.0 else 2.0
+    invscale = 1.0 / scale if scale > 1.0 else 1.0
+
+    i = np.arange(out_size, dtype=np.float64)
+    center = (i + 0.5) * scale
+    # floor, not the truncating cast: a window near o = 0 starts at a
+    # negative tap, and truncation toward zero would give it another length
+    # than an interior window's, which breaks the shift structure
+    xmin = np.floor(center - support + 0.5).astype(np.int64)
+    xmax = np.floor(center + support + 0.5).astype(np.int64)
+
+    W = np.zeros((out_size, in_size), dtype=np.float64)
+    for o in range(out_size):
+        j = np.arange(xmin[o], xmax[o])
+        w = _bicubic_kernel((j - center[o] + 0.5) * invscale)
+        s = w.sum()
+        if s != 0.0:
+            w = w / s
+        np.add.at(W[o], j % in_size, w)
+    return W.astype(np.float32)
+
+
+def resample_pair(in_hw: Tuple[int, int], out_hw: Tuple[int, int],
+                  circular: bool = False):
+    """Host (wh, ww) float32 matrices for an (H, W) -> (H, W) resize;
+    ``circular`` wraps the taps (:func:`resample_matrix_circular`)."""
+    mat = resample_matrix_circular if circular else resample_matrix
+    return mat(in_hw[0], out_hw[0]), mat(in_hw[1], out_hw[1])
 
 
 def apply_resample(x: torch.Tensor, wh: torch.Tensor,

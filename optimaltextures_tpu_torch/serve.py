@@ -26,8 +26,9 @@ runs on the GPU unless it is given ``device="cpu"`` (tests).
     -> 200 image/png|image/jpeg, application/json with every image
        base64-encoded when config.batch > 1, or application/octet-stream
        (.npy, the whole (N, H, W, 3) uint8 batch) for format=npy
-    -> 400 for a bad request; 501 for a setting the port does not run yet
-       (tileable, num_devices / spatial_devices > 1, style_parallel: the
+    -> 400 for a bad request (a tileable one whose pass sizes do not
+       divide by 2^(depth-1) among them); 501 for a setting the port does
+       not run yet (num_devices / spatial_devices > 1, style_parallel: the
        message names the ROADMAP.md item)
 
     GET /healthz -> {"status": "ok", "devices": [...], "cached": N,
@@ -246,7 +247,8 @@ def _parse_request(payload: dict,
             raise ValueError("style_parallel is synthesis-only "
                              "(no content_b64/init_b64)")
         requested = set(payload.get("config", {}))
-        bad = [n for n, b in [("out_width", cfg.out_width is not None),
+        bad = [n for n, b in [("tileable", cfg.tileable),
+                              ("out_width", cfg.out_width is not None),
                               ("batch", cfg.batch != 1),
                               ("color_transfer",
                                cfg.color_transfer is not None),

@@ -4,6 +4,7 @@ batch 128, with its times beside its bound and cuDNN's bf16 conv.
 
     python3 optimaltextures_tpu_torch/tools/bf16_codec.py [--root TREE]
         [--seed N] [--reps R] [--batches 1 128] [--kernels NAME ...]
+        [--pad reflect|wrap]
 
 The batch-1 inputs are made as ``chip_smoke.py`` phase 3 makes the f32
 ones: a plain decode -> encode roundtrip of the real depth-3 weights (here
@@ -13,6 +14,9 @@ stacks B copies of it, copy i rolled by (7 i, 13 i) pixels and scaled by
 image's pixels shows. ``--root`` imports the port's package from another
 checkout of the repo, so two versions are timed by one script, in one call.
 ``--kernels`` keeps the shapes of the kernels named (default: all five).
+``--pad wrap`` checks and times the kernels' wrap mode (circular padding,
+tileable runs) against the plain versions in wrap mode, with the reflect
+mode's device time on the same inputs beside each.
 
 For each kernel, shape and batch it prints:
 
@@ -122,13 +126,13 @@ def _compare(got, ref):
     return err, scale, lean / got.numel(), finite
 
 
-def library_call(name, x, p):
+def library_call(name, x, p, pad="reflect"):
     """One cuDNN bf16 ``F.conv2d`` with the conv's weights and bias on the
-    same input (nearest-upsampled for the upconv) reflect-padded into
-    channels-last before the clock, as phase 3 times the f32 convs: the
-    conv, without the ReLU and pool the kernels fuse. The padding runs in
-    pieces of 16 images (PyTorch's reflect pad takes 32-bit index math
-    only)."""
+    same input (nearest-upsampled for the upconv) padded (reflect, or
+    circularly for ``pad="wrap"``) into channels-last before the clock, as
+    phase 3 times the f32 convs: the conv, without the ReLU and pool the
+    kernels fuse. The padding runs in pieces of 16 images (PyTorch's reflect
+    pad takes 32-bit index math only)."""
     import torch
     import torch.nn.functional as F
 
@@ -137,7 +141,8 @@ def library_call(name, x, p):
         t = x[i:i + 16].to(torch.bfloat16).permute(0, 3, 1, 2)
         if name == "upconv_p2":
             t = F.interpolate(t, scale_factor=2, mode="nearest")
-        parts.append(F.pad(t, (1, 1, 1, 1), mode="reflect"))
+        parts.append(F.pad(t, (1, 1, 1, 1), mode="reflect" if pad == "reflect"
+                           else "circular"))
     t = torch.cat(parts).contiguous(memory_format=torch.channels_last)
     del parts
     w = p.w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
@@ -145,11 +150,14 @@ def library_call(name, x, p):
     return lambda: F.conv2d(t, w, b)
 
 
-def check_and_time(seed: int, reps: int, card: str, batches=(1, 128), kernels=None):
+def check_and_time(seed: int, reps: int, card: str, batches=(1, 128), kernels=None,
+                   pad: str = "reflect"):
     """Every bf16 kernel (of ``kernels``, default all) at every shape and
-    batch: held against its plain version (raises past 2^-7 x max|plain| or
-    on a repeated launch that differs), timed. Returns {(kernel, label,
-    batch): row}."""
+    batch in pad mode ``pad``: held against its plain version in that mode
+    (raises past 2^-7 x max|plain| or on a repeated launch that differs),
+    timed. Returns {(kernel, label, batch): row}; a wrap row also carries
+    ``reflect_device_ms``, the reflect mode's device time on the same
+    inputs."""
     import torch
 
     from optimaltextures_tpu_torch.ops import codec
@@ -166,7 +174,11 @@ def check_and_time(seed: int, reps: int, card: str, batches=(1, 128), kernels=No
             p = getattr(sc, field) if idx is None else getattr(sc, field)[idx]
             x = stack(t[key], batch)
             kern = getattr(codec, name)
-            pkw = plain_kwargs(name, kw)
+            # the reflect mode's calls name no pad: an older tree (--root)
+            # has none
+            wrap = {"pad": pad} if pad != "reflect" else {}
+            pkw = {**plain_kwargs(name, kw), **wrap}
+            kw = {**kw, **wrap}
             got = kern(x, p, **kw)
             ref = codec.conv3x3_plain(x, p, **pkw)
             torch.cuda.synchronize()
@@ -191,11 +203,18 @@ def check_and_time(seed: int, reps: int, card: str, batches=(1, 128), kernels=No
                          lambda: codec.conv3x3_plain(x, p, **pkw), max(2, r_reps // 4)),
                      t_flops=flops / peak_flops * 1e3, t_bytes=nbytes / peak_bw * 1e3,
                      repeats=n_rep)
+            if pad == "wrap":
+                reflect_kw = {k: v for k, v in kw.items() if k != "pad"}
+                r["reflect_device_ms"] = edge_convs.device_ms(
+                    lambda: kern(x, p, **reflect_kw), r_reps)
             torch.cuda.empty_cache()
-            r["lib_ms"] = edge_convs.event_ms(library_call(name, x, p), r_reps)
+            r["lib_ms"] = edge_convs.event_ms(library_call(name, x, p, pad), r_reps)
             r["bound"] = max(r["t_flops"], r["t_bytes"])
             rows[(name, label, batch)] = r
-            print(f"bf16 {name:13s} {label:36s} B={batch:<3d} err {err:.2e} (max|plain| "
+            beside = (f" (reflect {r['reflect_device_ms']:.4f} ms)" if pad == "wrap"
+                      else "")
+            print(f"bf16 {name + ('_wrap' if pad == 'wrap' else ''):18s} {label:36s} "
+                  f"B={batch:<3d}{beside} err {err:.2e} (max|plain| "
                   f"{scale:.3e}, lean {r['lean']:+.2e})  repeats equal {n_rep}/{n_rep}  "
                   f"device {r['device_ms']:.4f} ms  events {r['ms']:.4f} ms  plain "
                   f"{r['plain_ms']:.4f} ms  cuDNN bf16 {r['lib_ms']:.4f} ms  bound "
@@ -216,6 +235,8 @@ def main() -> int:
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 128])
     ap.add_argument("--kernels", nargs="+", choices=sorted({s[0] for s in SHAPES}),
                     help="time only these kernels' shapes")
+    ap.add_argument("--pad", choices=("reflect", "wrap"), default="reflect",
+                    help="the kernels' pad mode (wrap: tileable runs)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -233,7 +254,8 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"bf16_codec: {os.path.abspath(codec.__file__)} on {card}", flush=True)
     codec.build()
-    check_and_time(args.seed, args.reps, card, tuple(args.batches), args.kernels)
+    check_and_time(args.seed, args.reps, card, tuple(args.batches), args.kernels,
+                   args.pad)
     return 0
 
 

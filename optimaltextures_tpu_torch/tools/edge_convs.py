@@ -4,13 +4,16 @@ both ends of the main path's pass sizes (512^2 and 256^2), with three
 times side by side.
 
     python3 optimaltextures_tpu_torch/tools/edge_convs.py [--root TREE]
-        [--seed N] [--reps R]
+        [--seed N] [--reps R] [--pad reflect|wrap]
 
 The inputs are made as ``chip_smoke.py`` phase 3 makes them: a plain
 decode -> encode roundtrip of the real depth-3 weights on a style exemplar
 made from ``--seed``, at each size. ``--root`` imports the port's package
 from another checkout of the repo (an older tree unpacked with ``git
 archive``), so two versions are timed by the same script, in one call.
+``--pad wrap`` times the kernels' wrap mode (circular padding, tileable
+runs) against the plain versions in wrap mode, with the reflect mode's
+device time on the same inputs beside it.
 
 For each kernel and size it prints:
 
@@ -149,13 +152,15 @@ def profiled_kernels(fn, reps: int, tries: int = 3):
 
 
 def device_ms(fn, reps: int) -> float:
-    """The device time of every kernel torch.profiler records over ``reps``
-    calls of ``fn``, over ``reps`` (fn launches one kernel and no other);
-    the CUDA events' time if the profiler records none."""
+    """The device time of a kernel launch: the time of every kernel
+    torch.profiler records over ``reps`` calls of ``fn`` (which launches one
+    kernel and no other), over the launches it recorded (a session now and
+    then records only some of them); the CUDA events' time if the profiler
+    records none."""
     rows = profiled_kernels(fn, reps)
     if rows is None:
         return event_ms(fn, reps)
-    return sum(us for _, us, _ in rows) / 1e3 / reps
+    return sum(us for _, us, _ in rows) / 1e3 / sum(n for _, _, n in rows)
 
 
 def host_us(fn, reps: int) -> float:
@@ -202,10 +207,13 @@ def cases(seed: int, sizes=(512, 256)):
     return out
 
 
-def time_edge_convs(seed: int, reps: int, card: str, sizes=(512, 256)):
-    """Check both kernels against their plain versions at each size, within
-    2e-5 x max|plain|, and time them three ways. Returns {(kernel, size):
-    dict(err, device_ms, ms, host_us, plain_ms, t_flops, t_bytes)}."""
+def time_edge_convs(seed: int, reps: int, card: str, sizes=(512, 256),
+                    pad: str = "reflect"):
+    """Check both kernels in pad mode ``pad`` against their plain versions
+    in that mode at each size, within 2e-5 x max|plain|, and time them three
+    ways. Returns {(kernel, size): dict(err, device_ms, ms, host_us,
+    plain_ms, t_flops, t_bytes)}, a wrap row with ``reflect_device_ms``
+    (the reflect mode on the same inputs) too."""
     import torch
 
     from optimaltextures_tpu_torch.ops import codec
@@ -213,7 +221,11 @@ def time_edge_convs(seed: int, reps: int, card: str, sizes=(512, 256)):
     rows = {}
     for name, size, x, p, plain_kw in cases(seed, sizes):
         kern = getattr(codec, name)
-        got = kern(x, p)
+        # the reflect mode's calls name no pad: an older tree (--root) has none
+        wrap = {"pad": pad} if pad != "reflect" else {}
+        call = lambda: kern(x, p, **wrap)
+        plain_kw = {**plain_kw, **wrap}
+        got = call()
         ref = codec.conv3x3_plain(x, p, **plain_kw)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
@@ -222,14 +234,18 @@ def time_edge_convs(seed: int, reps: int, card: str, sizes=(512, 256)):
             raise AssertionError(f"{name} at {size}^2: max|kernel - plain| = "
                                  f"{err:.3e} over max|plain| = {scale:.3e}")
         t_flops, t_bytes = bounds(x, p, got, card)
-        r = dict(err=err, device_ms=device_ms(lambda: kern(x, p), reps),
-                 ms=event_ms(lambda: kern(x, p), reps),
-                 host_us=host_us(lambda: kern(x, p), reps),
+        r = dict(err=err, device_ms=device_ms(call, reps),
+                 ms=event_ms(call, reps), host_us=host_us(call, reps),
                  plain_ms=event_ms(lambda: codec.conv3x3_plain(x, p, **plain_kw),
                                    reps),
                  t_flops=t_flops, t_bytes=t_bytes)
+        beside = ""
+        if pad == "wrap":
+            r["reflect_device_ms"] = device_ms(lambda: kern(x, p), reps)
+            beside = f" (reflect {r['reflect_device_ms']:.4f} ms)"
         rows[(name, size)] = r
-        print(f"edge {name:12s} {size}^2: err {err:.2e} (max|plain| "
+        print(f"edge {name + ('_wrap' if pad == 'wrap' else ''):17s} {size}^2:{beside} "
+              f"err {err:.2e} (max|plain| "
               f"{scale:.3e})  device {r['device_ms']:.4f} ms  events "
               f"{r['ms']:.4f} ms  host {r['host_us']:.1f} us/call  plain "
               f"{r['plain_ms']:.4f} ms  bound bytes {t_bytes:.4f} ms, FMAs "
@@ -245,6 +261,8 @@ def main() -> int:
         help="the checkout whose optimaltextures_tpu_torch is timed")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=200)
+    ap.add_argument("--pad", choices=("reflect", "wrap"), default="reflect",
+                    help="the kernels' pad mode (wrap: tileable runs)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -262,7 +280,7 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"edge_convs: {os.path.abspath(codec.__file__)} on {card}", flush=True)
     codec.build()
-    time_edge_convs(args.seed, args.reps, card)
+    time_edge_convs(args.seed, args.reps, card, pad=args.pad)
     return 0
 
 

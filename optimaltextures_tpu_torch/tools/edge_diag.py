@@ -82,9 +82,10 @@ def time_kernel(libs: dict, kernel: str, batch: int, reps: int) -> dict:
     for name in VARIANTS[kernel]:
         fn = getattr(ctypes.CDLL(libs[f"{kernel}.{name}"]), f"optex_{kernel}_bf16")
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        # the reflect mode (wrap 0)
         args = (x.data_ptr(), p.w_edge.data_ptr(), p.b.data_ptr(), y.data_ptr(), batch,
-                size, size, stream)
+                size, size, 0, stream)
         for _ in range(3):
             if fn(*args):
                 raise RuntimeError(f"edge_diag: {kernel} {name}: launch failed")

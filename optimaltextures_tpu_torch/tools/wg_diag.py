@@ -106,10 +106,11 @@ def time_shape(libs: dict, shape: str, reps: int) -> dict:
     for name, path in libs.items():
         fn = getattr(ctypes.CDLL(path), entry)
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (3 + len(extra))
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (4 + len(extra))
                        + [ctypes.c_void_p])
+        # the reflect mode (wrap 0)
         args = (x.data_ptr(), p.w_wg.data_ptr(), p.b.data_ptr(), y.data_ptr(), n, h, w,
-                *extra, stream)
+                *extra, 0, stream)
         for _ in range(3):
             if fn(*args):
                 raise RuntimeError(f"wg_diag: {name} {shape}: launch failed")

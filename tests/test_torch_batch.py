@@ -177,8 +177,10 @@ def test_cli_batch_bf16_writes_one_png_per_image(tmp_path):
                      "graffiti_cholhist_256_cholhist_no_multires_32_2.png"], names
 
 
-# every setting that stays outside the port, one override each
-UNPORTED = [dict(tileable=True), dict(num_devices=2), dict(spatial_devices=2)]
+# every setting that stays outside the port, one override each (tileable
+# output left the table: both devices counts together trip the one row left)
+UNPORTED = [dict(num_devices=2, spatial_devices=2), dict(num_devices=2),
+            dict(spatial_devices=2)]
 
 
 def test_require_ported_still_raises_for_every_remaining_row():
@@ -187,6 +189,7 @@ def test_require_ported_still_raises_for_every_remaining_row():
     2, bf16) trips none."""
     base = dict(size=64, batch=2, conv_dtype="bfloat16", style=["x.png"])
     tconfig.require_ported(tconfig.OptexConfig(**base))
+    tconfig.require_ported(tconfig.OptexConfig(tileable=True, **base))
     hit = set()
     for override in UNPORTED:
         cfg = tconfig.OptexConfig(**{**base, **override})

@@ -1110,3 +1110,115 @@ def test_two_workers_serve_on_two_gpus():
         srv.shutdown()
         srv.server_close()
         t.join()
+
+
+# --- the wrap mode: circular padding, tileable runs --------------------------
+
+# (name, Cin, wrapper kwargs): every mode of the ten kernel functions' path
+_WRAP_MODES = [
+    ("rgb_to_relu1", 3, {}),
+    ("conv3x3_p2", 64, dict(relu=True, pool=True)),
+    ("conv3x3_p2", 128, dict(relu=True)),
+    ("conv3x3_full", 64, dict(relu=True)),
+    ("conv3x3_full", 128, dict(relu=True, pool=True)),
+    ("upconv_p2", 64, {}),
+    ("upconv_p2", 128, {}),
+    ("final_to_rgb", 64, {})]
+
+
+def _wrap_case(name, cin, dtype, n, h, w, g):
+    """Inputs of one wrap call in ``dtype`` (the conv dtype: x and weights)."""
+    if dtype == torch.bfloat16:
+        return _bf16_case(name, n, h, w, cin, g)
+    cout = {"rgb_to_relu1": 64, "conv3x3_p2": 64, "conv3x3_full": 128,
+            "upconv_p2": cin, "final_to_rgb": 3}[name]
+    x = torch.rand((n, h, w, cin), generator=g, device="cuda")
+    pack = codec.pack_up if name == "upconv_p2" else codec.pack
+    return x, pack(torch.randn((cout, cin, 3, 3), generator=g, device="cuda") * 0.1,
+                   torch.randn((cout,), generator=g, device="cuda") * 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# ragged 16 x 16 tiles and strips (40 x 56, 17 x 33), one tile meeting all
+# four edges (3 x 5), a side of 1 (the wrap's least; the reflection needs 2)
+@pytest.mark.parametrize("n,hw", [(2, (40, 56)), (3, (17, 33)), (1, (3, 5)),
+                                  (2, (1, 6))])
+@pytest.mark.parametrize("name,cin,kw", _WRAP_MODES)
+def test_wrap_kernels_match_plain(name, cin, kw, n, hw, dtype):
+    """Each kernel's wrap instantiation against its plain version in wrap
+    mode (F.pad circular, then the conv): within the reflect kernels' own
+    bounds, 2e-5 x max|plain| in f32 and 2^-7 x max|plain| in bf16, counted
+    under <name>[_bf16]_wrap and under no reflect name."""
+    _need_gpu()
+    h, w = hw
+    if name == "upconv_p2":
+        h, w = max(h // 2, 1), max(w // 2, 1)
+    g = torch.Generator(device="cuda").manual_seed(cin + 7 * h + w + n)
+    x, p = _wrap_case(name, cin, dtype, n, h, w, g)
+    suffix = "_bf16" * (dtype == torch.bfloat16)
+    before = dict(codec.LAUNCHES)
+    got = getattr(codec, name)(x, p, pad="wrap", **kw)
+    ref = codec.conv3x3_plain(x, p, pad="wrap", **{**kw, **_PLAIN_KW.get(name, {})})
+    torch.cuda.synchronize()
+    after = dict(codec.LAUNCHES)
+    assert after.pop(name + suffix + "_wrap") == before.pop(name + suffix + "_wrap") + 1
+    assert after == before
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    got, ref = got.float(), ref.float()
+    assert bool(torch.isfinite(got).all())
+    tol = BF16_TOL if dtype == torch.bfloat16 else REL_TOL
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= tol * (
+        scale if dtype == torch.bfloat16 else max(1.0, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wrap_final_to_rgb_repeated_launches_agree(dtype):
+    """final_to_rgb's wrap repair writes an edge tile's far-edge halo into
+    a ring slot that TMA refills later: at 2 x 40 x 56 (every tile an edge
+    tile, the last row and column of tiles ragged) 100 launches equal the
+    first bit for bit."""
+    _need_gpu()
+    g = torch.Generator(device="cuda").manual_seed(23)
+    x, p = _wrap_case("final_to_rgb", 64, dtype, 2, 40, 56, g)
+    first = codec.final_to_rgb(x, p, pad="wrap")
+    differ = sum(not torch.equal(codec.final_to_rgb(x, p, pad="wrap"), first)
+                 for _ in range(100))
+    assert differ == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conv_dtype,bound", [("float32", 1e-3),
+                                              ("bfloat16", 0.1523)])
+def test_tileable_run_on_gpu_matches_cpu(conv_dtype, bound):
+    """A 64-px tileable run with multires (the pastiche's circular pass
+    resizes), depth 3, no PCA, injected rotations: the GPU run, through the
+    wrap kernels only, against the CPU run (plain versions in wrap mode);
+    bf16 within the bf16-vs-f32 run gap (0.1523, test_torch_batch.py)."""
+    _need_gpu()
+    cfg = config.OptexConfig(size=64, passes=2, iters=48, no_pca=True, seed=0,
+                             style=["s.png"], tileable=True,
+                             conv_dtype=conv_dtype)
+    rng = np.random.default_rng(0)
+    noise = rng.uniform(size=(1, 64, 64, 3)).astype(np.float32)
+    style = rng.uniform(size=(1, 64, 64, 3)).astype(np.float32)
+    rots = {}
+
+    def rotations(p, i, n_iters, c):
+        if (p, i) not in rots:
+            g = torch.as_tensor(rng.standard_normal((n_iters, c, c)))
+            rots[(p, i)] = polar_rotations(g).float().numpy()
+        return rots[(p, i)]
+
+    codec.reset_launches()
+    gpu = core.Synthesizer(cfg, device="cuda").run(noise, [style],
+                                                   rotations=rotations)
+    suffix = "_bf16" * (conv_dtype == "bfloat16")
+    assert min(codec.LAUNCHES[k + suffix + "_wrap"] for k in codec.KERNELS) > 0
+    assert sum(v for k, v in codec.LAUNCHES.items() if not k.endswith("_wrap")) == 0
+    cpu = core.Synthesizer(cfg, device="cpu").run(noise, [style],
+                                                  rotations=rotations)
+    assert gpu.shape == cpu.shape
+    assert float((gpu.cpu() - cpu).abs().max()) <= bound

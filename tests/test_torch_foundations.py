@@ -182,19 +182,33 @@ def test_ported_settings_run(override):
     assert out.shape == (1, 32, 32, 3) and bool(torch.isfinite(out).all())
 
 
-@pytest.mark.parametrize("override", [
-    # mixing is ported, and lifts no unported setting it is combined with
-    dict(style=["a.png", "b.png", "c.png"], mixing_weights=[1.0, 2.0, 3.0],
-         tileable=True),
-    # so are bf16 convs and batch > 1, and neither lifts one either
-    dict(conv_dtype="bfloat16", tileable=True), dict(tileable=True),
-    dict(num_devices=2), dict(spatial_devices=2)])
+@pytest.mark.parametrize("override", [dict(num_devices=2),
+                                      dict(spatial_devices=2)])
 def test_out_of_slice_settings_raise(override):
     kw = dict(size=64, style=["x.png"])
     kw.update(override)
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
         tcore.Synthesizer(tconfig.OptexConfig(**kw), device="cpu")
     assert "mixing" not in str(err.value)
+
+
+@pytest.mark.parametrize("override", [
+    # tileable output is ported, alone and with mixing and bf16 convs
+    dict(style=["a.png", "b.png", "c.png"], mixing_weights=[1.0, 2.0, 3.0]),
+    dict(conv_dtype="bfloat16"), dict()])
+def test_tileable_settings_run(override):
+    """Tileable builds a CPU Synthesizer and runs one 32-px pass, with the
+    stage codec in wrap mode."""
+    kw = dict(size=32, passes=1, iters=6, no_multires=True, depth=2, seed=3,
+              style=["x.png"], tileable=True)
+    kw.update(override)
+    synth = tcore.Synthesizer(tconfig.OptexConfig(**kw), device="cpu")
+    assert synth.pad_mode == "wrap"
+    rng = np.random.default_rng(0)
+    styles = [rng.uniform(size=(1, 32, 32, 3)).astype(np.float32)
+              for _ in kw["style"]]
+    out = synth.run(rng.uniform(size=(1, 32, 32, 3)).astype(np.float32), styles)
+    assert out.shape == (1, 32, 32, 3) and bool(torch.isfinite(out).all())
 
 
 @pytest.mark.parametrize("override", [

@@ -181,7 +181,7 @@ def test_healthz(server):
      "outside"),
     ({**_payload(), "style_parallel": True, "content_b64": _b64(STYLE)},
      None, None, 400, "synthesis-only"),
-    (_payload(tileable=True), None, None, 501, "item 13c"),
+    (_payload(tileable=True, size=66, depth=3), None, None, 400, "divisible"),
     (_payload(num_devices=2, batch=2), None, None, 501, "item 15"),
     (_payload(spatial_devices=2), None, None, 501, "item 15"),
     ({**_payload(), "style_parallel": True}, None, None, 501, "item 15"),
@@ -205,7 +205,7 @@ def test_metrics_count_every_request():
     with _serving() as (_, url):
         assert _post(url, _payload(seed=0))[0] == 200
         assert _post(url, {"config": {}})[0] == 400
-        assert _post(url, _payload(tileable=True))[0] == 501
+        assert _post(url, _payload(num_devices=2, batch=2))[0] == 501
         text = _get(url, "/metrics").decode()
     assert _metric(text, 'optex_requests_total{outcome="ok"}') == 1
     assert _metric(text, 'optex_requests_total{outcome="client_error"}') == 2

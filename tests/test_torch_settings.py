@@ -421,8 +421,9 @@ def test_cli_parses_the_nine_flags():
     assert (d.init, d.out_width, d.pca_bucket, d.pca_traced_k, d.batch_chunk,
             d.no_cov_prop, d.no_fast_codec, d.profile_dir, d.cache_dir) == \
         (None, None, 0, False, 0, False, False, None, "")
-    for flag in ("--tileable", "--num_devices", "--spatial_devices",
-                 "--style_parallel"):
+    assert cli.build_parser().parse_args(["--style", "x.png", "--tileable"]).tileable
+    assert not d.tileable
+    for flag in ("--num_devices", "--spatial_devices", "--style_parallel"):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(["--style", "x.png", flag, "2"])
 
