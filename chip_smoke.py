@@ -165,7 +165,26 @@ Phases (each raises on failure; none catches its own):
      batch-1 counts, no f32 codec launch). Prints the cold latency, the warm
      p50 and max, the first request after the restart, each cohort's wall
      and images/s beside 8 x the warm p50, and the cdf latencies, each with
-     the card's name and power limit (needs Pillow).
+     the card's name and power limit (needs Pillow);
+  10. data parallelism (optimaltextures_tpu_torch/parallel/, ranks started
+     by parallel.mesh.spawn, the rank bodies of
+     optimaltextures_tpu_torch/tools/dryrun_multichip.py), 512 px, the main
+     path's settings: two gloo ranks sharing this card (their walls are not
+     DP scaling) run batch 2 in f32 cold and warm (each rank's launches the
+     batch-1 main path's, the gathered output within 2e-3 of the batch-2
+     run in one process: JAX's DP-vs-single bound), batch 2 in cdf mode
+     (each rank's histogram and remap launches path A's, held by
+     distribution), batch 256 in bf16, 128 a rank, cold and warm (each
+     rank's bf16 launches the slice path's; held by distribution against
+     the batch-256 run in one process, its mean |diff| within 1.5x that of
+     the same run in chunks of 128: in bf16 another summation order of the
+     Gram parts the runs pixel by pixel; walls, images/s, each rank's peak
+     memory) and two
+     styles style-parallel (within 2e-3 of both styles in one process);
+     then one NCCL rank runs the main path (within 2e-3 of phase 6's
+     output, its launches); with two or more cards, min(count, 4) NCCL
+     ranks run batch N in f32 and 128 N in bf16 (launches as above),
+     else a line says that this step was skipped.
 
 The last two lines of standard output are the {"kernels": [...]} line (all
 nine kernels, each with its "design": ffma+tma, cluster-dsmem,
@@ -1432,20 +1451,20 @@ def _hold_max(name: str, gpu, cpu, bound: float = 1e-3) -> None:
         raise AssertionError(f"{name}: GPU vs CPU diff {err} > {bound}")
 
 
-def _hold_distribution(name: str, gpu, cpu) -> None:
+def _hold_distribution(name: str, gpu, cpu, what: str = "GPU vs CPU") -> None:
     """cdf runs: a sample a rounding apart lands in the next bin and the
     runs then diverge pixel by pixel, so hold the output's distribution."""
     g, c = gpu.reshape(-1, 3), cpu.reshape(-1, 3)
     stats = (float(np.abs(g.mean(0) - c.mean(0)).max()),
              float(np.abs(g.std(0) - c.std(0)).max()),
              float(np.abs(np.sort(g, 0) - np.sort(c, 0)).mean()))
-    print(f"{name}, GPU vs CPU: max abs diff "
+    print(f"{name}, {what}: max abs diff "
           f"{float(np.abs(gpu - cpu).max()):.3e}, per-channel mean diff "
           f"{stats[0]:.3e}, std diff {stats[1]:.3e}, sorted-pixel mean diff "
           f"{stats[2]:.3e}", flush=True)
     if not (np.isfinite(gpu).all() and stats[0] <= 3e-3 and stats[1] <= 1e-2
             and stats[2] <= 1e-2):
-        raise AssertionError(f"{name}: GPU vs CPU distribution {stats}")
+        raise AssertionError(f"{name}: {what} distribution {stats}")
 
 
 def small_agreement(seed: int):
@@ -1831,6 +1850,157 @@ def serve_phase(seed: int, card: str):
     torch.cuda.empty_cache()
 
 
+def _rank_counts_ok(name, counts, want, keys):
+    """Each rank's launches of ``keys`` must be ``want``'s."""
+    for r, c in enumerate(counts):
+        got = {k: c[k] for k in keys}
+        if got != {k: want[k] for k in keys}:
+            raise AssertionError(f"{name}: rank {r} launched {got}, not "
+                                 f"{ {k: want[k] for k in keys} }")
+
+
+def dp_phase(seed: int, card: str, main_counts, main_out, cdf_counts,
+             slice_counts):
+    """Phase 10: data parallelism on this card (gloo ranks sharing it, one
+    NCCL rank) and, with two or more cards, NCCL across them. Each rank's
+    launch counts are set to 0 just before its run and read just after."""
+    import torch
+
+    from optimaltextures_tpu_torch import core
+    from optimaltextures_tpu_torch.config import OptexConfig
+    from optimaltextures_tpu_torch.parallel.mesh import spawn
+    from optimaltextures_tpu_torch.parallel.style_dp import \
+        synthesize_style_batch
+    from optimaltextures_tpu_torch.tools import dryrun_multichip as dr
+
+    style = _style_exemplar(seed + 1)
+    pair = [style, _style_exemplar(seed + 5)]
+    main = dict(size=512, seed=seed, style=["smoke_style"])
+    sp = dict(main, style=["smoke_style", "smoke_style_b"])
+    codec_f32 = [k for k in main_counts if k in _CODEC]
+    codec_bf16 = [k + "_bf16" for k in _CODEC]
+    cdf_keys = ["batched_histogram", "pwl_remap"]
+
+    # the same runs in this process, before the ranks take the card
+    def here(**kw):
+        out, _ = core.synthesize(OptexConfig(**{**main, **kw}), [style],
+                                 device="cuda")
+        return out.cpu().numpy()
+
+    ref = here(batch=2)
+    ref_cdf = here(batch=2, hist_mode="cdf")
+    # bf16 at 512 px over the full schedule: another summation order of the
+    # Gram (the batch in two halves, as the two ranks sum it, or batch_chunk
+    # does) flips bf16 roundings that five passes carry on, so the batch-256
+    # run in one process and its run in chunks of 128 part pixel by pixel
+    # (mean |diff| ~8e-3). The DP run is held to that run's distribution and
+    # to that gap.
+    ref_bf16 = here(batch=256, conv_dtype="bfloat16")
+    chunk_gap = np.abs(here(batch=256, conv_dtype="bfloat16",
+                            batch_chunk=128) - ref_bf16)
+    ref_sp = synthesize_style_batch(OptexConfig(**sp), pair, None,
+                                    device="cuda").cpu().numpy()
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    got = spawn(dr.jobs, 2, backend="gloo", device="cuda:0", args=([
+        ("run_rank", ({**main, "batch": 2, "num_devices": 2}, [style])),
+        ("run_rank", ({**main, "batch": 2, "num_devices": 2,
+                       "hist_mode": "cdf"}, [style], ("warm",))),
+        ("run_rank", ({**main, "batch": 256, "num_devices": 2,
+                       "conv_dtype": "bfloat16"}, [style])),
+        ("style_rank", ({**sp, "num_devices": 2}, pair, ("warm",)))],),
+        deadline_s=900)
+    print(f"phase 10: 2 gloo ranks on cuda:0 ({card}), {time.time() - t0:.1f} "
+          f"s from the spawn to the last result, the ranks' start included",
+          flush=True)
+    f32, cdf_run, bf16, sp_run = got
+
+    _rank_counts_ok("DP f32", f32["counts"], main_counts, codec_f32 + cdf_keys)
+    err = float(np.abs(f32["out"] - ref).max())
+    print(f"DP batch 2 f32, 2 gloo ranks sharing one card (not DP scaling): "
+          f"walls cold {f32['walls'][0]:.4f} s, warm {f32['walls'][1]:.4f} s; "
+          f"each rank's launches the batch-1 main path's {main_counts}; "
+          f"max |DP - one process| {err:.3e} (bound 2e-3)", flush=True)
+    if not (f32["out"].shape == (2, 512, 512, 3) and err <= 2e-3):
+        raise AssertionError(f"DP f32: {f32['out'].shape}, error {err}")
+
+    _rank_counts_ok("DP cdf", cdf_run["counts"], {**main_counts, **cdf_counts},
+                    codec_f32 + cdf_keys)
+    print(f"DP batch 2 cdf, 2 gloo ranks: warm {cdf_run['walls'][0]:.4f} s; "
+          f"each rank's histogram and remap launches path A's "
+          f"{ {k: cdf_counts[k] for k in cdf_keys} }", flush=True)
+    _hold_distribution("DP batch 2 cdf", cdf_run["out"], ref_cdf,
+                       "2 ranks vs one process")
+
+    _rank_counts_ok("DP bf16", bf16["counts"], slice_counts,
+                    codec_bf16 + codec_f32)
+    gap = np.abs(bf16["out"] - ref_bf16)
+    w = bf16["walls"]
+    print(f"DP batch 256 bf16, 128 a rank, 2 gloo ranks sharing one card (not "
+          f"DP scaling): walls cold {w[0]:.4f} s, warm {w[1]:.4f} s; "
+          f"{256 / w[0]:.1f} and {256 / w[1]:.1f} images/s; each rank's peak "
+          f"memory {[round(p / 2 ** 30, 2) for p in bf16['peaks']]} GiB; "
+          f"launches the slice path's; |DP - one process| max "
+          f"{float(gap.max()):.4f}, mean {float(gap.mean()):.3e}, beside "
+          f"|chunks of 128 - one process| max {float(chunk_gap.max()):.4f}, "
+          f"mean {float(chunk_gap.mean()):.3e} (bound 1.5x that mean)",
+          flush=True)
+    if not (bf16["out"].shape == (256, 512, 512, 3)
+            and gap.mean() <= 1.5 * chunk_gap.mean()):
+        raise AssertionError(f"DP bf16: {bf16['out'].shape}, mean gap "
+                             f"{gap.mean()} vs the chunked run's "
+                             f"{chunk_gap.mean()}")
+    _hold_distribution("DP batch 256 bf16", bf16["out"], ref_bf16,
+                       "2 ranks vs one process")
+    del got, bf16, gap, chunk_gap, ref_bf16
+
+    _rank_counts_ok("style-parallel", sp_run["counts"], main_counts,
+                    codec_f32 + cdf_keys)
+    err = float(np.abs(sp_run["out"] - ref_sp).max())
+    print(f"style-parallel, 2 styles on 2 gloo ranks: warm "
+          f"{sp_run['walls'][0]:.4f} s; each rank's launches one main path's; "
+          f"max |ranks - one process| {err:.3e} (bound 2e-3)", flush=True)
+    if not (sp_run["out"].shape == (2, 512, 512, 3) and err <= 2e-3):
+        raise AssertionError(f"style-parallel: error {err}")
+
+    nccl = spawn(dr.jobs, 1, backend="nccl", device="cuda:0", args=([
+        ("run_rank", ({**main, "num_devices": 1}, [style]))],),
+        deadline_s=600)[0]
+    _rank_counts_ok("one NCCL rank", nccl["counts"], main_counts,
+                    codec_f32 + cdf_keys)
+    err = float(np.abs(nccl["out"] - main_out).max())
+    print(f"one NCCL rank, the main path through the mesh: cold "
+          f"{nccl['walls'][0]:.4f} s, warm {nccl['walls'][1]:.4f} s; max "
+          f"|mesh - phase 6| {err:.3e} (bound 2e-3)", flush=True)
+    if not err <= 2e-3:
+        raise AssertionError(f"one NCCL rank: error {err}")
+
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        print("phase 10, NCCL across cards: skipped, this machine has one "
+              "card", flush=True)
+        return
+    f32, bf16 = spawn(dr.jobs, n, backend="nccl", device="cuda", args=([
+        ("run_rank", ({**main, "batch": n, "num_devices": n}, [style])),
+        ("run_rank", ({**main, "batch": 128 * n, "num_devices": n,
+                       "conv_dtype": "bfloat16"}, [style]))],),
+        deadline_s=900)
+    _rank_counts_ok(f"NCCL x{n} f32", f32["counts"], main_counts,
+                    codec_f32 + cdf_keys)
+    _rank_counts_ok(f"NCCL x{n} bf16", bf16["counts"], slice_counts,
+                    codec_bf16 + codec_f32)
+    for name, r, images in ((f"batch {n} f32", f32, n),
+                            (f"batch {128 * n} bf16", bf16, 128 * n)):
+        if not np.isfinite(r["out"]).all() or r["out"].shape[0] != images:
+            raise AssertionError(f"NCCL x{n} {name}: bad output")
+        w = r["walls"]
+        print(f"DP {name} on {n} cards (NCCL, {card}): walls cold {w[0]:.4f} "
+              f"s, warm {w[1]:.4f} s; {images / w[0]:.1f} and "
+              f"{images / w[1]:.1f} images/s; peak memory "
+              f"{[round(p / 2 ** 30, 2) for p in r['peaks']]} GiB", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1902,6 +2072,7 @@ def main() -> int:
     else:
         print("cli phase not run: Pillow is not installed", flush=True)
     serve_phase(args.seed, card)   # needs Pillow: a request's images are PNGs
+    dp_phase(args.seed, card, main_counts, main_out, cdf_counts, slice_counts)
 
     kernels = []
     for name, r in rows.items():

@@ -1,10 +1,13 @@
 """Command line for texture synthesis, style transfer, texture mixing and
-color transfer on the GPU, tileable or not (the counterpart of
-``optimaltextures_tpu/cli.py``; the multi-device flags are not ported yet).
+color transfer on the GPU, tileable or not, on one or several GPUs (the
+counterpart of ``optimaltextures_tpu/cli.py``; ``--spatial_devices > 1``
+is not ported yet).
 
 Run: python -m optimaltextures_tpu_torch.cli --style style.jpg --size 512
      python -m optimaltextures_tpu_torch.cli --style style.jpg --tileable
      python -m optimaltextures_tpu_torch.cli --style a.jpg b.jpg --mixing_alpha 0.5
+     python -m optimaltextures_tpu_torch.cli --style style.jpg --batch 8 --num_devices 4
+     python -m optimaltextures_tpu_torch.cli --style a.jpg b.jpg --style_parallel --num_devices 2
 """
 
 from __future__ import annotations
@@ -64,6 +67,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_dir", type=str, default="output/")
     p.add_argument("--depth", type=int, default=None,
                    help="max VGG depth (default: deepest available weights)")
+    p.add_argument("--num_devices", type=int, default=1,
+                   help="shard --batch synthesis over this many GPUs, one "
+                        "process each (exact joint statistics through "
+                        "all-reduces; with --device cpu, gloo ranks on the "
+                        "CPU)")
+    p.add_argument("--spatial_devices", type=int, default=1,
+                   help="shard ONE image's height axis over this many "
+                        "devices (not ported yet: > 1 is refused)")
+    p.add_argument("--style_parallel", action="store_true",
+                   help="synthesize ONE texture per --style image instead "
+                        "of mixing (one style per GPU when --num_devices "
+                        "matches the style count). With PCA, --pca_bucket 0 "
+                        "(exact-k) is forced to 32: per-style ranks are "
+                        "ragged; the bucketed math is still exact per style")
     p.add_argument("--tileable", action="store_true",
                    help="seamlessly tileable output: circular conv padding "
                         "and wrap-tap multires resizes on the pastiche path "
@@ -87,7 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_chunk", type=int, default=0,
                    help="run the codec in chunks of this many images (peak "
                         "memory follows the chunk, not the batch; moment "
-                        "modes, synthesis; 0 = off)")
+                        "modes, synthesis; with --num_devices each GPU "
+                        "chunks its own shard; 0 = off)")
     p.add_argument("--no_cov_prop", action="store_true",
                    help="run the moment modes' OT iterations one by one, "
                         "each recomputing the statistics from the data")
@@ -132,9 +150,9 @@ def main(argv=None) -> int:
         if torch.device(args.device).type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         profiler = profile(activities=activities)
+    run = api.run_style_parallel if args.style_parallel else api.run_files
     with profiler as prof:
-        _, seconds, paths = api.run_files(cfg, verbose=args.verbose,
-                                          device=args.device)
+        _, seconds, paths = run(cfg, verbose=args.verbose, device=args.device)
     if args.profile_dir:
         os.makedirs(args.profile_dir, exist_ok=True)
         trace = os.path.join(args.profile_dir, "trace.json")

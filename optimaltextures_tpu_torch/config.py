@@ -150,13 +150,27 @@ class OptexConfig:
         if self.content_anchor not in ("index", "depth"):
             raise ValueError(
                 f"content_anchor must be index|depth, got {self.content_anchor!r}")
+        if self.spatial_devices > 1:
+            if self.num_devices > 1:
+                if self.batch % self.num_devices:
+                    raise ValueError(
+                        f"batch {self.batch} not divisible by num_devices "
+                        f"{self.num_devices} (2-D grid)")
+                if self.content is not None:
+                    raise ValueError("the 2-D grid is synthesis-only "
+                                     "(content runs are single-image; use "
+                                     "spatial_devices alone)")
+            elif self.batch != 1:
+                raise ValueError("spatial sharding alone runs a single "
+                                 "image (batch must be 1); combine with "
+                                 "num_devices > 1 for a batched 2-D grid")
         return self
 
 
 # (condition, feature, ROADMAP.md queue-1 item that ports it)
 _NOT_PORTED = [
-    (lambda c: c.num_devices != 1 or c.spatial_devices != 1,
-     "multi-device runs", 15),
+    (lambda c: c.spatial_devices != 1,
+     "spatial sharding (spatial_devices > 1)", "15b"),
 ]
 
 

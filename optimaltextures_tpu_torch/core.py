@@ -313,7 +313,8 @@ def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
                       resize_mats=None, stage_codecs=None, run_key: int = 0,
                       pass_idx: int = 0, use_pallas: bool = True,
                       rotations: Optional[RotationSource] = None,
-                      cov_prop: bool = True, pad_mode: str = "reflect"):
+                      cov_prop: bool = True, pad_mode: str = "reflect",
+                      mesh=None):
     """All of a pass's layer stages: the multires resize (``resize_mats``:
     the (wh, ww) weights, or None) in f32, the cast to the conv dtype, then
     for each depth (deepest first) encode -> widen to f32 -> project -> OT
@@ -326,7 +327,11 @@ def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
     (run_key, p, i), or takes them from ``rotations(p, i, n_iters, C)``
     (:func:`_stage_rotations`). ``cov_prop`` False runs the moment modes'
     per-iteration loop. ``pad_mode="wrap"`` pads every conv circularly
-    (tileable runs; the caller gives circular ``resize_mats``)."""
+    (tileable runs; the caller gives circular ``resize_mats``).
+
+    ``mesh`` (parallel.mesh.Mesh): ``pastiche`` is this rank's batch shard
+    and the OT statistics are reduced over the ranks
+    (``transport.transport_loop``'s mesh); the codec stays shard-local."""
     if resize_mats is not None:
         pastiche = apply_resample(pastiche, *resize_mats)
     pastiche = pastiche.to(enc_params[0][0][0].dtype)
@@ -342,7 +347,8 @@ def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
         feat = transport.transport_loop(
             None, feat, tgt.stats, iters[i], mode, content_feature=tgt.content,
             content_strength=strengths[i], rotations=rot,
-            use_pallas=use_pallas, k_mask=tgt.k_mask, cov_prop=cov_prop)
+            use_pallas=use_pallas, k_mask=tgt.k_mask, cov_prop=cov_prop,
+            mesh=mesh)
         if pca_flags[i]:
             feat = feat @ tgt.eigvecs.T
         return feat
@@ -369,7 +375,7 @@ def _pass_stages_chunked_impl(enc_params, dec_params, pastiche, targets, *,
                               stage_codecs=None, run_key: int = 0,
                               pass_idx: int = 0,
                               rotations: Optional[RotationSource] = None,
-                              pad_mode: str = "reflect"):
+                              pad_mode: str = "reflect", mesh=None):
     """One pass with the batch run through the codec in ``n_chunks`` equal
     chunks, so that the conv activations scale with the chunk,
     not the batch (the counterpart of the JAX package's
@@ -387,7 +393,9 @@ def _pass_stages_chunked_impl(enc_params, dec_params, pastiche, targets, *,
     The math of :func:`_pass_stages_impl` for moment modes with
     cov_propagation and no content; only the covariance's summation order
     differs. With ``stage_codecs`` every chunk runs on the codec kernels,
-    the chunks' images living as post-renorm RGB between stages."""
+    the chunks' images living as post-renorm RGB between stages. With a
+    ``mesh`` the batch is this rank's shard, chunked, and the stage's Gram
+    and sample count are summed over the ranks once (batch_chunk x DP)."""
     if resize_mats is not None:
         pastiche = apply_resample(pastiche, *resize_mats)
     conv_dtype = enc_params[0][0][0].dtype
@@ -415,6 +423,8 @@ def _pass_stages_chunked_impl(enc_params, dec_params, pastiche, targets, *,
                 mus.append(mu)
                 gram = gram + xc.T @ xc
                 n += xc.shape[0]
+            if mesh is not None:
+                gram, n = mesh.psum(gram), n * mesh.size
             rot = _stage_rotations(rotations, pass_idx, i, iters[i], c,
                                    feats[0].device, run_key, tgt.k_mask)
             A, bias = transport.stage_affine_map(
@@ -498,11 +508,38 @@ def _run_stages_impl(enc_params, dec_params, pastiche, targets_all, run_key,
 
 class Synthesizer:
     """Holds the VGG bank + static schedule and runs the algorithm on one
-    device (``None`` = the GPU; tests pass ``device="cpu"``)."""
+    device (``None`` = the GPU; tests pass ``device="cpu"``).
+
+    With ``cfg.num_devices = N > 1`` the synthesizer is one rank of a batch
+    data-parallel run (``mesh``: a parallel.mesh.Mesh of N ranks; None
+    builds it from the current process group, and raises without one). Every
+    rank runs the same calls: each takes its B/N rows of the pastiche batch,
+    runs the passes with the transport statistics reduced over the mesh
+    (parallel/shard_ot.py) and returns the gathered (B, ...) batch. The
+    device is the mesh's. DP is synthesis-only, as in the JAX package: a
+    content run (batch 1, so a mesh of one rank) takes the single-device
+    path."""
 
     def __init__(self, cfg: OptexConfig, bank: Optional[VGGBank] = None,
-                 device=None):
+                 device=None, mesh=None):
         self.cfg = require_ported(cfg.validate())
+        if mesh is None and cfg.num_devices > 1:
+            from .parallel.mesh import make_mesh
+
+            mesh = make_mesh(cfg.num_devices, device=device)
+        if mesh is not None:
+            if mesh.size != cfg.num_devices:
+                raise ValueError(f"a mesh of {mesh.size} ranks for "
+                                 f"num_devices {cfg.num_devices}")
+            if cfg.batch % mesh.size:
+                raise ValueError(f"batch {cfg.batch} not divisible by "
+                                 f"num_devices {cfg.num_devices}")
+            if device is not None and torch.device(device).type != \
+                    mesh.device.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
+        self.mesh = mesh
         self.device = resolve_device(device)
         if not cfg.use_pallas and self.device.type != "cpu":
             raise ValueError("use_pallas=False runs the cdf kernels' plain "
@@ -551,6 +588,8 @@ class Synthesizer:
         if seed is None:
             if getattr(self, "_seeded", True):
                 self.key = int(np.random.SeedSequence().entropy % (2 ** 63))
+                if self.mesh is not None:   # one key for every rank
+                    self.key = self.mesh.broadcast_int(self.key)
                 self._run_counter = 0
             self._seeded = False
         else:
@@ -808,13 +847,27 @@ class Synthesizer:
         ``key`` overrides the run key (default :meth:`next_run_key`);
         ``rotations`` injects every stage's rotation stack,
         ``color_rotations`` (COLOR_STEPS, 3, 3) the color tail's and
-        ``mix_draws`` every pass's mixing-mask draw (tests)."""
+        ``mix_draws`` every pass's mixing-mask draw (tests).
+
+        On a mesh (synthesis) every rank passes the whole pastiche batch and
+        the same arguments, keeps its rows, and gets the whole result back;
+        rank 0's finished style targets are broadcast, so that no rank runs
+        with another PCA width or eigenvector sign (a width that differed
+        would pair mismatched collectives)."""
         cfg = self.cfg
         dev = self.device
         run_key = key if key is not None else self.next_run_key()
         if styles_token is not None:
             styles_token = (styles_token, _styles_fingerprint(styles))
-        pastiche = torch.as_tensor(pastiche, dtype=torch.float32).to(dev, copy=True)
+        pastiche = torch.as_tensor(pastiche, dtype=torch.float32)
+        mesh = self.mesh if content is None else None
+        if mesh is not None:
+            if pastiche.shape[0] % mesh.size:
+                raise ValueError(f"batch {pastiche.shape[0]} not divisible "
+                                 f"by num_devices {mesh.size}")
+            b = pastiche.shape[0] // mesh.size
+            pastiche = pastiche[mesh.rank * b:(mesh.rank + 1) * b]
+        pastiche = pastiche.to(dev, copy=True)
         styles = [torch.as_tensor(s, dtype=torch.float32).to(dev) for s in styles]
         if any(s.shape != styles[0].shape for s in styles[1:]):
             # mixing blends the styles' feature maps position by position
@@ -874,6 +927,8 @@ class Synthesizer:
                     off += sv.shape[0]
         for e, sv in zip(pending, svals):
             e.widths, e.masks = self._choose_widths(e.spectra, sv)
+            if mesh is not None:
+                e.widths, e.masks = self._agree_widths(e.widths, e.masks)
             if styles_token is not None:
                 self._style_prep_cache[e.key] = e
         self._evict_style_preps()
@@ -910,6 +965,8 @@ class Synthesizer:
                 if e.spectra is None:
                     e.spectra = self._dispatch_style_prep(styles, size, rs)
                 e.widths, e.masks = self._choose_widths(e.spectra)
+                if mesh is not None:
+                    e.widths, e.masks = self._agree_widths(e.widths, e.masks)
                 if styles_token is not None and n_styles == 1:
                     # mixing entries are not kept: their targets depend on
                     # the pass's mask, so the cache could only pin the very
@@ -918,8 +975,9 @@ class Synthesizer:
             if e.slim is not None:
                 slim = e.slim
             elif n_styles == 1:
-                slim = e.slim = self._finish_style_prep(e.spectra, e.widths,
-                                                        e.masks)
+                slim = self._finish_style_prep(e.spectra, e.widths, e.masks)
+                e.slim = slim = (self._agree_targets(slim) if mesh is not None
+                                 else slim)
             else:
                 mask_hw = tuple(e.spectra[1 if len(e.spectra) > 1 else 0][0]
                                 .shape[1:3])
@@ -931,6 +989,8 @@ class Synthesizer:
                     regions = self._mix_draw(run_key, p, mask_hw, weights)
                 slim = self._finish_style_prep(e.spectra, e.widths, e.masks,
                                                regions, weights)
+                if mesh is not None:
+                    slim = self._agree_targets(slim)
             targets, strengths = self._stage_strengths(
                 self._assemble_targets(slim, conts[p], e.masks))
             cached = (styles_token is not None
@@ -958,6 +1018,11 @@ class Synthesizer:
         # phase D: the pass chain
         enc_all = [self.bank.enc_params[d] for d in self.layer_depths]
         dec_all = [self.bank.dec_params[d] for d in self.layer_depths]
+        if mesh is not None:
+            out = self._run_dp(enc_all, dec_all, pastiche, targets_all,
+                               run_key, plans, strengths_all, pca_flags_all,
+                               mats_all, n_chunks, rotations)
+            return mesh.all_gather(_quant_u8(out) if quantize_uint8 else out)
         if n_chunks > 1:
             out = _run_stages_chunked_impl(
                 enc_all, dec_all, pastiche, targets_all, run_key,
@@ -978,6 +1043,61 @@ class Synthesizer:
                 cov_prop=cfg.cov_propagation, pad_mode=self.pad_mode)
         return _quant_u8(out) if quantize_uint8 else out
 
+    def _agree_widths(self, widths, masks):
+        """Rank 0's PCA widths and true-rank masks on every rank (one
+        broadcast): the widths fix the shapes of every later collective."""
+        mesh = self.mesh
+        vals = list(widths) + [-1 if m is None else int(m) for m in masks]
+        dev = mesh.device if mesh.backend == "nccl" else "cpu"
+        got = mesh.broadcast(torch.tensor(vals, dtype=torch.int64,
+                                          device=dev)).tolist()
+        d = len(widths)
+        return (tuple(got[:d]),
+                tuple(None if m is None else torch.tensor(
+                    g, dtype=torch.int32, device=self.device)
+                    for m, g in zip(masks, got[d:])))
+
+    def _agree_targets(self, slim):
+        """Rank 0's finished targets [(eigvecs, stats, scalar mean)] on every
+        rank, in one broadcast of their float32 values (the shapes agree:
+        the widths were agreed first)."""
+        fields = [t for eig, st, mean in slim
+                  for t in (eig, st.mu, st.cov_raw, st.samples, mean)]
+        live = [t for t in fields if t is not None]
+        flat = self.mesh.broadcast(torch.cat([t.reshape(-1) for t in live]))
+        vals = iter(flat.split([t.numel() for t in live]))
+        got = [None if t is None else next(vals).view(t.shape)
+               for t in fields]
+        return [(got[i], transport.StyleStats(*got[i + 1:i + 4]), got[i + 4])
+                for i in range(0, len(got), 5)]
+
+    def _run_dp(self, enc_all, dec_all, pastiche, targets_all, run_key,
+                plans, strengths_all, pca_flags_all, mats_all, n_chunks,
+                rotations):
+        """The pass chain of this rank's batch shard: one
+        parallel.shard_ot.make_sharded_pass program per pass, its transport
+        statistics reduced over the mesh."""
+        from .parallel.shard_ot import make_sharded_pass
+
+        cfg = self.cfg
+        for p, (_, iters) in enumerate(plans):
+            tg = targets_all[p]
+            stage = make_sharded_pass(
+                self.mesh, depths=tuple(self.layer_depths), iters=iters,
+                mode=cfg.hist_mode, strengths=strengths_all[p],
+                pca_flags=pca_flags_all[p], pad_mode=self.pad_mode,
+                cov_prop=cfg.cov_propagation, n_chunks=n_chunks,
+                fast_codec=self.stage_codecs is not None)
+            pastiche = stage(
+                enc_all, dec_all, pastiche, tuple(t.stats.mu for t in tg),
+                tuple(t.stats.cov_raw for t in tg),
+                tuple(t.stats.samples for t in tg),
+                tuple(t.eigvecs for t in tg), tuple(t.content for t in tg),
+                run_key, tuple(t.k_mask for t in tg), pass_idx=p,
+                stage_codecs=self.stage_codecs, resize_mats=mats_all[p],
+                rotations=rotations, use_pallas=cfg.use_pallas)
+        return pastiche
+
     def _evict_style_preps(self) -> None:
         while len(self._style_prep_cache) > 6 * max(self.cfg.passes, 1):
             self._style_prep_cache.popitem(last=False)
@@ -991,11 +1111,12 @@ def draw_noise(device, run_key: int, shape) -> torch.Tensor:
 
 
 def synthesize(cfg: OptexConfig, styles, content=None, pastiche=None,
-               verbose: bool = False, device=None):
+               verbose: bool = False, device=None, mesh=None):
     """One-call API: build the synthesizer, draw the noise pastiche (the
-    content's shape when a content image is given), run.
+    content's shape when a content image is given), run. ``mesh``: the
+    data-parallel mesh of a ``num_devices > 1`` run (see Synthesizer).
     Returns (output NHWC float32 tensor, wall seconds)."""
-    synth = Synthesizer(cfg, device=device)
+    synth = Synthesizer(cfg, device=device, mesh=mesh)
     run_key = synth.next_run_key()
     if pastiche is None:
         shape = (tuple(content.shape) if content is not None else

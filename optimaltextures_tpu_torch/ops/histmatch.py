@@ -27,12 +27,18 @@ import torch
 from . import cdf
 
 
-def moment_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, H, W, C) -> mu (B, 1, 1, C), pooled raw covariance (C, C)."""
+def moment_stats(x: torch.Tensor, mesh=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, H, W, C) -> mu (B, 1, 1, C), pooled raw covariance (C, C).
+    With a ``mesh`` (parallel.mesh.Mesh) ``x`` is this rank's batch shard:
+    the means stay per image, the Gram and the sample count are summed over
+    the ranks (equal shards), so the covariance pools the global batch."""
     c = x.shape[-1]
     mu = x.mean(dim=(1, 2), keepdim=True)
     xc = (x - mu).reshape(-1, c)
-    return mu, (xc.T @ xc) / xc.shape[0]
+    if mesh is None:
+        return mu, (xc.T @ xc) / xc.shape[0]
+    return mu, mesh.psum(xc.T @ xc) / (xc.shape[0] * mesh.size)
 
 
 _NS_ITERS = 40
@@ -256,9 +262,19 @@ def cdf_apply_rows(t: torch.Tensor, t_hist: torch.Tensor, s_hist: torch.Tensor,
 
 
 def cdf_match_rows(t: torch.Tensor, s: torch.Tensor, bins: int = BINS,
-                   use_pallas: bool = True) -> torch.Tensor:
-    """Row-major cdf matching core: t (C, Nt) matched to s (C, Ns)."""
+                   use_pallas: bool = True, mesh=None) -> torch.Tensor:
+    """Row-major cdf matching core: t (C, Nt) matched to s (C, Ns).
+
+    With a ``mesh`` ``t`` is this rank's shard of the target cloud and ``s``
+    the (replicated) source: the range is the global one (one MIN reduction
+    of the local target extremes, the maxima negated, then combined with the
+    source's) and the target counts are summed over the ranks (exact: integer
+    counts in float32), so every rank maps its samples by the global cdf.
+    The source's counts are this rank's own, which every rank has."""
     t_lo, t_hi = torch.aminmax(t, dim=1)
+    if mesh is not None:
+        ext = mesh.pmin(torch.cat([t_lo, -t_hi]))
+        t_lo, t_hi = ext[:t.shape[0]], -ext[t.shape[0]:]
     s_lo, s_hi = torch.aminmax(s, dim=1)
     lo, hi = torch.minimum(t_lo, s_lo), torch.maximum(t_hi, s_hi)
     if _on_kernels(use_pallas, bins, t.device):
@@ -266,6 +282,8 @@ def cdf_match_rows(t: torch.Tensor, s: torch.Tensor, bins: int = BINS,
     else:
         t_hist = cdf.histogram_plain(t, lo, hi, bins)
         s_hist = cdf.histogram_plain(s, lo, hi, bins)
+    if mesh is not None:
+        t_hist = mesh.psum(t_hist)
     return cdf_apply_rows(t, t_hist, s_hist, lo, hi, use_pallas)
 
 

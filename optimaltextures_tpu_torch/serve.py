@@ -1,4 +1,4 @@
-"""The HTTP serving layer, single device (the counterpart of
+"""The HTTP serving layer (the counterpart of
 ``optimaltextures_tpu/serve.py``).
 
 Warm ``Synthesizer`` pools keyed by the config signature: the first request
@@ -20,6 +20,10 @@ runs on the GPU unless it is given ``device="cpu"`` (tests).
        "style_b64": ["<base64 png/jpg>", ...],   # 1-8 (2+ = mixing)
        "content_b64": "<base64 png/jpg>",        # optional
        "init_b64": "<base64 png/jpg>",           # optional starting pastiche
+       "style_parallel": true,                   # optional: ONE texture per
+                                                 # style, not a mix; with
+                                                 # config.num_devices = N,
+                                                 # style i on worker i
        "format": "png"}                          # png (default) | jpeg
                                                  # (quality 92) | npy (the
                                                  # raw uint8 batch)
@@ -27,8 +31,10 @@ runs on the GPU unless it is given ``device="cpu"`` (tests).
        base64-encoded when config.batch > 1, or application/octet-stream
        (.npy, the whole (N, H, W, 3) uint8 batch) for format=npy
     -> 400 for a bad request (a tileable one whose pass sizes do not
-       divide by 2^(depth-1) among them); 501 for a setting the port does
-       not run yet (num_devices / spatial_devices > 1, style_parallel: the
+       divide by 2^(depth-1) among them; style_parallel with num_devices
+       above the worker count or other than the style count); 501 for a
+       setting the port does not serve yet (spatial_devices > 1, and
+       batch-parallel num_devices > 1, which runs one process per GPU: the
        message names the ROADMAP.md item)
 
     GET /healthz -> {"status": "ok", "devices": [...], "cached": N,
@@ -181,15 +187,18 @@ class _Request:
     work done yet, so that the coalescer can inspect it (batchable? cohort
     key?) first."""
 
-    __slots__ = ("cfg", "styles", "content", "init", "fmt", "token")
+    __slots__ = ("cfg", "styles", "content", "init", "fmt", "token",
+                 "style_parallel")
 
-    def __init__(self, cfg, styles, content, init, fmt, token):
+    def __init__(self, cfg, styles, content, init, fmt, token,
+                 style_parallel=False):
         self.cfg = cfg
         self.styles = styles
         self.content = content
         self.init = init
         self.fmt = fmt
         self.token = token
+        self.style_parallel = style_parallel
 
 
 def handle_synthesize(pool: SynthesizerPool, payload: dict,
@@ -215,8 +224,7 @@ def _parse_request(payload: dict,
         raise ValueError("style_b64 must contain 1-8 images")
     # cfg.style carries only the COUNT here (images arrive as style_b64);
     # validate() cross-checks it against mixing_weights
-    cfg = require_ported(OptexConfig(style=["<b64>"] * len(styles_b64),
-                                     **cfg_args).validate())
+    cfg = OptexConfig(style=["<b64>"] * len(styles_b64), **cfg_args).validate()
     styles = [_decode_image(b, cfg.size, oversize=True,
                             scale=cfg.style_scale) for b in styles_b64]
     if any(s.shape != styles[0].shape for s in styles[1:]):
@@ -241,8 +249,10 @@ def _parse_request(payload: dict,
     if fmt not in ("png", "jpeg", "npy"):
         raise ValueError(f"format must be png|jpeg|npy, got {fmt!r}")
 
-    if payload.get("style_parallel"):
-        # the JAX package's refusals first: a request it rejects is a 400
+    style_parallel = bool(payload.get("style_parallel"))
+    if style_parallel:
+        # one output texture PER style (no mixing): the JAX package's
+        # refusals, each a 400
         if content is not None or init is not None:
             raise ValueError("style_parallel is synthesis-only "
                              "(no content_b64/init_b64)")
@@ -252,6 +262,7 @@ def _parse_request(payload: dict,
                               ("batch", cfg.batch != 1),
                               ("color_transfer",
                                cfg.color_transfer is not None),
+                              ("spatial_devices", cfg.spatial_devices > 1),
                               ("mixing_weights",
                                "mixing_weights" in requested),
                               ("mixing_alpha",
@@ -259,14 +270,21 @@ def _parse_request(payload: dict,
         if bad:
             raise ValueError("style_parallel does not support: "
                              + ", ".join(bad))
+        if cfg.num_devices > 1 and len(styles) != cfg.num_devices:
+            raise ValueError(f"{len(styles)} styles for num_devices="
+                             f"{cfg.num_devices}: pass one style per device")
+    cfg = require_ported(cfg)
+    if cfg.num_devices > 1 and not style_parallel:
         raise NotImplementedError(
-            "style_parallel is not ported to the torch package yet "
-            "(ROADMAP.md, queue 1 item 15)")
+            "batch-parallel requests (num_devices > 1) are not served by the "
+            "torch package yet: its data parallelism runs one process per "
+            "GPU (run them through the CLI or api.run_files; ROADMAP.md, "
+            "queue 1 item 15b)")
 
     # stable (process-independent) style identity: the key of the in-memory
     # prep cache and part of the style pack's file name
     token = hashlib.sha256("\x00".join(styles_b64).encode()).hexdigest()[:24]
-    return _Request(cfg, styles, content, init, fmt, token)
+    return _Request(cfg, styles, content, init, fmt, token, style_parallel)
 
 
 def _device_cm(pool):
@@ -310,6 +328,86 @@ def _execute(pool: SynthesizerPool, req: _Request):
     return _encode_batch(_run(pool, req), req.fmt)
 
 
+def _style_parallel_one(pool: SynthesizerPool, req: _Request, styles,
+                        **kw) -> np.ndarray:
+    """``style_dp.synthesize_style_batch`` of ``styles`` on one worker, with
+    the bank of its pool's single-device Synthesizer: the (n, H, W, 3) uint8
+    batch."""
+    from .core import _quant_u8
+    from .parallel.style_dp import synthesize_style_batch
+
+    with pool.lock, _device_cm(pool):
+        synth = pool.get(dataclasses.replace(req.cfg, num_devices=1))
+        out = synthesize_style_batch(req.cfg, styles, None, bank=synth.bank,
+                                     device=synth.device, **kw)
+        return _quant_u8(out).cpu().numpy()
+
+
+def _style_widths_one(pool: SynthesizerPool, cfg, style) -> dict:
+    from .parallel.style_dp import style_widths
+
+    with pool.lock, _device_cm(pool):
+        synth = pool.get(dataclasses.replace(cfg, num_devices=1))
+        return style_widths(cfg, [style], bank=synth.bank, device=synth.device)
+
+
+def _execute_style_parallel(workers: "WorkerSet", req: _Request):
+    """A style-parallel request: (content_type, body, worker indices).
+
+    ``num_devices`` 1: every style on one worker. ``num_devices`` N: N
+    workers, checked out in one step, style i on worker i's device on a
+    thread of its own. The per-style runs share no collective; what they
+    must agree on (the run key and, per pass size, the PCA widths, the
+    largest of every style's) is settled first, so each worker's output
+    equals the same style's in one ``synthesize_style_batch`` of every
+    style."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .core import draw_noise
+
+    cfg, n = req.cfg, req.cfg.num_devices
+    if n == 1:
+        idx = workers.checkout()
+        try:
+            batch = _style_parallel_one(workers.pools[idx], req, req.styles)
+        finally:
+            workers.checkin(idx)
+        return (*_encode_batch(batch, req.fmt), str(idx))
+    if n > len(workers.pools):
+        raise ValueError(f"requested {n} devices, have {len(workers.pools)}")
+    if cfg.seed is None:   # one run key for every style
+        cfg = dataclasses.replace(
+            cfg, seed=int(np.random.SeedSequence().entropy % (2 ** 63)))
+    req = _Request(cfg, req.styles, None, None, req.fmt, req.token, True)
+    idxs = workers.checkout_many(n)
+    try:
+        pools = [workers.pools[i] for i in idxs]
+        with ThreadPoolExecutor(n) as ex:
+            per_style = [f.result() for f in [
+                ex.submit(_style_widths_one, pool, cfg, style)
+                for pool, style in zip(pools, req.styles)]]
+            widths = {ck: tuple(max(w) for w in zip(*(ws[ck]
+                                                      for ws in per_style)))
+                      for ck in per_style[0]}
+
+            def one(i):
+                pool = pools[i]
+                with _device_cm(pool):
+                    noise = draw_noise(pool.device or "cuda", cfg.seed,
+                                       (n, cfg.size, cfg.size, 3))[i:i + 1]
+                return _style_parallel_one(pool, req, [req.styles[i]],
+                                           pastiche=noise,
+                                           _force_widths=widths)
+
+            outs = [f.result() for f in [ex.submit(one, i)
+                                         for i in range(n)]]
+    finally:
+        for i in idxs:
+            workers.checkin(i)
+    return (*_encode_batch(np.concatenate(outs), req.fmt),
+            ",".join(map(str, idxs)))
+
+
 def _encode_batch(batch, fmt="png"):
     """(N, H, W, 3) uint8 -> response (content_type, body).
 
@@ -344,7 +442,8 @@ def _batchable(req: _Request) -> bool:
     (a cohort's pooled moments would break that), content or init define a
     pastiche of their own, and mixing draws one mask per RUN (members would
     share a region layout)."""
-    return (req.content is None and req.init is None and req.cfg.seed is None
+    return (not req.style_parallel and req.content is None
+            and req.init is None and req.cfg.seed is None
             and req.cfg.batch == 1 and len(req.styles) == 1)
 
 
@@ -497,10 +596,12 @@ class WorkerSet:
 
     Requests check a worker out of a FIFO queue, so N requests run
     concurrently on N devices while each worker's lock keeps its device
-    single-stream; sequential requests rotate across the workers."""
+    single-stream; sequential requests rotate across the workers. A
+    style-parallel request takes several workers in one step
+    (:meth:`checkout_many`)."""
 
     def __init__(self, n_workers: int = 1, device=None):
-        import queue
+        from collections import deque
 
         from . import core
 
@@ -515,9 +616,8 @@ class WorkerSet:
         else:
             devices = [dev] * n_workers
         self.pools = [SynthesizerPool(device=d) for d in devices]
-        self._queue = queue.Queue()
-        for i in range(n_workers):
-            self._queue.put(i)
+        self._free = deque(range(n_workers))
+        self._free_cv = threading.Condition()
         # request metrics (served at /metrics, Prometheus text format)
         self.metrics_lock = threading.Lock()
         self.requests_total = {"ok": 0, "client_error": 0, "server_error": 0}
@@ -562,11 +662,21 @@ class WorkerSet:
                 ]
         return "\n".join(lines) + "\n"
 
-    def checkout(self):
-        return self._queue.get()
+    def checkout(self) -> int:
+        return self.checkout_many(1)[0]
+
+    def checkout_many(self, n: int) -> list:
+        """Wait until ``n`` workers are free and take them all at once (in
+        queue order): two requests that each need several workers never hold
+        part of a set each."""
+        with self._free_cv:
+            self._free_cv.wait_for(lambda: len(self._free) >= n)
+            return [self._free.popleft() for _ in range(n)]
 
     def checkin(self, idx: int) -> None:
-        self._queue.put(idx)
+        with self._free_cv:
+            self._free.append(idx)
+            self._free_cv.notify_all()
 
     def __len__(self):
         return sum(len(p) for p in self.pools)
@@ -649,7 +759,9 @@ def make_handler(workers: WorkerSet, config_defaults: dict | None = None,
             cohort_n = 1
             try:
                 req = _parse_request(payload, config_defaults)
-                if coalescer is not None and _batchable(req):
+                if req.style_parallel:
+                    ctype, body, idx = _execute_style_parallel(workers, req)
+                elif coalescer is not None and _batchable(req):
                     ctype, body, idx, cohort_n = coalescer.submit(req)
                 else:
                     idx = workers.checkout()

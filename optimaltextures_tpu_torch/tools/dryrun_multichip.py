@@ -1,0 +1,359 @@
+"""The data-parallel paths of the port on N ranks: a dry run of each part,
+and the walls of whole runs (the counterpart of the DP and style-parallel
+parts of the JAX package's ``__graft_entry__.dryrun_multichip``).
+
+    python -m optimaltextures_tpu_torch.tools.dryrun_multichip [--n 2]
+    python -m optimaltextures_tpu_torch.tools.dryrun_multichip --device cuda --n 4
+    python -m optimaltextures_tpu_torch.tools.dryrun_multichip --device cuda --n 4 --walls
+
+The dry run starts ``--n`` ranks (gloo on the CPU by default, NCCL on
+``cuda:0 .. cuda:N-1`` with ``--device cuda``) and runs, each through
+``parallel.shard_ot.make_sharded_pass`` or ``parallel.style_dp``, on the
+weights of ``weights/`` and synthetic style statistics: DP; DP with
+batch_chunk; DP in bf16 at a local batch of 128 (the JAX package's
+fast-codec DP case); style-parallel (EP); DP in cdf mode; DP in sort mode;
+a two-stage DP pass with a pca_bucket-padded basis. Each part prints its
+output's shape and rank 0's kernel launches, and raises on a wrong shape or
+a non-finite value.
+
+``--walls`` (GPU) times whole 512-px runs at the main path's settings, cold
+and warm, on N ranks: DP at batch N in f32 (one image a card), DP at batch
+128 N in bf16 (128 a card) and N styles style-parallel, each beside the
+same per-card work on one card in this process (batch 1, batch 128, one
+style), and prints them, with images/s, peak memory and the card's name and
+power limit, then one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+SAMPLES = os.path.join(REPO, "docs", "samples")
+# four 512-px style images of one shape, for up to four style-parallel ranks
+STYLES_512 = ("graffiti_4096px_preview512.png", "graffiti_sort_512.png",
+              "lava-small_rocket_strength0.2_cholhist_512.png",
+              "style_parallel_2x2.png")
+
+
+def card(device) -> str:
+    """The card's name and power limit as nvidia-smi gives them ("cpu" on
+    the CPU)."""
+    if torch.device(device).type == "cpu":
+        return "cpu"
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def launch_counts() -> dict:
+    from ..ops import cdf, codec
+
+    return {**codec.LAUNCHES, **cdf.LAUNCHES}
+
+
+def reset_counts() -> None:
+    from ..ops import cdf, codec
+
+    codec.reset_launches()
+    cdf.reset_launches()
+
+
+def gather_counts(mesh, counts: dict) -> list:
+    """Every rank's launch counts (the same keys on every rank), rank order."""
+    keys = sorted(counts)
+    dev = mesh.device if mesh.backend == "nccl" else "cpu"
+    got = mesh.all_gather(torch.tensor([[counts[k] for k in keys]],
+                                       dtype=torch.int64, device=dev))
+    return [dict(zip(keys, row)) for row in got.tolist()]
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _peak(device) -> int:
+    return (torch.cuda.max_memory_allocated(device)
+            if torch.device(device).type == "cuda" else 0)
+
+
+def _reset_peak(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+# ---------------------------------------------------------------------------
+# rank bodies (module-level: spawn pickles them by name)
+
+
+def run_rank(mesh, cfg_kw: dict, styles, labels=("cold", "warm"),
+             noise=None, rotations=None):
+    """``core.synthesize`` (or ``Synthesizer.run`` of ``noise``) of
+    ``cfg_kw`` on this rank, once per label, each run's launch counts set
+    to 0 just before it and read just after. Returns (on rank 0) the walls,
+    every rank's counts and peak device memory of the last run, and the
+    gathered output of the last run (numpy)."""
+    from .. import config, core
+
+    cfg = config.OptexConfig(**cfg_kw)
+    walls, out = [], None
+    for _ in labels:
+        del out
+        _reset_peak(mesh.device)
+        mesh.barrier()
+        reset_counts()
+        t0 = time.time()
+        if noise is None:
+            out, _ = core.synthesize(cfg, styles, mesh=mesh)
+        else:
+            out = core.Synthesizer(cfg, mesh=mesh).run(noise, styles,
+                                                       rotations=rotations)
+        _sync(mesh.device)
+        walls.append(time.time() - t0)
+        counts = launch_counts()
+    dev = mesh.device if mesh.backend == "nccl" else "cpu"
+    peaks = mesh.all_gather(torch.tensor([_peak(mesh.device)],
+                                         dtype=torch.int64, device=dev))
+    return dict(walls=walls, counts=gather_counts(mesh, counts),
+                peaks=peaks.tolist(), out=out.cpu().numpy())
+
+
+def style_rank(mesh, cfg_kw: dict, styles, labels=("cold", "warm")):
+    """``style_dp.synthesize_style_batch`` of ``styles`` on the mesh, once
+    per label; as :func:`run_rank`."""
+    from .. import config
+    from ..parallel.style_dp import synthesize_style_batch
+
+    cfg = config.OptexConfig(**cfg_kw)
+    walls, out = [], None
+    for _ in labels:
+        del out
+        _reset_peak(mesh.device)
+        mesh.barrier()
+        reset_counts()
+        t0 = time.time()
+        out = synthesize_style_batch(cfg, styles, mesh)
+        _sync(mesh.device)
+        walls.append(time.time() - t0)
+        counts = launch_counts()
+    dev = mesh.device if mesh.backend == "nccl" else "cpu"
+    peaks = mesh.all_gather(torch.tensor([_peak(mesh.device)],
+                                         dtype=torch.int64, device=dev))
+    return dict(walls=walls, counts=gather_counts(mesh, counts),
+                peaks=peaks.tolist(), out=out.cpu().numpy())
+
+
+def jobs(mesh, todo):
+    """Several rank bodies of this module in one spawn: [(name, args)]."""
+    here = sys.modules[__name__]
+    return [getattr(here, name)(mesh, *args) for name, args in todo]
+
+
+def dryrun_rank(mesh):
+    """The dry run's parts on this rank (module docstring); rank 0 prints."""
+    from .. import transport
+    from ..models.vgg import VGGBank
+    from ..parallel.shard_ot import make_sharded_pass
+    from ..parallel.style_dp import synthesize_style_batch
+
+    dev, n = mesh.device, mesh.size
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    say = print if mesh.rank == 0 else (lambda *a, **k: None)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen).to(dev)
+
+    def relu_feat(c, hw=16):
+        return torch.randn((1, hw, hw, c), generator=gen).to(dev) ** 2
+
+    def check(part, out, shape, counts):
+        if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{part}: output {tuple(out.shape)} is not "
+                                 f"a finite {shape}")
+        say(f"dryrun_multichip({n}, {mesh.backend}, {dev}) {part} OK: "
+            f"{tuple(out.shape)}, rank 0's launches "
+            f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+
+    def run_pass(part, stage, bank, depths, pastiche, stats, eigvecs=None,
+                 k_masks=None):
+        reset_counts()
+        k = len(depths)
+        out = stage([bank.enc_params[d] for d in depths],
+                    [bank.dec_params[d] for d in depths], pastiche,
+                    tuple(s.mu for s in stats), tuple(s.cov_raw for s in stats),
+                    tuple(s.samples for s in stats),
+                    eigvecs or (None,) * k, (None,) * k, 7,
+                    k_masks or (None,) * k)
+        counts = launch_counts()
+        out = mesh.all_gather(out)
+        check(part, out, (n * pastiche.shape[0], *pastiche.shape[1:]),
+              counts)
+
+    depth = 2
+    bank = VGGBank(depth, device=dev)
+    stats = transport.style_stats(relu_feat(128), need_samples=True)
+
+    def dp_stage(mode="chol", **kw):
+        return make_sharded_pass(mesh, depths=kw.pop("depths", (depth,)),
+                                 iters=kw.pop("iters", (2,)), mode=mode,
+                                 strengths=kw.pop("strengths", (0.0,)),
+                                 pca_flags=kw.pop("pca_flags", (False,)),
+                                 fast_codec=True, **kw)
+
+    run_pass("DP", dp_stage(), bank, (depth,), rand(1, 64, 64, 3), [stats])
+    run_pass("DP+batch_chunk", dp_stage(n_chunks=2), bank, (depth,),
+             rand(2, 64, 64, 3), [stats])
+    # the JAX package's fast-codec DP case: depth 1, bf16, 128 a rank
+    bank1 = VGGBank(1, device=dev, dtype=torch.bfloat16)
+    stats1 = transport.style_stats(relu_feat(64), need_samples=False)
+    run_pass("DP+bf16 (local batch 128)", dp_stage(depths=(1,)), bank1, (1,),
+             rand(128, 32, 32, 3), [stats1])
+    run_pass("DP+cdf", dp_stage("cdf"), bank, (depth,), rand(1, 64, 64, 3),
+             [stats])
+    run_pass("DP+sort", dp_stage("sort"), bank, (depth,), rand(1, 64, 64, 3),
+             [stats])
+    # a two-stage pass with the stage-0 basis zero-padded past its rank
+    sf = relu_feat(128)
+    _, v = transport.pca_spectrum(sf)
+    kb, true_k = 64, 48
+    eig = torch.where(torch.arange(kb, device=dev) < true_k, v[:, :kb], 0.0)
+    stats_p = transport.style_stats(sf @ eig, need_samples=False)
+    stats_2 = transport.style_stats(relu_feat(64, 32), need_samples=False)
+    run_pass("DP fused-pass+pca_bucket",
+             dp_stage(depths=(depth, 1), iters=(2, 2), strengths=(0.0, 0.0),
+                      pca_flags=(True, False)), bank, (depth, 1),
+             rand(1, 64, 64, 3), [stats_p, stats_2], eigvecs=(eig, None),
+             k_masks=(torch.tensor(true_k, dtype=torch.int32, device=dev),
+                      None))
+    # style-parallel: one synthetic style a rank, 64 px, one pass
+    from .. import config
+
+    styles = [np.random.default_rng(i).uniform(size=(1, 64, 64, 3))
+              .astype(np.float32) for i in range(n)]
+    reset_counts()
+    out = synthesize_style_batch(config.OptexConfig(
+        size=64, passes=1, iters=4, no_multires=True, depth=depth, seed=0,
+        pca_bucket=16,
+        style=[f"s{i}" for i in range(n)]), styles, mesh)
+    check("EP (style-parallel)", out, (n, 64, 64, 3), launch_counts())
+    return "ok"
+
+
+# ---------------------------------------------------------------------------
+
+
+def _line(name, walls, images, peaks, dev_card):
+    return (f"{name}: walls cold {walls[0]:.4f} s, warm {walls[-1]:.4f} s; "
+            f"{images / walls[0]:.2f} and {images / walls[-1]:.2f} images/s; "
+            f"peak device memory {[round(p / 2 ** 30, 2) for p in peaks]} "
+            f"GiB ({dev_card})")
+
+
+def walls(n: int, card_name: str) -> dict:
+    """The --walls measurement (module docstring)."""
+    from .. import config, core
+    from ..ops import cuda_build
+    from ..parallel.mesh import spawn
+    from ..parallel.style_dp import synthesize_style_batch
+    from ..utils import imageio
+
+    core.full_f32_precision()
+    cuda_build.build("codec", "cdf", "conv_wg", "edge_mma")
+    styles = [imageio.load_image(os.path.join(SAMPLES, s), 512)
+              for s in STYLES_512[:n]]
+    f32 = dict(size=512, seed=0, style=["s"])
+    bf16 = dict(f32, conv_dtype="bfloat16")
+    rec = {"card": card_name, "n": n}
+
+    def one_card(name, fn, images):
+        ws = []
+        for _ in range(2):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            out = fn()
+            torch.cuda.synchronize()
+            ws.append(time.time() - t0)
+            del out
+        peak = torch.cuda.max_memory_allocated()
+        print(_line(f"one card, {name}", ws, images, [peak], card_name),
+              flush=True)
+        rec[f"one_card {name}"] = dict(walls=ws, images=images, peak=peak)
+        torch.cuda.empty_cache()
+
+    one_card("batch 1 f32", lambda: core.synthesize(
+        config.OptexConfig(**f32), styles[:1], device="cuda")[0], 1)
+    one_card("batch 128 bf16", lambda: core.synthesize(
+        config.OptexConfig(**bf16, batch=128), styles[:1], device="cuda")[0],
+        128)
+    one_card("1 style, style-parallel", lambda: synthesize_style_batch(
+        config.OptexConfig(**f32, pca_bucket=32), styles[:1], None), 1)
+
+    got = spawn(jobs, n, backend="nccl", device="cuda", args=([
+        ("run_rank", ({**f32, "batch": n, "num_devices": n}, styles[:1])),
+        ("run_rank", ({**bf16, "batch": 128 * n, "num_devices": n},
+                      styles[:1])),
+        ("style_rank", ({**f32, "pca_bucket": 32,
+                         "style": [f"s{i}" for i in range(n)]}, styles))],),
+        deadline_s=1800)
+    for (name, images), r in zip(
+            ((f"DP batch {n} f32", n), (f"DP batch {128 * n} bf16", 128 * n),
+             (f"{n} styles, style-parallel", n)), got):
+        out = r.pop("out")
+        if not np.isfinite(out).all():
+            raise AssertionError(f"{name}: non-finite output")
+        print(_line(f"{n} cards (NCCL), {name}", r["walls"], images,
+                    r["peaks"], card_name), flush=True)
+        print(f"  per-rank launches: {r['counts']}", flush=True)
+        rec[f"{n} cards {name}"] = dict(walls=r["walls"], images=images,
+                                        peaks=r["peaks"])
+    return rec
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--n", type=int, default=None,
+                    help="ranks (default: 2 on the CPU, every GPU, at most "
+                         "4, on cuda)")
+    ap.add_argument("--device", default="cpu", choices=["cpu", "cuda"])
+    ap.add_argument("--walls", action="store_true",
+                    help="time whole 512-px runs on the GPUs (see above)")
+    args = ap.parse_args(argv)
+    from ..parallel.mesh import spawn
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("dryrun_multichip: no CUDA device is available", file=sys.stderr)
+        return 2
+    n = args.n or (2 if args.device == "cpu"
+                   else min(torch.cuda.device_count(), 4))
+    name = card(args.device)
+    print(f"device: {name} (x{n})", flush=True)
+    if args.walls:
+        if args.device != "cuda":
+            raise SystemExit("--walls times the GPUs: pass --device cuda")
+        print(json.dumps(walls(n, name)))
+        return 0
+    if args.device == "cuda":
+        from ..ops import cuda_build
+
+        cuda_build.build("codec", "cdf", "conv_wg", "edge_mma")
+    t0 = time.time()
+    spawn(dryrun_rank, n, backend="gloo" if args.device == "cpu" else "nccl",
+          device=args.device, deadline_s=1200)
+    print(f"dryrun_multichip({n}) passed in {time.time() - t0:.1f} s",
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -58,12 +58,13 @@ def style_stats(style_feature: torch.Tensor,
 
 def _moment_step_with_rot(rot: torch.Tensor, feature: torch.Tensor,
                           stats: StyleStats, mode: str,
-                          eps: float = 1.0) -> torch.Tensor:
+                          eps: float = 1.0, mesh=None) -> torch.Tensor:
     """One moment-matching sliced-OT step with a supplied rotation:
     ``(x - mu_t) @ (R A^T R^T) + mu_s``, A computed in the rotated basis
-    from the congruence-rotated covariances."""
+    from the congruence-rotated covariances (pooled over the ranks of a
+    ``mesh``)."""
     c = feature.shape[-1]
-    mu_t, cov_t_raw = histmatch.moment_stats(feature)
+    mu_t, cov_t_raw = histmatch.moment_stats(feature, mesh)
     a = histmatch.moment_transform(rot.T @ (cov_t_raw @ rot),
                                    rot.T @ (stats.cov_raw @ rot), mode, eps)
     m = rot @ (a.T @ rot.T)
@@ -73,11 +74,13 @@ def _moment_step_with_rot(rot: torch.Tensor, feature: torch.Tensor,
 
 def _moment_step_with_factor(rot: torch.Tensor, feature: torch.Tensor,
                              mu_s: torch.Tensor, sfactor: torch.Tensor,
-                             mode: str, eps: float = 1.0) -> torch.Tensor:
+                             mode: str, eps: float = 1.0,
+                             mesh=None) -> torch.Tensor:
     """:func:`_moment_step_with_rot` with the style side precomputed
-    (histmatch.style_factor_batch): the per-iteration loop's body."""
+    (histmatch.style_factor_batch): the per-iteration loop's body. With a
+    ``mesh`` the covariance pools every rank's shard."""
     c = feature.shape[-1]
-    mu_t, cov_t_raw = histmatch.moment_stats(feature)
+    mu_t, cov_t_raw = histmatch.moment_stats(feature, mesh)
     a = histmatch.moment_transform_pre(rot.T @ (cov_t_raw @ rot), sfactor,
                                        mode, eps)
     m = rot @ (a.T @ rot.T)
@@ -98,18 +101,30 @@ def ot_step_moment(gen: Optional[torch.Generator], feature: torch.Tensor,
 
 def _sampled_step_with_rot(rot: torch.Tensor, feature: torch.Tensor,
                            style_samples: torch.Tensor, mode: str,
-                           use_pallas: bool = True) -> torch.Tensor:
+                           use_pallas: bool = True,
+                           mesh=None) -> torch.Tensor:
     """One cdf/sort sliced-OT step with a supplied rotation. The rotated
     clouds come out of their GEMMs directly as the (C, N) rows the matchers
     take (``R^T X^T``), and the matched rows go back through one more GEMM,
-    so no transposed copy of the samples is made."""
+    so no transposed copy of the samples is made.
+
+    With a ``mesh`` ``feature`` is this rank's batch shard: cdf matches by
+    the global histogram (histmatch.cdf_match_rows), and sort gathers every
+    rank's rotated samples in rank order, which is the single-device flatten
+    order (rank r holds batch rows r*B/N ..), matches the whole cloud exactly
+    and keeps its own columns."""
     c = feature.shape[-1]
     rf = rot.T @ feature.reshape(-1, c).T          # (C, N) rows
     rs = rot.T @ style_samples.T
-    if mode == "sort":
+    if mode == "sort" and mesh is not None:
+        n = rf.shape[1]
+        matched = histmatch.sort_match_rows(mesh.all_gather(rf, dim=1), rs)
+        matched = matched[:, mesh.rank * n:(mesh.rank + 1) * n]
+    elif mode == "sort":
         matched = histmatch.sort_match_rows(rf, rs)
     else:
-        matched = histmatch.cdf_match_rows(rf, rs, use_pallas=use_pallas)
+        matched = histmatch.cdf_match_rows(rf, rs, use_pallas=use_pallas,
+                                           mesh=mesh)
     return (matched.T @ rot.T).reshape(feature.shape)
 
 
@@ -250,7 +265,8 @@ def transport_loop(gen: Optional[torch.Generator], feature: torch.Tensor,
                    rotations: Optional[torch.Tensor] = None,
                    use_pallas: bool = True,
                    k_mask: Optional[torch.Tensor] = None,
-                   cov_prop: Optional[bool] = None) -> torch.Tensor:
+                   cov_prop: Optional[bool] = None,
+                   mesh=None) -> torch.Tensor:
     """``n_iters`` sliced-OT steps on NHWC ``feature``, each followed by the
     reference's content pull ``feat += s * (content - feat)`` when a
     content feature is given.
@@ -262,7 +278,15 @@ def transport_loop(gen: Optional[torch.Generator], feature: torch.Tensor,
     from :func:`draw_stage_rotations` (blockdiag(SO(k), I) with ``k_mask``,
     the traced true rank of zero-padded features) unless ``rotations``
     (n_iters, C, C) is given — the injection hook the parity tests use to
-    feed the JAX package's rotation stacks."""
+    feed the JAX package's rotation stacks.
+
+    ``mesh`` (parallel.mesh.Mesh): ``feature`` (and ``content_feature``) is
+    this rank's batch shard, and the loop is the batch-data-parallel one of
+    the JAX package's ``sharded_transport_loop``: the per-image means stay
+    local, the Gram matrices and sample counts (the covariance, the content
+    cross-covariance) are summed over the ranks, cdf takes the global range
+    and target histogram, and sort matches the gathered cloud. Every rank
+    draws the same rotations, so every rank builds the same maps."""
     if n_iters == 0:
         return feature
     if mode not in ("chol", "pca", "sym", "cdf", "sort"):
@@ -279,7 +303,7 @@ def transport_loop(gen: Optional[torch.Generator], feature: torch.Tensor,
     if mode in ("cdf", "sort"):
         for rot in rotations:
             feature = _sampled_step_with_rot(rot, feature, stats.samples, mode,
-                                             use_pallas)
+                                             use_pallas, mesh)
             if content_feature is not None:
                 feature = feature + content_strength * (content_feature - feature)
         return feature
@@ -292,12 +316,12 @@ def transport_loop(gen: Optional[torch.Generator], feature: torch.Tensor,
             eps)
         for rot, sfac in zip(rotations, sfactors):
             feature = _moment_step_with_factor(rot, feature, stats.mu, sfac,
-                                               mode, eps)
+                                               mode, eps, mesh)
             if content_feature is not None:
                 feature = feature + content_strength * (content_feature - feature)
         return feature
 
-    mu0, cov0 = histmatch.moment_stats(feature)
+    mu0, cov0 = histmatch.moment_stats(feature, mesh)
     if content_feature is None or content_strength == 0.0:
         A, bias = stage_affine_map(rotations, mu0, cov0, stats, mode, eps)
         out = (feature.reshape(-1, c) @ A).reshape(feature.shape)
@@ -305,11 +329,14 @@ def transport_loop(gen: Optional[torch.Generator], feature: torch.Tensor,
     # composed with the content pull
     cov_s_rots = histmatch.style_congruence_batch(rotations, stats.cov_raw)
     sfactors = histmatch.style_factor_batch(cov_s_rots, mode, eps)
-    mu_cf, cov_cf = histmatch.moment_stats(content_feature)
+    mu_cf, cov_cf = histmatch.moment_stats(content_feature, mesh)
     content_feature = content_feature.expand(feature.shape)
     fc = (feature - mu0).reshape(-1, c)
     cc = (content_feature - mu_cf).reshape(-1, c)
-    cross0 = (fc.T @ cc) / fc.shape[0]
+    if mesh is None:
+        cross0 = (fc.T @ cc) / fc.shape[0]
+    else:
+        cross0 = mesh.psum(fc.T @ cc) / (fc.shape[0] * mesh.size)
     A, Bc, bias = compose_moment_chain(rotations, sfactors, mu0, cov0, stats.mu,
                                        mode, eps, content_strength, cross0,
                                        cov_cf, mu_cf)

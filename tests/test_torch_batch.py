@@ -178,9 +178,9 @@ def test_cli_batch_bf16_writes_one_png_per_image(tmp_path):
 
 
 # every setting that stays outside the port, one override each (tileable
-# output left the table: both devices counts together trip the one row left)
-UNPORTED = [dict(num_devices=2, spatial_devices=2), dict(num_devices=2),
-            dict(spatial_devices=2)]
+# output and batch-parallel num_devices left the table: spatial sharding,
+# alone or in the 2-D grid, trips the one row left)
+UNPORTED = [dict(num_devices=2, spatial_devices=2), dict(spatial_devices=2)]
 
 
 def test_require_ported_still_raises_for_every_remaining_row():
@@ -190,6 +190,7 @@ def test_require_ported_still_raises_for_every_remaining_row():
     base = dict(size=64, batch=2, conv_dtype="bfloat16", style=["x.png"])
     tconfig.require_ported(tconfig.OptexConfig(**base))
     tconfig.require_ported(tconfig.OptexConfig(tileable=True, **base))
+    tconfig.require_ported(tconfig.OptexConfig(num_devices=2, **base))
     hit = set()
     for override in UNPORTED:
         cfg = tconfig.OptexConfig(**{**base, **override})
@@ -200,5 +201,5 @@ def test_require_ported_still_raises_for_every_remaining_row():
         assert rows[0] in str(err.value)
         hit.add(rows[0])
     assert hit == {what for _, what, _ in tconfig._NOT_PORTED}
-    assert not any("dtype" in what or "batch >" in what
-                   for _, what, _ in tconfig._NOT_PORTED)
+    assert not any("dtype" in what or "batch >" in what or
+                   "multi-device" in what for _, what, _ in tconfig._NOT_PORTED)

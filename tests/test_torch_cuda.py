@@ -1222,3 +1222,95 @@ def test_tileable_run_on_gpu_matches_cpu(conv_dtype, bound):
                                                   rotations=rotations)
     assert gpu.shape == cpu.shape
     assert float((gpu.cpu() - cpu).abs().max()) <= bound
+
+
+# ---------------------------------------------------------------------------
+# data parallelism (optimaltextures_tpu_torch/parallel/): ranks started by
+# parallel.mesh.spawn, the rank bodies of tools/dryrun_multichip.py
+
+
+def _dp_inputs():
+    from optimaltextures_tpu_torch.ops import cuda_build
+
+    cuda_build.build("codec", "cdf", "conv_wg", "edge_mma")   # ranks only load
+    rng = np.random.default_rng(4)
+    return [rng.uniform(size=(1, 64, 64, 3)).astype(np.float32)
+            for _ in range(4)]
+
+
+def _dp_hold(got, ref, mode):
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    if mode == "cdf":   # chaotic at pass granularity: by distribution
+        g, r = got.reshape(-1, 3), ref.reshape(-1, 3)
+        assert float(np.abs(g.mean(0) - r.mean(0)).max()) <= 3e-3
+        assert float(np.abs(np.sort(g, 0) - np.sort(r, 0)).mean()) <= 1e-2
+    else:               # JAX's DP-vs-single bound
+        assert float(np.abs(got - ref).max()) <= 2e-3
+
+
+def _dp_case(n, backend, device, mode):
+    from optimaltextures_tpu_torch.parallel.mesh import spawn
+    from optimaltextures_tpu_torch.tools import dryrun_multichip as dr
+
+    style = _dp_inputs()[0]
+    kw = dict(size=64, passes=2, iters=40, depth=2, seed=3, batch=2 * n,
+              hist_mode=mode, style=["s.png"])
+    ref = core.synthesize(config.OptexConfig(**kw), [style],
+                          device="cuda")[0].cpu().numpy()
+    got = spawn(dr.run_rank, n, backend=backend, device=device,
+                args=({**kw, "num_devices": n}, [style], ("warm",)),
+                deadline_s=600)
+    for counts in got["counts"]:     # every rank ran its shard on the kernels
+        assert min(counts[k] for k in codec.KERNELS) > 0
+        assert (counts["batched_histogram"] > 0) == (mode == "cdf")
+    _dp_hold(got["out"], ref, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["chol", "cdf"])
+def test_gloo_dp_on_one_gpu_matches_one_process(mode):
+    """Two gloo ranks sharing cuda:0, batch 4, against the batch-4 run in
+    this process."""
+    _need_gpu()
+    _dp_case(2, "gloo", "cuda:0", mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["chol", "cdf"])
+def test_nccl_dp_across_gpus_matches_one_process(mode):
+    """min(count, 4) NCCL ranks, one a card, against one process."""
+    _need_gpu()
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("needs two GPUs")
+    _dp_case(n, "nccl", "cuda", mode)
+
+
+@pytest.mark.cuda
+def test_nccl_style_parallel_across_gpus_matches_one_process():
+    """One style a card (NCCL), against every style in this process."""
+    _need_gpu()
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("needs two GPUs")
+    from optimaltextures_tpu_torch.parallel.mesh import spawn
+    from optimaltextures_tpu_torch.parallel.style_dp import \
+        synthesize_style_batch
+    from optimaltextures_tpu_torch.tools import dryrun_multichip as dr
+
+    styles = _dp_inputs()[:n]
+    kw = dict(size=64, passes=2, iters=40, depth=2, seed=3, pca_bucket=16,
+              style=[f"s{i}.png" for i in range(n)])
+    ref = synthesize_style_batch(config.OptexConfig(**kw), styles, None,
+                                 device="cuda").cpu().numpy()
+    got = spawn(dr.style_rank, n, backend="nccl", device="cuda",
+                args=(kw, styles, ("warm",)), deadline_s=600)
+    assert all(min(c[k] for k in codec.KERNELS) > 0 for c in got["counts"])
+    _dp_hold(got["out"], ref, "chol")
+
+
+@pytest.mark.cuda
+def test_nccl_one_rank_matches_one_process():
+    """One NCCL rank on cuda:0: the DP path's collectives through NCCL."""
+    _need_gpu()
+    _dp_case(1, "nccl", "cuda:0", "chol")

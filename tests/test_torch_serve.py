@@ -184,7 +184,9 @@ def test_healthz(server):
     (_payload(tileable=True, size=66, depth=3), None, None, 400, "divisible"),
     (_payload(num_devices=2, batch=2), None, None, 501, "item 15"),
     (_payload(spatial_devices=2), None, None, 501, "item 15"),
-    ({**_payload(), "style_parallel": True}, None, None, 501, "item 15"),
+    # the 2-D grid (style_parallel is served now: its refusals are below)
+    (_payload(num_devices=2, spatial_devices=2, batch=2), None, None, 501,
+     "item 15"),
 ])
 def test_refusals(server, payload, raw, headers, code, message):
     status, _, body = _post(server, payload, raw, headers)
@@ -405,6 +407,80 @@ def test_two_cpu_workers_under_concurrent_load():
         assert all(s == 200 and b == r1[2] for s, _, b in results)
         text = _get(url, "/metrics").decode()
     assert _metric(text, 'optex_requests_total{outcome="ok"}') == 8
+
+
+# ---------------------------------------------------------------------------
+# style-parallel requests (one texture per style)
+
+
+def _sp_payload(num_devices, styles=(STYLE, STYLE_B), **cfg):
+    return {"config": {**CFG, "passes": 2, "iters": 12, "seed": 4,
+                       "pca_bucket": 16, "num_devices": num_devices, **cfg},
+            "style_b64": [_b64(p) for p in styles], "style_parallel": True,
+            "format": "npy"}
+
+
+@pytest.mark.parametrize("num_devices", [1, 2])
+def test_style_parallel_request_equals_a_direct_run(num_devices):
+    """Two CPU workers. num_devices 1: both styles on one worker;
+    num_devices 2: one style a worker, checked out together, on threads of
+    their own, the widths agreed first. Either way the bytes of a direct
+    style_dp.synthesize_style_batch of both styles in one process."""
+    from optimaltextures_tpu_torch.parallel import style_dp
+
+    payload = _sp_payload(num_devices)
+    with _serving(workers=2) as (srv, url):
+        status, headers, body = _post(url, payload)
+        assert status == 200, body
+        assert headers["X-Optex-Worker"] == ("0" if num_devices == 1
+                                             else "0,1")
+        again = _post(url, payload)[2]
+        assert len(srv.workers._free) == 2      # every worker checked in
+    got = np.load(io.BytesIO(body))
+    assert got.shape == (2, 64, 64, 3) and again == body
+    cfg = tconfig.OptexConfig(style=["x", "x"], **payload["config"])
+    styles = [serve._decode_image(b, 64, True) for b in payload["style_b64"]]
+    want = tcore._quant_u8(style_dp.synthesize_style_batch(
+        cfg, styles, None, device="cpu")).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.abs(got[0].astype(int) - got[1]).mean() > 5
+
+
+@pytest.mark.parametrize("payload,code,message", [
+    (_sp_payload(3, styles=(STYLE, STYLE_B, STYLE_C)), 400,
+     "requested 3 devices, have 2"),
+    (_sp_payload(2, styles=(STYLE,)), 400, "1 styles for num_devices=2"),
+    (_sp_payload(2, batch=2), 400, "does not support: batch"),
+    (_sp_payload(1, spatial_devices=2), 400,
+     "does not support: spatial_devices"),
+    (_sp_payload(1, mixing_alpha=0.3), 400, "does not support: mixing_alpha"),
+    (_payload(num_devices=2, batch=2), 501, "one process per GPU"),
+])
+def test_style_parallel_refusals(payload, code, message):
+    with _serving(workers=2) as (srv, url):
+        status, _, body = _post(url, payload)
+        assert len(srv.workers._free) == 2
+    assert status == code and message in json.loads(body)["error"]
+    if code == 501:
+        assert "item 15b" in json.loads(body)["error"]
+
+
+def test_checkout_many_takes_a_whole_set():
+    """A request for two workers waits while one is busy and takes both at
+    once when it frees; single checkouts keep their FIFO order."""
+    ws = serve.WorkerSet(3, device="cpu")
+    assert ws.checkout() == 0
+    got = []
+    t = threading.Thread(target=lambda: got.append(ws.checkout_many(3)))
+    t.start()
+    time.sleep(0.2)
+    assert not got                      # two free, three wanted
+    ws.checkin(0)
+    t.join(10)
+    assert not t.is_alive() and sorted(got[0]) == [0, 1, 2]
+    for i in got[0]:
+        ws.checkin(i)
+    assert ws.checkout_many(2) == [1, 2]
 
 
 # ---------------------------------------------------------------------------

@@ -423,9 +423,15 @@ def test_cli_parses_the_nine_flags():
         (None, None, 0, False, 0, False, False, None, "")
     assert cli.build_parser().parse_args(["--style", "x.png", "--tileable"]).tileable
     assert not d.tileable
-    for flag in ("--num_devices", "--spatial_devices", "--style_parallel"):
-        with pytest.raises(SystemExit):
-            cli.build_parser().parse_args(["--style", "x.png", flag, "2"])
+    # the three multi-device flags of the JAX CLI, with its defaults
+    m = cli.build_parser().parse_args(["--style", "x.png", "--num_devices",
+                                       "2", "--spatial_devices", "4",
+                                       "--style_parallel"])
+    assert (m.num_devices, m.spatial_devices, m.style_parallel) == (2, 4, True)
+    assert (d.num_devices, d.spatial_devices, d.style_parallel) == (1, 1, False)
+    with pytest.raises(SystemExit):   # a switch takes no value
+        cli.build_parser().parse_args(["--style", "x.png", "--style_parallel",
+                                       "2"])
 
 
 def test_cli_runs_the_new_settings_on_cpu(tmp_path, monkeypatch):
