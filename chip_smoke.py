@@ -184,7 +184,19 @@ Phases (each raises on failure; none catches its own):
      then one NCCL rank runs the main path (within 2e-3 of phase 6's
      output, its launches); with two or more cards, min(count, 4) NCCL
      ranks run batch N in f32 and 128 N in bf16 (launches as above),
-     else a line says that this step was skipped.
+     else a line says that this step was skipped;
+  11. spatial sharding (parallel/spatial.py, parallel/grid.py; the rank
+     bodies of tools/dryrun_multichip.py): two gloo ranks sharing this card
+     split one 512-px image's rows (spatial_devices 2, the main path's
+     settings, f32), every codec kernel run on the taller tensor of a
+     shard and its neighbours' halo rows, then cropped: the main path cold
+     and warm (within 2e-3 of phase 6's output; each rank's codec launches
+     the main path's), tileable on the wrap ring (within 2e-3 of path T's
+     output; path T's wrap launches) and cdf (by distribution against path
+     A's output; path A's histogram and remap launches); four gloo ranks
+     run the 2 x 2 grid at 128 px, batch 2 (within 2e-3 of the same run in
+     one process); NCCL across cards with two or more, else a line says
+     that this step was skipped. The phase prints its own clock.
 
 The last two lines of standard output are the {"kernels": [...]} line (all
 nine kernels, each with its "design": ffma+tma, cluster-dsmem,
@@ -202,7 +214,9 @@ ten, "<name>[_bf16]_wrap" with "pad": "wrap", their designs unchanged,
 "reflect_device_ms" beside it, their launches those of path T and path
 T-bf16;
 conv64 and cdf_remap are on no path of the program, so their launches are
-those of their own check phase, which the "phase" field names) and
+those of their own check phase, which the "phase" field names; the rows
+launched on phase 11's spatial runs also carry rank 0's launches there,
+"spatial_launches", and the run, "spatial_phase") and
 {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when no GPU is present or the package is missing.
 """
@@ -851,7 +865,8 @@ def drive_path(name: str, cfg, styles, content=None, labels=("cold", "warm"),
 def paths(seed: int, profile: bool):
     """Phase 6: the main path, path A (cdf), path B (transfer + opt, then
     lum) and path C (two-style mixing, then in cdf mode). Returns the launch
-    counts of the main path and of path A."""
+    counts of the main path and of path A, the main path's output and
+    walls, and path A's output."""
     from optimaltextures_tpu_torch.config import OptexConfig
 
     style = _style_exemplar(seed + 1)
@@ -874,7 +889,8 @@ def paths(seed: int, profile: bool):
                               style=["smoke_style", "smoke_style_b"])
     main_counts, main_walls, main_out, _ = drive_path("main path", main_cfg,
                                                       [style])
-    cdf_counts, *_ = drive_path("path A, cdf synthesis", cdf_cfg, [style])
+    cdf_counts, _, cdf_out, _ = drive_path("path A, cdf synthesis", cdf_cfg,
+                                           [style])
     drive_path("path B, transfer + opt", opt_cfg, [style], content)
     drive_path("path B, transfer + lum", lum_cfg, [style], content, ("warm",))
     mix_counts, *_ = drive_path("path C, mixing", mix_cfg, pair)
@@ -898,7 +914,7 @@ def paths(seed: int, profile: bool):
                                      ("transfer_opt", opt_cfg, [style], content),
                                      ("mix", mix_cfg, pair, None)):
             profile_run(name, cfg, sty, cont)
-    return main_counts, cdf_counts, main_out, main_walls
+    return main_counts, cdf_counts, main_out, main_walls, cdf_out
 
 
 def slice_path(seed: int, main_counts, main_out, profile: bool):
@@ -1221,7 +1237,8 @@ def tileable_paths(seed: int, main_counts, main_out, main_walls, cdf_counts,
     bf16 (kernels 1b-5b in wrap mode), cold and warm, one profiled run,
     then once with hist_mode="cdf" (the cdf kernels beside the wrap codec,
     path A's counts). The seam statistic (seam_ratio) of each output beside
-    the main path's. Returns {kernel: launches} of T and of T-bf16."""
+    the main path's. Returns {kernel: launches} of T and of T-bf16, and
+    path T's output."""
     from optimaltextures_tpu_torch.config import OptexConfig
 
     style = _style_exemplar(seed + 1)
@@ -1256,6 +1273,8 @@ def tileable_paths(seed: int, main_counts, main_out, main_walls, cdf_counts,
               f"main path's output {np.round(main_seam, 4).tolist()}) [{card}]",
               flush=True)
         out_counts[suffix] = counts
+        if suffix == "_wrap":
+            t_out = out
     cfg = OptexConfig(**base, batch=8, conv_dtype="bfloat16", hist_mode="cdf")
     counts, walls, out, _ = drive_path("path T-bf16, tileable, batch 8, cdf", cfg,
                                        [style], labels=("warm",))
@@ -1269,7 +1288,7 @@ def tileable_paths(seed: int, main_counts, main_out, main_walls, cdf_counts,
           f"{np.round([seam_ratio(o[None], shift_period(cfg)) for o in out], 4).tolist()} "
           f"[{card}]",
           flush=True)
-    return out_counts
+    return out_counts, t_out
 
 
 def equivariance_phase(seed: int):
@@ -2001,6 +2020,114 @@ def dp_phase(seed: int, card: str, main_counts, main_out, cdf_counts,
               f"{[round(p / 2 ** 30, 2) for p in r['peaks']]} GiB", flush=True)
 
 
+def spatial_phase(seed: int, card: str, main_counts, main_out, cdf_counts,
+                  cdf_out, t_counts, t_out):
+    """Phase 11: spatial sharding on this card. Two gloo ranks sharing it
+    split one 512-px image's rows (spatial_devices 2, the main path's
+    settings, f32): the main path cold and warm (within 2e-3 of phase 6's
+    output, each rank's codec launches the main path's: the halo exchange
+    launches no codec kernel), tileable on the wrap ring (within 2e-3 of
+    path T's output, each rank's wrap launches path T's) and cdf (held to
+    path A's output by distribution, each rank's histogram and remap
+    launches path A's); then four gloo ranks run the 2 x 2 grid at 128 px,
+    batch 2, against the same run in one process (2e-3); with two or more
+    cards min(count, 4) NCCL ranks split the main path's image, else a line
+    says that this step was skipped. Each rank's counts are set to 0 just
+    before its run and read just after. Returns {kernel: (rank 0's launches
+    on the spatial path, the run's name)}."""
+    import torch
+
+    from optimaltextures_tpu_torch import core
+    from optimaltextures_tpu_torch.config import OptexConfig
+    from optimaltextures_tpu_torch.parallel.mesh import spawn
+    from optimaltextures_tpu_torch.tools import dryrun_multichip as dr
+
+    t0 = time.time()
+    style = _style_exemplar(seed + 1)
+    main = dict(size=512, seed=seed, style=["smoke_style"], spatial_devices=2)
+    codec_f32 = [k for k in main_counts if k in _CODEC]
+    codec_wrap = [k + "_wrap" for k in _CODEC]
+    cdf_keys = ["batched_histogram", "pwl_remap"]
+    grid = dict(size=128, seed=seed, style=["smoke_style"], batch=2)
+    ref_grid = core.synthesize(OptexConfig(**grid), [style],
+                               device="cuda")[0].cpu().numpy()
+    torch.cuda.empty_cache()
+
+    sp, tile, cdf_run = spawn(dr.jobs, 2, backend="gloo", device="cuda:0",
+                              args=([
+        ("run_rank", (main, [style])),
+        ("run_rank", ({**main, "tileable": True}, [style], ("warm",))),
+        ("run_rank", ({**main, "hist_mode": "cdf"}, [style], ("warm",)))],),
+        deadline_s=600)
+    t_sp = time.time() - t0
+    _rank_counts_ok("spatial", sp["counts"], main_counts, codec_f32 + cdf_keys)
+    err = float(np.abs(sp["out"] - main_out).max())
+    print(f"spatial, 512 px on 2 gloo ranks sharing one card (not scaling): "
+          f"walls cold {sp['walls'][0]:.4f} s, warm {sp['walls'][1]:.4f} s; "
+          f"each rank's launches the main path's {main_counts} (the halo "
+          f"exchange launches no codec kernel); peak memory "
+          f"{[round(p / 2 ** 30, 2) for p in sp['peaks']]} GiB; max "
+          f"|spatial - phase 6| {err:.3e} (bound 2e-3) [{card}]", flush=True)
+    if not (sp["out"].shape == (1, 512, 512, 3) and err <= 2e-3):
+        raise AssertionError(f"spatial: {sp['out'].shape}, error {err}")
+
+    _rank_counts_ok("spatial tileable", tile["counts"], t_counts,
+                    codec_wrap + codec_f32)
+    err = float(np.abs(tile["out"] - t_out).max())
+    print(f"spatial tileable (the wrap ring), 2 gloo ranks: warm "
+          f"{tile['walls'][0]:.4f} s; each rank's wrap launches path T's; max "
+          f"|spatial - path T| {err:.3e} (bound 2e-3)", flush=True)
+    if not (tile["out"].shape == (1, 512, 512, 3) and err <= 2e-3):
+        raise AssertionError(f"spatial tileable: error {err}")
+
+    _rank_counts_ok("spatial cdf", cdf_run["counts"],
+                    {**main_counts, **cdf_counts}, codec_f32 + cdf_keys)
+    print(f"spatial cdf, 2 gloo ranks: warm {cdf_run['walls'][0]:.4f} s; each "
+          f"rank's histogram and remap launches path A's "
+          f"{ {k: cdf_counts[k] for k in cdf_keys} }", flush=True)
+    _hold_distribution("spatial cdf", cdf_run["out"], cdf_out,
+                       "2 ranks vs path A")
+
+    t1 = time.time()
+    g = spawn(dr.run_rank, 4, backend="gloo", device="cuda:0", args=(
+        {**grid, "num_devices": 2, "spatial_devices": 2}, [style],
+        ("warm",)), deadline_s=600)
+    _rank_counts_ok("grid", g["counts"], main_counts, codec_f32 + cdf_keys)
+    err = float(np.abs(g["out"] - ref_grid).max())
+    print(f"grid 2 x 2, 128 px, batch 2, 4 gloo ranks sharing one card: warm "
+          f"{g['walls'][0]:.4f} s ({time.time() - t1:.1f} s with the ranks' "
+          f"start); each rank's launches the main path's; max |grid - one "
+          f"process| {err:.3e} (bound 2e-3)", flush=True)
+    if not (g["out"].shape == (2, 128, 128, 3) and err <= 2e-3):
+        raise AssertionError(f"grid: {g['out'].shape}, error {err}")
+
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        print("phase 11, NCCL spatial across cards: skipped, this machine has "
+              "one card", flush=True)
+    else:
+        r = spawn(dr.run_rank, n, backend="nccl", device="cuda", args=(
+            {**main, "spatial_devices": n}, [style], ("warm",)),
+            deadline_s=600)
+        _rank_counts_ok(f"NCCL spatial x{n}", r["counts"], main_counts,
+                        codec_f32 + cdf_keys)
+        err = float(np.abs(r["out"] - main_out).max())
+        print(f"spatial 512 px on {n} cards (NCCL, {card}): warm "
+              f"{r['walls'][0]:.4f} s; max |spatial - phase 6| {err:.3e} "
+              f"(bound 2e-3)", flush=True)
+        if not err <= 2e-3:
+            raise AssertionError(f"NCCL spatial: error {err}")
+    print(f"phase 11: {time.time() - t0:.1f} s ({t_sp:.1f} s the 2-rank "
+          f"spawn, the ranks' start included) [{card}]", flush=True)
+    rows = {k: (sp["counts"][0][k], "phase 11, spatial main path")
+            for k in codec_f32}
+    rows.update({k: (tile["counts"][0][k], "phase 11, spatial tileable")
+                 for k in codec_wrap})
+    rows.update({k: (cdf_run["counts"][0][k], "phase 11, spatial cdf")
+                 for k in cdf_keys})
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2053,13 +2180,13 @@ def main() -> int:
     rows.update(check_kernels(args.seed, args.reps, card, pad="wrap"))
     rows.update(check_bf16_kernels(args.seed, args.reps, card, pad="wrap"))
     check_wrap_edges(args.seed)
-    main_counts, cdf_counts, main_out, main_walls = paths(args.seed,
-                                                          args.profile)
+    main_counts, cdf_counts, main_out, main_walls, cdf_out = paths(
+        args.seed, args.profile)
     slice_counts = slice_path(args.seed, main_counts, main_out, args.profile)
     bf16_vs_f32_batch8()
     settings_paths(args.seed, main_counts, main_out, main_walls, args.profile)
-    tile_counts = tileable_paths(args.seed, main_counts, main_out, main_walls,
-                                 cdf_counts, card)
+    tile_counts, t_out = tileable_paths(args.seed, main_counts, main_out,
+                                        main_walls, cdf_counts, card)
     equivariance_phase(args.seed)
     small_agreement(args.seed)
     try:
@@ -2073,6 +2200,9 @@ def main() -> int:
         print("cli phase not run: Pillow is not installed", flush=True)
     serve_phase(args.seed, card)   # needs Pillow: a request's images are PNGs
     dp_phase(args.seed, card, main_counts, main_out, cdf_counts, slice_counts)
+    spatial_counts = spatial_phase(args.seed, card, main_counts, main_out,
+                                   cdf_counts, cdf_out, tile_counts["_wrap"],
+                                   t_out)
 
     kernels = []
     for name, r in rows.items():
@@ -2105,7 +2235,10 @@ def main() -> int:
             **({"device_ms_by_shape": r["device_ms_by_shape"]}
                if "device_ms_by_shape" in r else {}),
             **({"dtype": "bfloat16"} if "_bf16" in name else {}),
-            **({"pad": "wrap"} if name.endswith("_wrap") else {})})
+            **({"pad": "wrap"} if name.endswith("_wrap") else {}),
+            **({"spatial_launches": spatial_counts[name][0],
+                "spatial_phase": spatial_counts[name][1]}
+               if name in spatial_counts else {})})
     print(f"chip_smoke: {time.time() - t_start:.1f} s from the first phase to "
           f"the last, the kernels' build included", flush=True)
     print(f"device: {card}")

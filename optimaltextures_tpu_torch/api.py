@@ -3,11 +3,12 @@ texture synthesis, style transfer, texture mixing and color transfer from
 files in one call each, and style-parallel synthesis (one texture per
 style).
 
-A run with ``num_devices = N > 1`` runs on N ranks, one process per device:
-inside a ``torch.distributed`` process group (torchrun) on that group, else
-on N processes that the call starts (``parallel.mesh.spawn``): NCCL on
-``cuda:0 .. cuda:N-1``, or gloo with ``device="cpu"``. Rank 0 writes the
-files and its result is returned."""
+A run with ``num_devices = N`` and ``spatial_devices = S``, N * S > 1, runs
+on N * S ranks, one process per device: inside a ``torch.distributed``
+process group (torchrun) on that group, else on N * S processes that the
+call starts (``parallel.mesh.spawn``): NCCL on ``cuda:0 .. cuda:N*S-1``, or
+gloo with ``device="cpu"``. Rank 0 writes the files and its result is
+returned."""
 
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import List, Tuple
 import numpy as np
 
 from . import core
-from .config import OptexConfig, require_ported
+from .config import OptexConfig
 from .utils import imageio
 
 # the kernel libraries of a run, built before ranks are started so that the
@@ -42,7 +43,8 @@ def _on_ranks(n: int, device, target, args):
         return mesh_mod.spawn(target, n, backend="gloo", device="cpu",
                               args=args)
     if torch.cuda.device_count() < n:
-        raise ValueError(f"num_devices {n} needs {n} GPUs, this machine has "
+        raise ValueError(f"{n} devices (num_devices x spatial_devices) need "
+                         f"{n} GPUs, this machine has "
                          f"{torch.cuda.device_count()}")
     from .ops import cuda_build
 
@@ -80,21 +82,22 @@ def run_files(cfg: OptexConfig, verbose: bool = False, device=None
 
     ``cfg.init``: the starting pastiche in place of noise, loaded at
     ``size`` like a content image (``oversize=False``); with a content
-    image both must load to the same shape. ``cfg.num_devices > 1``: a
-    batch data-parallel run on that many ranks (module docstring)."""
+    image both must load to the same shape. ``cfg.num_devices > 1`` (batch
+    data parallelism) and/or ``cfg.spatial_devices > 1`` (spatial sharding;
+    both: the 2-D grid): a run on num_devices x spatial_devices ranks
+    (module docstring)."""
     cfg.validate()
     if cfg.init is not None and cfg.batch > 1:
         # every batch element would start identical AND share the run's
         # rotation stream -> N identical outputs for N x the device work
         raise ValueError("batch > 1 with --init produces identical images; "
                          "run batch=1")
-    cfg = require_ported(cfg)
-    if cfg.num_devices > 1:
+    n = cfg.num_devices * cfg.spatial_devices
+    if n > 1:
         if cfg.batch % cfg.num_devices:
             raise ValueError(f"batch {cfg.batch} not divisible by "
                              f"num_devices {cfg.num_devices}")
-        return _on_ranks(cfg.num_devices, device, _run_files_rank,
-                         (cfg, verbose))
+        return _on_ranks(n, device, _run_files_rank, (cfg, verbose))
     return _run_files_here(cfg, verbose, device)
 
 
@@ -127,7 +130,7 @@ def run_style_parallel(cfg: OptexConfig, verbose: bool = False, device=None
     if unsupported:
         raise ValueError("style_parallel does not support: "
                          + ", ".join(unsupported))
-    cfg = require_ported(cfg.validate())
+    cfg = cfg.validate()
     styles = imageio.load_styles(cfg.style, cfg.size, cfg.style_scale)
     if any(s.shape != styles[0].shape for s in styles[1:]):
         raise ValueError("style_parallel needs equal style shapes")

@@ -1,13 +1,13 @@
 """Command line for texture synthesis, style transfer, texture mixing and
 color transfer on the GPU, tileable or not, on one or several GPUs (the
-counterpart of ``optimaltextures_tpu/cli.py``; ``--spatial_devices > 1``
-is not ported yet).
+counterpart of ``optimaltextures_tpu/cli.py``).
 
 Run: python -m optimaltextures_tpu_torch.cli --style style.jpg --size 512
      python -m optimaltextures_tpu_torch.cli --style style.jpg --tileable
      python -m optimaltextures_tpu_torch.cli --style a.jpg b.jpg --mixing_alpha 0.5
      python -m optimaltextures_tpu_torch.cli --style style.jpg --batch 8 --num_devices 4
      python -m optimaltextures_tpu_torch.cli --style a.jpg b.jpg --style_parallel --num_devices 2
+     python -m optimaltextures_tpu_torch.cli --style style.jpg --size 2048 --spatial_devices 4
 """
 
 from __future__ import annotations
@@ -74,7 +74,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "CPU)")
     p.add_argument("--spatial_devices", type=int, default=1,
                    help="shard ONE image's height axis over this many "
-                        "devices (not ported yet: > 1 is refused)")
+                        "GPUs, one process each (every 3x3 conv on halo rows "
+                        "from the neighbours, exact global statistics; every "
+                        "pass size must divide by N * 2^(depth-1)); with "
+                        "--num_devices, a num_devices x spatial_devices grid "
+                        "(--batch divisible by --num_devices)")
     p.add_argument("--style_parallel", action="store_true",
                    help="synthesize ONE texture per --style image instead "
                         "of mixing (one style per GPU when --num_devices "

@@ -1,9 +1,7 @@
 """Single dataclass config consumed by the library API and the CLI.
 
 Same field names and validation as ``optimaltextures_tpu/config.py`` so the CLI
-flags and saved configs carry over. Fields whose features are not ported yet
-are accepted here and refused by :func:`require_ported` with the ROADMAP item
-that ports them.
+flags and saved configs carry over.
 
 Two process knobs are read from the environment each time the code that
 consumes them runs (not at import), as in the JAX package:
@@ -166,19 +164,3 @@ class OptexConfig:
                                  "num_devices > 1 for a batched 2-D grid")
         return self
 
-
-# (condition, feature, ROADMAP.md queue-1 item that ports it)
-_NOT_PORTED = [
-    (lambda c: c.spatial_devices != 1,
-     "spatial sharding (spatial_devices > 1)", "15b"),
-]
-
-
-def require_ported(cfg: OptexConfig) -> OptexConfig:
-    """Raise NotImplementedError for any setting outside the ported slice."""
-    for bad, what, item in _NOT_PORTED:
-        if bad(cfg):
-            raise NotImplementedError(
-                f"{what} is not ported to the torch package yet "
-                f"(ROADMAP.md, queue 1 item {item})")
-    return cfg

@@ -61,7 +61,7 @@ import torch
 
 from . import config as config_mod
 from . import transport
-from .config import OptexConfig, require_ported
+from .config import OptexConfig
 from .models import fastcodec
 from .models.vgg import VGGBank, decode, encode, encode_taps
 from .ops import colors, histmatch
@@ -314,7 +314,7 @@ def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
                       pass_idx: int = 0, use_pallas: bool = True,
                       rotations: Optional[RotationSource] = None,
                       cov_prop: bool = True, pad_mode: str = "reflect",
-                      mesh=None):
+                      mesh=None, space=None):
     """All of a pass's layer stages: the multires resize (``resize_mats``:
     the (wh, ww) weights, or None) in f32, the cast to the conv dtype, then
     for each depth (deepest first) encode -> widen to f32 -> project -> OT
@@ -331,7 +331,14 @@ def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
 
     ``mesh`` (parallel.mesh.Mesh): ``pastiche`` is this rank's batch shard
     and the OT statistics are reduced over the ranks
-    (``transport.transport_loop``'s mesh); the codec stays shard-local."""
+    (``transport.transport_loop``'s mesh); the codec stays shard-local.
+    ``space`` (a parallel.mesh.Mesh, with ``mesh``): ``pastiche`` is this
+    rank's rows of its images, sharded along H over ``space`` (spatial
+    sharding, the grid's space axis), ``targets[i].content`` the content
+    features' rows alike: every 3x3 conv takes its halo rows from
+    ``space`` (models/fastcodec.exchanged, parallel/spatial.py's halo
+    stack) and the per-image means reduce over it; ``resize_mats`` must
+    then be None (the caller resizes the gathered image)."""
     if resize_mats is not None:
         pastiche = apply_resample(pastiche, *resize_mats)
     pastiche = pastiche.to(enc_params[0][0][0].dtype)
@@ -348,7 +355,7 @@ def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
             None, feat, tgt.stats, iters[i], mode, content_feature=tgt.content,
             content_strength=strengths[i], rotations=rot,
             use_pallas=use_pallas, k_mask=tgt.k_mask, cov_prop=cov_prop,
-            mesh=mesh)
+            mesh=mesh, mean_mesh=space)
         if pca_flags[i]:
             feat = feat @ tgt.eigvecs.T
         return feat
@@ -359,13 +366,23 @@ def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
         rgb = fastcodec.pixels_to_rgb(enc_params[0][0], pastiche)
         for i, sc in enumerate(stage_codecs):
             rgb = fastcodec.decode_tail(
-                sc, ot_stage(i, fastcodec.encode_head(sc, rgb, pad_mode)),
-                pad_mode)
+                sc, ot_stage(i, fastcodec.encode_head(sc, rgb, pad_mode,
+                                                      space)),
+                pad_mode, space)
         return rgb
 
+    enc, dec = encode, decode
+    if space is not None:   # the F.conv2d halo stack on this rank's rows
+        from .parallel.spatial import decode_spatial, encode_spatial
+
+        def enc(p, d, x, pad):
+            return encode_spatial(p, d, x, space, pad)
+
+        def dec(p, d, x, pad):
+            return decode_spatial(p, d, x, space, pad)
     for i, d in enumerate(depths):
-        feat = ot_stage(i, encode(enc_params[i], d, pastiche, pad_mode))
-        pastiche = decode(dec_params[i], d, feat.to(pastiche.dtype), pad_mode)
+        feat = ot_stage(i, enc(enc_params[i], d, pastiche, pad_mode))
+        pastiche = dec(dec_params[i], d, feat.to(pastiche.dtype), pad_mode)
     return pastiche.float()
 
 
@@ -486,6 +503,14 @@ def _run_stages_impl(enc_params, dec_params, pastiche, targets_all, run_key,
             stage_codecs=stage_codecs, run_key=run_key, pass_idx=p,
             use_pallas=use_pallas, rotations=rotations, cov_prop=cov_prop,
             pad_mode=pad_mode)
+    return _color_tail(pastiche, content_px, color_mode, run_key, use_pallas,
+                       color_rotations)
+
+
+def _color_tail(pastiche, content_px, color_mode: Optional[str], run_key: int,
+                use_pallas: bool = True, color_rotations=None):
+    """The color-transfer tail of :func:`_run_stages_impl` on the whole
+    output (``color_mode`` None: the pastiche as it is)."""
     if color_mode is None:
         return pastiche
     target = colors.swap_lightness(content_px, pastiche)
@@ -510,36 +535,63 @@ class Synthesizer:
     """Holds the VGG bank + static schedule and runs the algorithm on one
     device (``None`` = the GPU; tests pass ``device="cpu"``).
 
-    With ``cfg.num_devices = N > 1`` the synthesizer is one rank of a batch
-    data-parallel run (``mesh``: a parallel.mesh.Mesh of N ranks; None
-    builds it from the current process group, and raises without one). Every
-    rank runs the same calls: each takes its B/N rows of the pastiche batch,
-    runs the passes with the transport statistics reduced over the mesh
-    (parallel/shard_ot.py) and returns the gathered (B, ...) batch. The
-    device is the mesh's. DP is synthesis-only, as in the JAX package: a
-    content run (batch 1, so a mesh of one rank) takes the single-device
-    path."""
+    With ``cfg.num_devices = N > 1`` or ``cfg.spatial_devices = S > 1`` the
+    synthesizer is one rank of a multi-device run (``mesh``: a
+    parallel.mesh.Mesh of N * S ranks; None builds it from the current
+    process group, and raises without one). Every rank runs the same calls
+    with the whole pastiche and gets the whole result back. The device is
+    the mesh's. Three layouts, as in the JAX package:
+
+    * batch data parallelism (N > 1, S = 1): each rank runs its B/N images,
+      the transport statistics reduced over the mesh (parallel/shard_ot.py).
+      Synthesis only: a content run (batch 1) takes the single-device path;
+    * spatial sharding (S > 1, N = 1, batch 1): each rank runs its H/S rows
+      of the image, every 3x3 conv on halo rows from its neighbours, the
+      statistics global (parallel/spatial.py); style transfer too, the
+      content features' rows alike. Every pass's H must divide by
+      S * 2^(depth-1);
+    * the 2-D grid (N, S > 1): rank d * S + s runs row block s of batch
+      shard d (parallel/grid.py; parallel.mesh.make_grid_mesh). Synthesis
+      only.
+
+    Under the two row layouts each pass's multires resize runs on the
+    gathered image, and the color tail on the gathered output."""
 
     def __init__(self, cfg: OptexConfig, bank: Optional[VGGBank] = None,
                  device=None, mesh=None):
-        self.cfg = require_ported(cfg.validate())
-        if mesh is None and cfg.num_devices > 1:
-            from .parallel.mesh import make_mesh
+        self.cfg = cfg.validate()
+        n_data, n_space = cfg.num_devices, cfg.spatial_devices
+        if n_data * n_space > 1:
+            from .parallel import mesh as mesh_mod
 
-            mesh = make_mesh(cfg.num_devices, device=device)
+            if n_space > 1 and n_data > 1:
+                if mesh is None or not mesh.grid:
+                    mesh = mesh_mod.make_grid_mesh(
+                        n_data, n_space,
+                        device=mesh.device if mesh is not None else device)
+            elif mesh is None:
+                mesh = mesh_mod.make_mesh(
+                    n_data * n_space, axis="space" if n_space > 1 else "data",
+                    device=device)
+            elif n_space > 1:
+                mesh = mesh.with_axis("space")
         if mesh is not None:
-            if mesh.size != cfg.num_devices:
-                raise ValueError(f"a mesh of {mesh.size} ranks for "
-                                 f"num_devices {cfg.num_devices}")
-            if cfg.batch % mesh.size:
+            if mesh.size != n_data * n_space:
+                raise ValueError(
+                    f"a mesh of {mesh.size} ranks for num_devices {n_data}"
+                    + f" x spatial_devices {n_space}" * (n_space > 1))
+            if cfg.batch % n_data:
                 raise ValueError(f"batch {cfg.batch} not divisible by "
-                                 f"num_devices {cfg.num_devices}")
+                                 f"num_devices {n_data}")
             if device is not None and torch.device(device).type != \
                     mesh.device.type:
                 raise ValueError(f"device {device} is not the mesh's "
                                  f"{mesh.device}")
             device = mesh.device
         self.mesh = mesh
+        # the mesh along H (the spatial and grid layouts), or None
+        self.space = (None if mesh is None or n_space == 1 else
+                      mesh.space if mesh.grid else mesh)
         self.device = resolve_device(device)
         if not cfg.use_pallas and self.device.type != "cpu":
             raise ValueError("use_pallas=False runs the cdf kernels' plain "
@@ -562,6 +614,11 @@ class Synthesizer:
                     raise ValueError(
                         f"tileable needs every pass size divisible by "
                         f"{stride} (2^(depth-1)); pass size {size} is not")
+        if self.space is not None:
+            from .parallel.spatial import check_spatial_divisibility
+
+            for size in self.sizes:
+                check_spatial_divisibility(size, n_space, self.depth)
         # tileable: circular conv padding and wrap-tap pastiche resizes;
         # style and content prep keep reflect taps (vgg.encode_taps)
         self.pad_mode = "wrap" if cfg.tileable else "reflect"
@@ -849,24 +906,32 @@ class Synthesizer:
         ``color_rotations`` (COLOR_STEPS, 3, 3) the color tail's and
         ``mix_draws`` every pass's mixing-mask draw (tests).
 
-        On a mesh (synthesis) every rank passes the whole pastiche batch and
-        the same arguments, keeps its rows, and gets the whole result back;
-        rank 0's finished style targets are broadcast, so that no rank runs
-        with another PCA width or eigenvector sign (a width that differed
-        would pair mismatched collectives)."""
+        On a mesh every rank passes the whole pastiche batch and the same
+        arguments, keeps its images (and under spatial sharding its rows),
+        and gets the whole result back; rank 0's finished style targets are
+        broadcast, so that no rank runs with another PCA width or
+        eigenvector sign (a width that differed would pair mismatched
+        collectives)."""
         cfg = self.cfg
         dev = self.device
         run_key = key if key is not None else self.next_run_key()
         if styles_token is not None:
             styles_token = (styles_token, _styles_fingerprint(styles))
         pastiche = torch.as_tensor(pastiche, dtype=torch.float32)
-        mesh = self.mesh if content is None else None
-        if mesh is not None:
-            if pastiche.shape[0] % mesh.size:
+        # spatial sharding alone runs content runs too; DP and the grid are
+        # synthesis-only
+        mesh = (self.mesh if content is None or (self.space is not None
+                                                 and not self.mesh.grid)
+                else None)
+        space = self.space if mesh is not None else None
+        data = None if mesh is None else (
+            mesh.data if mesh.grid else None if space is not None else mesh)
+        if data is not None:
+            if pastiche.shape[0] % data.size:
                 raise ValueError(f"batch {pastiche.shape[0]} not divisible "
-                                 f"by num_devices {mesh.size}")
-            b = pastiche.shape[0] // mesh.size
-            pastiche = pastiche[mesh.rank * b:(mesh.rank + 1) * b]
+                                 f"by num_devices {data.size}")
+            b = pastiche.shape[0] // data.size
+            pastiche = pastiche[data.rank * b:(data.rank + 1) * b]
         pastiche = pastiche.to(dev, copy=True)
         styles = [torch.as_tensor(s, dtype=torch.float32).to(dev) for s in styles]
         if any(s.shape != styles[0].shape for s in styles[1:]):
@@ -892,6 +957,16 @@ class Synthesizer:
         plan = self._plan_passes(
             pastiche.shape[1:3],
             tuple(content.shape[1:3]) if content is not None else None)
+        if space is not None:
+            # with a content image the pass heights follow the content's
+            # aspect: every pass's H must split evenly at every depth
+            from .parallel.spatial import check_spatial_divisibility
+
+            cur_h = pastiche.shape[1]
+            for (_, rs, hw) in plan:
+                if rs:
+                    cur_h = hw[0]
+                check_spatial_divisibility(cur_h, space.size, self.depth)
         low_mem = (self._prep_prefetch_bytes(plan, styles)
                    > self._prep_budget_bytes())
         entries, pending, local = [], [], {}
@@ -993,6 +1068,13 @@ class Synthesizer:
                     slim = self._agree_targets(slim)
             targets, strengths = self._stage_strengths(
                 self._assemble_targets(slim, conts[p], e.masks))
+            if space is not None:
+                # each rank pulls its rows toward the content's rows
+                from .parallel.spatial import own_rows
+
+                targets = [t if t.content is None else
+                           t._replace(content=own_rows(t.content, space))
+                           for t in targets]
             cached = (styles_token is not None
                       and self._style_prep_cache.get(e.key) is e)
             if (low_mem and last_use[id(e)] == p
@@ -1018,6 +1100,15 @@ class Synthesizer:
         # phase D: the pass chain
         enc_all = [self.bank.enc_params[d] for d in self.layer_depths]
         dec_all = [self.bank.dec_params[d] for d in self.layer_depths]
+        if mesh is not None and space is not None:
+            out = self._run_rows(enc_all, dec_all, pastiche, targets_all,
+                                 run_key, plans, strengths_all, pca_flags_all,
+                                 mats_all, rotations)
+            if mesh.grid:
+                out = mesh.data.all_gather(out)
+            out = _color_tail(out, content, cfg.color_transfer, run_key,
+                              cfg.use_pallas, color_rotations)
+            return _quant_u8(out) if quantize_uint8 else out
         if mesh is not None:
             out = self._run_dp(enc_all, dec_all, pastiche, targets_all,
                                run_key, plans, strengths_all, pca_flags_all,
@@ -1098,6 +1189,45 @@ class Synthesizer:
                 rotations=rotations, use_pallas=cfg.use_pallas)
         return pastiche
 
+    def _run_rows(self, enc_all, dec_all, pastiche, targets_all, run_key,
+                  plans, strengths_all, pca_flags_all, mats_all, rotations):
+        """The pass chain of this rank's rows (spatial sharding; on the grid
+        of its batch shard's rows): one parallel.spatial.make_spatial_pass
+        (or parallel.grid.make_grid_pass) program per pass. ``pastiche`` is
+        whole along H; before each pass that resizes (and the first) the
+        whole image is resized by the single-device op (the multires taps
+        cross shards) and each rank keeps its rows, the image gathered
+        along H (one all_gather) after every pass but the last. Returns the
+        whole image along H."""
+        from .parallel.grid import make_grid_pass
+        from .parallel.spatial import make_spatial_pass, own_rows
+
+        cfg, mesh, space = self.cfg, self.mesh, self.space
+        for p, (_, iters) in enumerate(plans):
+            if p == 0 or mats_all[p] is not None:
+                if p > 0:
+                    pastiche = space.all_gather(pastiche, dim=1)
+                if mats_all[p] is not None:
+                    pastiche = apply_resample(pastiche, *mats_all[p])
+                pastiche = own_rows(pastiche, space)
+            tg = targets_all[p]
+            kw = dict(depths=tuple(self.layer_depths), iters=iters,
+                      mode=cfg.hist_mode, strengths=strengths_all[p],
+                      pca_flags=pca_flags_all[p], pad_mode=self.pad_mode,
+                      cov_prop=cfg.cov_propagation,
+                      fast_codec=self.stage_codecs is not None)
+            stage = (make_grid_pass(mesh, **kw) if mesh.grid
+                     else make_spatial_pass(mesh, **kw))
+            pastiche = stage(
+                enc_all, dec_all, pastiche, tuple(t.stats.mu for t in tg),
+                tuple(t.stats.cov_raw for t in tg),
+                tuple(t.stats.samples for t in tg),
+                tuple(t.eigvecs for t in tg), tuple(t.content for t in tg),
+                run_key, tuple(t.k_mask for t in tg), pass_idx=p,
+                stage_codecs=self.stage_codecs, rotations=rotations,
+                use_pallas=cfg.use_pallas)
+        return space.all_gather(pastiche, dim=1)
+
     def _evict_style_preps(self) -> None:
         while len(self._style_prep_cache) > 6 * max(self.cfg.passes, 1):
             self._style_prep_cache.popitem(last=False)
@@ -1114,7 +1244,8 @@ def synthesize(cfg: OptexConfig, styles, content=None, pastiche=None,
                verbose: bool = False, device=None, mesh=None):
     """One-call API: build the synthesizer, draw the noise pastiche (the
     content's shape when a content image is given), run. ``mesh``: the
-    data-parallel mesh of a ``num_devices > 1`` run (see Synthesizer).
+    mesh of a ``num_devices > 1`` or ``spatial_devices > 1`` run (see
+    Synthesizer).
     Returns (output NHWC float32 tensor, wall seconds)."""
     synth = Synthesizer(cfg, device=device, mesh=mesh)
     run_key = synth.next_run_key()

@@ -20,6 +20,17 @@ package's ``conv_dtype="bfloat16"``): the features are bf16, the RGB
 between stages stays float32. ``pad="wrap"`` (tileable runs) pads every
 conv here circularly: the kernels' wrap mode and circular ``F.conv2d``
 padding.
+
+Spatial sharding (``halo``: the space mesh, parallel/mesh.py) runs the
+same kernels on a rank's rows of the image by exchange and crop
+(:func:`exchanged`): the neighbours' halo rows are put above and below the
+shard, the kernel runs on the taller tensor in its own pad mode, and the
+output rows the halo produced are cropped. An output row whose 3x3 window
+lies inside the taller tensor is the single-device row; the rows that met
+the kernel's own edge padding are the cropped ones, except at the image's
+global top and bottom under reflect padding, where no halo is added and the
+kernel's reflection is the image's. The 256-channel convs take the
+F.conv2d halo stack of parallel/spatial.py.
 """
 
 from __future__ import annotations
@@ -103,43 +114,82 @@ def pixels_to_rgb(renorm_params, pastiche: torch.Tensor) -> torch.Tensor:
     return conv2d_nhwc(pastiche, w0, b0).float()
 
 
+def exchanged(kernel, x: torch.Tensor, p, halo=None, pad: str = "reflect",
+              **kw) -> torch.Tensor:
+    """``kernel(x, p, pad=pad, **kw)`` (a wrapper of :mod:`..ops.codec`) on
+    this rank's rows ``x`` of an image sharded along H over ``halo`` (a
+    parallel.mesh.Mesh; None: ``x`` is the whole image): exchange, run the
+    kernel on the taller tensor, crop. The halo is 2 rows for a pooled conv
+    (its row pairs stay aligned with the shard, whose height is even, and 1
+    pooled row is cropped a side), 1 coarse row for the upconv (2 fine rows
+    cropped) and 1 row otherwise; under reflect the image's own top and
+    bottom take none (:meth:`~..parallel.mesh.Mesh.halo_rows`)."""
+    if halo is None:
+        return kernel(x, p, pad=pad, **kw)
+    up = kernel is codec.upconv_p2
+    pool = kw.get("pool", False)
+    xt, top, bottom = halo.halo_pad(x, 2 if pool else 1, pad)
+    y = kernel(xt, p, pad=pad, **kw)
+    if pool:
+        top, bottom = top // 2, bottom // 2
+    elif up:
+        top, bottom = 2 * top, 2 * bottom
+    # a batch-1 crop along H is a contiguous view; a batch's is not
+    return y[:, top:y.shape[1] - bottom].contiguous()
+
+
+def _rest_stack(params, specs, x, pad, halo):
+    """The 256-channel F.conv2d convs: local, or the halo stack of
+    parallel/spatial.py on a shard."""
+    if halo is None:
+        return _run_stack(params, specs, x, pad)
+    from ..parallel.spatial import run_stack_spatial
+
+    return run_stack_spatial(params, specs, x, halo, pad)
+
+
 def encode_head(sc: StageCodec, rgb: torch.Tensor,
-                pad: str = "reflect") -> torch.Tensor:
+                pad: str = "reflect", halo=None) -> torch.Tensor:
     """Post-renorm RGB (float32) -> relu{depth}_1 features, NHWC, in the
-    conv dtype; every conv padded by ``pad`` (reflect | wrap).
+    conv dtype; every conv padded by ``pad`` (reflect | wrap). ``halo``:
+    the space mesh when ``rgb`` is this rank's rows of the image
+    (:func:`exchanged`).
 
     Kernel-covered encoder prefix (arch._ENCODER_FULL indices): [1] entry
     3->64, [2] conv1_2 + [3]'s pre-pool, [3] 64->128, [4] 128->128 + [5]'s
     pre-pool; F.conv2d from 256 channels on."""
-    t = codec.rgb_to_relu1(rgb, sc.head[0], pad=pad)
+    t = exchanged(codec.rgb_to_relu1, rgb, sc.head[0], halo, pad)
     if sc.depth == 1:
         return t
-    t = codec.conv3x3_p2(t, sc.head[1], relu=True, pool=True, pad=pad)
-    t = codec.conv3x3_full(t, sc.head[2], relu=True, pad=pad)
+    t = exchanged(codec.conv3x3_p2, t, sc.head[1], halo, pad, relu=True,
+                  pool=True)
+    t = exchanged(codec.conv3x3_full, t, sc.head[2], halo, pad, relu=True)
     if sc.depth == 2:
         return t
-    t = codec.conv3x3_full(t, sc.head[3], relu=True, pool=True, pad=pad)
+    t = exchanged(codec.conv3x3_full, t, sc.head[3], halo, pad, relu=True,
+                  pool=True)
     specs = arch.encoder_specs(sc.depth)[5:]
     # spec[5]'s pre-pool is fused into the 128->128 kernel above
     s0 = specs[0]
     specs = [(s0[0], s0[1], s0[2], "", s0[4])] + list(specs[1:])
-    return _run_stack(sc.enc_rest, specs, t, pad)
+    return _rest_stack(sc.enc_rest, specs, t, pad, halo)
 
 
 def decode_tail(sc: StageCodec, feat: torch.Tensor,
-                pad: str = "reflect") -> torch.Tensor:
+                pad: str = "reflect", halo=None) -> torch.Tensor:
     """relu{depth}_1 features (NHWC; the OT's float32, cast to the conv
     dtype here) -> RGB (NHWC, float32): post-renorm for the next stage, or
     raw pixels after the pass's last stage; every conv padded by ``pad``.
+    ``halo``: as for :func:`encode_head`.
 
     Kernel-covered decoder suffix: [-4] 128->128 upconv, [-3] 128->64, [-2]
     64->64 upconv, [-1] final; F.conv2d above 128 channels."""
     x = feat.to(sc.dtype)
     if sc.depth > 2:
-        x = _run_stack(sc.dec_rest, arch.decoder_specs(sc.depth)[:-4], x,
-                       pad)
-        x = codec.upconv_p2(x, sc.tail[0], pad=pad)
+        x = _rest_stack(sc.dec_rest, arch.decoder_specs(sc.depth)[:-4], x,
+                        pad, halo)
+        x = exchanged(codec.upconv_p2, x, sc.tail[0], halo, pad)
     if sc.depth > 1:
-        x = codec.conv3x3_p2(x, sc.tail[-2], relu=True, pad=pad)
-        x = codec.upconv_p2(x, sc.tail[-1], pad=pad)
-    return codec.final_to_rgb(x, sc.final, pad=pad)
+        x = exchanged(codec.conv3x3_p2, x, sc.tail[-2], halo, pad, relu=True)
+        x = exchanged(codec.upconv_p2, x, sc.tail[-1], halo, pad)
+    return exchanged(codec.final_to_rgb, x, sc.final, halo, pad)

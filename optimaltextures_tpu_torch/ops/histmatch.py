@@ -27,14 +27,21 @@ import torch
 from . import cdf
 
 
-def moment_stats(x: torch.Tensor, mesh=None
+def moment_stats(x: torch.Tensor, mesh=None, mean_mesh=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, H, W, C) -> mu (B, 1, 1, C), pooled raw covariance (C, C).
-    With a ``mesh`` (parallel.mesh.Mesh) ``x`` is this rank's batch shard:
-    the means stay per image, the Gram and the sample count are summed over
-    the ranks (equal shards), so the covariance pools the global batch."""
+    With a ``mesh`` (parallel.mesh.Mesh) ``x`` is this rank's shard: the
+    Gram and the sample count are summed over the mesh's ranks (equal
+    shards), so the covariance pools the global batch. The means are per
+    image: local to the shard (batch DP), or with a ``mean_mesh`` (the
+    ranks holding the other rows of the same images: spatial sharding, the
+    grid's space axis) each image's sums are summed over it."""
     c = x.shape[-1]
-    mu = x.mean(dim=(1, 2), keepdim=True)
+    if mean_mesh is None:
+        mu = x.mean(dim=(1, 2), keepdim=True)
+    else:
+        mu = mean_mesh.psum(x.sum(dim=(1, 2), keepdim=True)) / (
+            x.shape[1] * x.shape[2] * mean_mesh.size)
     xc = (x - mu).reshape(-1, c)
     if mesh is None:
         return mu, (xc.T @ xc) / xc.shape[0]

@@ -1,11 +1,16 @@
 """The device mesh: one process per device on ``torch.distributed`` (the
-counterpart of ``optimaltextures_tpu/parallel/mesh.py``).
+counterpart of ``optimaltextures_tpu/parallel/mesh.py`` and of the grid
+mesh of ``parallel/grid.py``).
 
-A :class:`Mesh` is the 1-D view of the initialised default process group
-that the sharded code needs: this rank's index, the group's size, this
-rank's device and the axis name. Its :meth:`~Mesh.psum`, :meth:`~Mesh.pmin`,
-:meth:`~Mesh.pmax`, :meth:`~Mesh.all_gather` and :meth:`~Mesh.broadcast` are
-the only place the port calls a collective. NCCL takes CUDA tensors as they
+A :class:`Mesh` is the 1-D view of a process group (the default one, or a
+subgroup) that the sharded code needs: this rank's index in it, its size,
+this rank's device and the axis name. A :class:`GridMesh`
+(:func:`make_grid_mesh`) is the whole group seen as a (data x space) grid,
+with a :class:`Mesh` over its row and one over its column. The meshes'
+:meth:`~Mesh.psum`, :meth:`~Mesh.pmin`, :meth:`~Mesh.pmax`,
+:meth:`~Mesh.all_gather`, :meth:`~Mesh.broadcast` and
+:meth:`~Mesh.halo_rows` (the halo rows of an H-sharded image) are the only
+place the port calls a collective. NCCL takes CUDA tensors as they
 are. gloo, the CPU tests' backend, takes host tensors: a CUDA tensor is
 copied to the host and back, explicitly, in those helpers (gloo takes CUDA
 tensors for only some collectives, and NCCL refuses two ranks on one GPU,
@@ -34,17 +39,26 @@ GROUP_TIMEOUT_S = 600.0
 
 
 class Mesh:
-    """The default process group as a 1-D mesh over ``axis``."""
+    """A process group (``group``; None: the default one) as a 1-D mesh
+    over ``axis``; ``rank`` is this process's index in the group."""
 
-    def __init__(self, rank: int, size: int, device, axis: str = "data"):
+    grid = False
+
+    def __init__(self, rank: int, size: int, device, axis: str = "data",
+                 group=None):
         self.rank, self.size, self.axis = rank, size, axis
         self.device = torch.device(device)
-        self.backend = dist.get_backend()
+        self.group = group
+        self.backend = dist.get_backend(group)
 
     def __repr__(self):
         return (f"Mesh(rank={self.rank}, size={self.size}, "
                 f"device={self.device}, backend={self.backend}, "
                 f"axis={self.axis!r})")
+
+    def with_axis(self, axis: str) -> "Mesh":
+        """The same group under another axis name."""
+        return Mesh(self.rank, self.size, self.device, axis, self.group)
 
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
         """A contiguous copy of ``t`` the backend takes: on the host for
@@ -56,7 +70,7 @@ class Mesh:
 
     def _reduce(self, t: torch.Tensor, op) -> torch.Tensor:
         w = self._wire(t)
-        dist.all_reduce(w, op)
+        dist.all_reduce(w, op, group=self.group)
         return w.to(t.device)
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
@@ -69,23 +83,57 @@ class Mesh:
     def pmax(self, t: torch.Tensor) -> torch.Tensor:
         return self._reduce(t, dist.ReduceOp.MAX)
 
+    def _gather_parts(self, t: torch.Tensor) -> list:
+        w = self._wire(t)
+        parts = [torch.empty_like(w) for _ in range(self.size)]
+        dist.all_gather(parts, w, group=self.group)
+        return parts
+
     def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Every rank's ``t`` concatenated along ``dim`` in rank order (the
         shapes must agree)."""
-        w = self._wire(t)
-        parts = [torch.empty_like(w) for _ in range(self.size)]
-        dist.all_gather(parts, w)
-        return torch.cat(parts, dim).to(t.device)
+        return torch.cat(self._gather_parts(t), dim).to(t.device)
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank ``src``'s ``t`` on every rank (a new tensor of ``t``'s shape
-        and dtype)."""
+        and dtype); ``src`` is a rank of this mesh."""
         w = self._wire(t)
-        dist.broadcast(w, src)
+        dist.broadcast(w, group=self.group, group_src=src)
         return w.to(t.device)
 
+    def halo_rows(self, x: torch.Tensor, r: int, mode: str = "reflect"):
+        """The halo of this rank's rows of an image sharded along H (dim 1)
+        in rank order: ``(top, bottom)``, the last ``r`` rows of the rank
+        above and the first ``r`` of the rank below, each (B, r, W, C).
+        ``mode="reflect"``: the image ends at rank 0's top and rank n-1's
+        bottom, where the halo is None; ``"wrap"``: the ranks form a ring
+        (tileable), rank 0's top being rank n-1's last rows. One all_gather
+        of every rank's first and last ``r`` rows (4 r rows a rank for the
+        ring's two neighbours), from which each rank takes its neighbours'."""
+        if mode not in ("reflect", "wrap"):
+            raise ValueError(f"halo mode must be reflect|wrap, got {mode!r}")
+        if not 0 < r <= x.shape[1]:
+            raise ValueError(f"a halo of {r} rows from a shard of "
+                             f"{x.shape[1]}")
+        parts = self._gather_parts(torch.cat([x[:, :r], x[:, -r:]], 1))
+        ring = mode == "wrap"
+        top = bottom = None
+        if ring or self.rank > 0:
+            top = parts[(self.rank - 1) % self.size][:, r:].to(x.device)
+        if ring or self.rank < self.size - 1:
+            bottom = parts[(self.rank + 1) % self.size][:, :r].to(x.device)
+        return top, bottom
+
+    def halo_pad(self, x: torch.Tensor, r: int, mode: str = "reflect"):
+        """``x`` with :meth:`halo_rows` above and below: (the taller tensor,
+        the rows added on top, the rows added below)."""
+        top, bottom = self.halo_rows(x, r, mode)
+        rows = [t for t in (top, x, bottom) if t is not None]
+        return (torch.cat(rows, 1), 0 if top is None else r,
+                0 if bottom is None else r)
+
     def barrier(self) -> None:
-        dist.barrier()
+        dist.barrier(group=self.group)
 
     def broadcast_int(self, value: int, src: int = 0) -> int:
         """Rank ``src``'s Python int (int64) on every rank."""
@@ -123,6 +171,53 @@ def make_mesh(n: Optional[int] = None, axis: str = "data",
         raise ValueError("the nccl backend needs CUDA devices; use gloo for "
                          "ranks on the CPU")
     return Mesh(rank, size, device, axis)
+
+
+class GridMesh(Mesh):
+    """The whole process group as an (n_data x n_space) grid: rank
+    ``d * n_space + s`` is at (d, s), as the JAX package's
+    ``devices.reshape(n_data, n_space)``. Its own collectives span the whole
+    group (the Gram, cdf's range and counts); :attr:`space` is the
+    :class:`Mesh` over this rank's row (axis "space": its image rows, the
+    halos and per-image means) and :attr:`data` the one over its column
+    (axis "data": the batch)."""
+
+    grid = True
+
+    def __init__(self, rank: int, device, data: Mesh, space: Mesh):
+        super().__init__(rank, data.size * space.size, device,
+                         ("data", "space"))
+        self.data, self.space = data, space
+
+    def __repr__(self):
+        return (f"GridMesh(rank={self.rank}, data={self.data.size} x "
+                f"space={self.space.size}, device={self.device}, "
+                f"backend={self.backend})")
+
+
+_GRIDS = {}
+
+
+def make_grid_mesh(n_data: int, n_space: int, device=None) -> GridMesh:
+    """The default group as an (n_data x n_space) :class:`GridMesh`; its
+    size must be n_data * n_space. Every rank builds every row's and every
+    column's subgroup, in the same order (NCCL hangs otherwise). A group's
+    grids are built once and kept: a subgroup is never freed (an NCCL one
+    holds device buffers), so Synthesizers built one after another share
+    them."""
+    whole = make_mesh(n_data * n_space, device=device)
+    key = (id(dist.group.WORLD), n_data, n_space, str(whole.device))
+    if key not in _GRIDS:
+        rows = [dist.new_group([d * n_space + s for s in range(n_space)])
+                for d in range(n_data)]
+        cols = [dist.new_group([d * n_space + s for d in range(n_data)])
+                for s in range(n_space)]
+        d, s = divmod(whole.rank, n_space)
+        _GRIDS[key] = GridMesh(
+            whole.rank, whole.device,
+            Mesh(d, n_data, whole.device, "data", cols[s]),
+            Mesh(s, n_space, whole.device, "space", rows[d]))
+    return _GRIDS[key]
 
 
 def _rank_device(device, rank: int) -> torch.device:

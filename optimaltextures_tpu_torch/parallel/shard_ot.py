@@ -30,6 +30,7 @@ import torch
 
 from .. import core, transport
 from ..models import fastcodec
+from ..ops import histmatch
 
 
 def _moment_step_sharded(rot, feature, style_mu, style_cov_raw, mode: str,
@@ -75,6 +76,31 @@ def _sort_step_sharded(rot, feature, style_samples, mesh):
                                             "sort", mesh=mesh)
 
 
+def _sort_step_grid(rot, feature, style_samples, grid):
+    """Exact distributed sort matching on the 2-D (batch x height) grid
+    (``grid``: a parallel.mesh.GridMesh; ``feature`` this rank's (b, h, W, C)
+    block of b images' rows).
+
+    The single-device flatten order of a (B, H, W) batch is image-major, and
+    a plain gather of the grid's blocks would interleave every image's rows
+    across the space ring. So: gather the space ring (ds, C, b h W), put each
+    image's ds row blocks one after the other (each image's rows are then
+    contiguous, top to bottom), gather the data axis (whole images in batch
+    order: the single-device flatten order), match the whole cloud and keep
+    this rank's (data, space) block. The JAX package's ``_sort_step_grid``."""
+    c = feature.shape[-1]
+    b, h, w, _ = feature.shape
+    rf = rot.T @ feature.reshape(-1, c).T                       # (C, b h w)
+    rs = rot.T @ style_samples.T
+    g = grid.space.all_gather(rf[None])                          # (ds, C, N)
+    ds = g.shape[0]
+    g = g.reshape(ds, c, b, h * w).permute(1, 2, 0, 3).reshape(c, -1)
+    matched = histmatch.sort_match_rows(grid.data.all_gather(g, dim=1), rs)
+    ours = matched.reshape(c, grid.data.size, b, ds, h * w)[
+        :, grid.data.rank, :, grid.space.rank].reshape(c, b * h * w)
+    return (ours.T @ rot.T).reshape(feature.shape)
+
+
 def sharded_transport_loop(gen, feature, style_mu, style_cov_raw,
                            n_iters: int, mode: str, *, mesh,
                            style_samples=None, content_feature=None,
@@ -86,7 +112,8 @@ def sharded_transport_loop(gen, feature, style_mu, style_cov_raw,
     means local to each rank's shard, the Gram matrices, cdf's range and
     histograms and sort's gather over the one mesh axis. The loop is
     ``transport.transport_loop`` with the mesh; the spatial and grid layouts
-    (other mean and sort axes) are not ported (ROADMAP.md, item 15b)."""
+    are the same loop with the means reduced over the space axis as well
+    (parallel/spatial.py, parallel/grid.py)."""
     return transport.transport_loop(
         gen, feature, transport.StyleStats(style_mu, style_cov_raw,
                                            style_samples), n_iters, mode,

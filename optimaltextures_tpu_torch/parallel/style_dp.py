@@ -26,7 +26,6 @@ import numpy as np
 import torch
 
 from .. import core, transport
-from ..config import require_ported
 
 
 def per_style_stats(style_feats: torch.Tensor, need_samples: bool):
@@ -189,7 +188,7 @@ def _check_styles(cfg, styles):
                          "(one image per style per device — no local batch "
                          "axis to chunk); use num_devices DP for chunked "
                          "batches")
-    return require_ported(cfg.validate())
+    return cfg.validate()
 
 
 def style_widths(cfg, styles, bank=None, device=None) -> dict:

@@ -33,9 +33,9 @@ runs on the GPU unless it is given ``device="cpu"`` (tests).
     -> 400 for a bad request (a tileable one whose pass sizes do not
        divide by 2^(depth-1) among them; style_parallel with num_devices
        above the worker count or other than the style count); 501 for a
-       setting the port does not serve yet (spatial_devices > 1, and
-       batch-parallel num_devices > 1, which runs one process per GPU: the
-       message names the ROADMAP.md item)
+       multi-device request the server does not serve yet (spatial_devices
+       > 1, and batch-parallel num_devices > 1: their ranks run one process
+       per GPU, and a worker here is a thread; ROADMAP.md, queue 1 item 15c)
 
     GET /healthz -> {"status": "ok", "devices": [...], "cached": N,
                      "workers": W}
@@ -58,7 +58,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from .config import OptexConfig, require_ported
+from .config import OptexConfig
 
 # Every OptexConfig field is settable over HTTP except the I/O paths
 # (styles, content and init arrive as base64; the output goes back in the
@@ -207,7 +207,7 @@ def handle_synthesize(pool: SynthesizerPool, payload: dict,
 
     ``config_defaults``: operator-set config values for the fields a request
     omits (e.g. ``{"conv_dtype": "bfloat16"}``). Raises ValueError on bad
-    input, NotImplementedError on a setting the port does not run yet."""
+    input, NotImplementedError on a multi-device request (not served yet)."""
     return _execute(pool, _parse_request(payload, config_defaults))
 
 
@@ -215,7 +215,7 @@ def _parse_request(payload: dict,
                    config_defaults: dict | None = None) -> _Request:
     """Decode and validate one request body (host work only: PIL decodes,
     config validation, the style token). Raises ValueError, or
-    NotImplementedError for a setting outside the port."""
+    NotImplementedError for a multi-device request (ROADMAP.md item 15c)."""
     cfg_args = dict(config_defaults or {})
     cfg_args.update({k: v for k, v in payload.get("config", {}).items()
                      if k in _CONFIG_FIELDS})
@@ -273,13 +273,12 @@ def _parse_request(payload: dict,
         if cfg.num_devices > 1 and len(styles) != cfg.num_devices:
             raise ValueError(f"{len(styles)} styles for num_devices="
                              f"{cfg.num_devices}: pass one style per device")
-    cfg = require_ported(cfg)
-    if cfg.num_devices > 1 and not style_parallel:
+    if (cfg.num_devices > 1 and not style_parallel) or cfg.spatial_devices > 1:
         raise NotImplementedError(
-            "batch-parallel requests (num_devices > 1) are not served by the "
-            "torch package yet: its data parallelism runs one process per "
-            "GPU (run them through the CLI or api.run_files; ROADMAP.md, "
-            "queue 1 item 15b)")
+            "multi-device requests (batch-parallel num_devices > 1, "
+            "spatial_devices > 1) are not served by the torch package yet: "
+            "their ranks run one process per GPU (run them through the CLI "
+            "or api.run_files; ROADMAP.md, queue 1 item 15c)")
 
     # stable (process-independent) style identity: the key of the in-memory
     # prep cache and part of the style pack's file name

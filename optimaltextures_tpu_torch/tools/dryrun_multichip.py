@@ -1,10 +1,10 @@
-"""The data-parallel paths of the port on N ranks: a dry run of each part,
-and the walls of whole runs (the counterpart of the DP and style-parallel
-parts of the JAX package's ``__graft_entry__.dryrun_multichip``).
+"""The multi-device paths of the port on N ranks: a dry run of each part,
+and the walls of whole runs (the counterpart of the JAX package's
+``__graft_entry__.dryrun_multichip``).
 
     python -m optimaltextures_tpu_torch.tools.dryrun_multichip [--n 2]
     python -m optimaltextures_tpu_torch.tools.dryrun_multichip --device cuda --n 4
-    python -m optimaltextures_tpu_torch.tools.dryrun_multichip --device cuda --n 4 --walls
+    python -m optimaltextures_tpu_torch.tools.dryrun_multichip --device cuda --n 4 --walls [--parts dp|spatial]
 
 The dry run starts ``--n`` ranks (gloo on the CPU by default, NCCL on
 ``cuda:0 .. cuda:N-1`` with ``--device cuda``) and runs, each through
@@ -12,16 +12,25 @@ The dry run starts ``--n`` ranks (gloo on the CPU by default, NCCL on
 weights of ``weights/`` and synthetic style statistics: DP; DP with
 batch_chunk; DP in bf16 at a local batch of 128 (the JAX package's
 fast-codec DP case); style-parallel (EP); DP in cdf mode; DP in sort mode;
-a two-stage DP pass with a pca_bucket-padded basis. Each part prints its
-output's shape and rank 0's kernel launches, and raises on a wrong shape or
-a non-finite value.
+a two-stage DP pass with a pca_bucket-padded basis; then spatial sharding
+(``parallel.spatial.make_spatial_pass``, one 64-px image's rows over the N
+ranks): reflect, cdf, sort and the wrap ring of a tileable run, each
+against the same pass on the whole image in the rank; and with N even and
+>= 4 the (N/2 x 2) grid (``parallel.grid.make_grid_pass``, batch N/2). Each
+part prints its output's shape and rank 0's kernel launches, and raises on
+a wrong shape or a non-finite value.
 
 ``--walls`` (GPU) times whole 512-px runs at the main path's settings, cold
 and warm, on N ranks: DP at batch N in f32 (one image a card), DP at batch
 128 N in bf16 (128 a card) and N styles style-parallel, each beside the
 same per-card work on one card in this process (batch 1, batch 128, one
 style), and prints them, with images/s, peak memory and the card's name and
-power limit, then one JSON line.
+power limit, then one JSON line. Its spatial part (``--parts spatial``
+runs it alone) times one 2048-px image at the main path's settings on N
+cards (spatial_devices N) against the same image on one card, and, with N
+= 4, a 2 x 2 grid (batch 2 at 1024 px) against batch 2 on one card: walls
+cold and warm, each rank's launches and peak memory, and the output's
+max |diff| from the one-card run.
 """
 
 from __future__ import annotations
@@ -154,6 +163,41 @@ def style_rank(mesh, cfg_kw: dict, styles, labels=("cold", "warm")):
                 peaks=peaks.tolist(), out=out.cpu().numpy())
 
 
+def kernel_call(name, x, w, b, kw, dtype, pad, halo=None, device="cpu"):
+    """Codec kernel ``name`` on ``x`` (on ``device``; its plain version on
+    the CPU), the weights (w OIHW, b) packed in ``dtype`` as its wrapper
+    takes them, through ``models.fastcodec.exchanged`` with ``halo`` (the
+    space mesh when ``x`` is this rank's rows); float32 out."""
+    from ..models import fastcodec
+    from ..ops import codec
+
+    w = torch.as_tensor(w).to(device=device, dtype=dtype)
+    b = torch.as_tensor(b).to(device=device, dtype=dtype)
+    packer = {"upconv_p2": codec.pack_up,
+              "final_to_rgb": codec.pack_final}.get(name, codec.pack)
+    x = torch.as_tensor(x).to(device)
+    if name != "rgb_to_relu1":
+        x = x.to(dtype)
+    y = fastcodec.exchanged(getattr(codec, name), x, packer(w, b), halo, pad,
+                            **kw)
+    return y.float()
+
+
+def exchanged_rank(mesh, cases):
+    """:func:`kernel_call` on this rank's rows for each case (name, x, w, b,
+    kwargs, dtype, pad), the rows exchanged over the mesh; each output
+    gathered along H (numpy), with rank 0's launch counts of the calls."""
+    from ..parallel.spatial import own_rows
+
+    space = mesh.with_axis("space")
+    reset_counts()
+    out = [space.all_gather(kernel_call(
+        name, own_rows(torch.as_tensor(x), space), w, b, kw, dtype, pad,
+        space, mesh.device), dim=1).cpu().numpy()
+        for name, x, w, b, kw, dtype, pad in cases]
+    return out, launch_counts()
+
+
 def jobs(mesh, todo):
     """Several rank bodies of this module in one spawn: [(name, args)]."""
     here = sys.modules[__name__]
@@ -247,7 +291,71 @@ def dryrun_rank(mesh):
         pca_bucket=16,
         style=[f"s{i}" for i in range(n)]), styles, mesh)
     check("EP (style-parallel)", out, (n, 64, 64, 3), launch_counts())
+    _dryrun_rows(mesh, bank, stats, say, check, rand)
     return "ok"
+
+
+def _dryrun_rows(mesh, bank, stats, say, check, rand):
+    """The spatial and grid parts of the dry run (module docstring)."""
+    from ..models import fastcodec
+    from ..parallel import mesh as mesh_mod
+    from ..parallel.grid import make_grid_pass
+    from ..parallel.spatial import make_spatial_pass, own_rows
+
+    n, depth = mesh.size, 2
+    space = mesh.with_axis("space")
+    enc, dec = [bank.enc_params[depth]], [bank.dec_params[depth]]
+    codecs = fastcodec.pack_stages(enc, dec, (depth,))
+    args = ((stats.mu,), (stats.cov_raw,), (stats.samples,), (None,),
+            (None,), 7, (None,))
+    img = mesh.broadcast(rand(1, 64, 64, 3))   # one image, every rank's
+
+    def whole(mode, pad):
+        from .. import core
+
+        return core._pass_stages_impl(
+            enc, dec, img, [core.LayerTargets(stats, None)], depths=(depth,),
+            iters=(2,), mode=mode, strengths=(0.0,), pca_flags=(False,),
+            stage_codecs=codecs, run_key=7, pad_mode=pad)
+
+    for part, mode, pad in (("SP", "chol", "reflect"), ("SP+cdf", "cdf",
+                                                        "reflect"),
+                            ("SP+sort", "sort", "reflect"),
+                            ("SP tileable (wrap ring)", "chol", "wrap")):
+        stage = make_spatial_pass(space, depths=(depth,), iters=(2,),
+                                  mode=mode, strengths=(0.0,),
+                                  pca_flags=(False,), pad_mode=pad,
+                                  fast_codec=True)
+        reset_counts()
+        out = stage(enc, dec, own_rows(img, space), *args,
+                    stage_codecs=codecs)
+        counts = launch_counts()
+        out = space.all_gather(out, dim=1)
+        check(part, out, (1, 64, 64, 3), counts)
+        ref = whole(mode, pad)
+        err = float((out - ref).abs().max())
+        bound = 1e-2 if mode == "cdf" else 1e-3
+        say(f"  {part}: max |{n} ranks - the whole image| {err:.3e} "
+            f"(bound {bound:g})", flush=True)
+        if not err <= bound:
+            raise AssertionError(f"{part}: {n} ranks differ from the whole "
+                                 f"image by {err}")
+    if n < 4 or n % 2:
+        say(f"dryrun_multichip({n}) grid: skipped (needs an even N >= 4)",
+            flush=True)
+        return
+    grid = mesh_mod.make_grid_mesh(n // 2, 2, device=mesh.device)
+    imgs = mesh.broadcast(rand(n // 2, 64, 64, 3))
+    stage = make_grid_pass(grid, depths=(depth,), iters=(2,), mode="chol",
+                           strengths=(0.0,), pca_flags=(False,),
+                           fast_codec=True)
+    reset_counts()
+    d = grid.data.rank
+    out = stage(enc, dec, own_rows(imgs[d:d + 1], grid.space), *args,
+                stage_codecs=codecs)
+    counts = launch_counts()
+    out = grid.data.all_gather(grid.space.all_gather(out, dim=1))
+    check(f"grid ({n // 2} x 2)", out, (n // 2, 64, 64, 3), counts)
 
 
 # ---------------------------------------------------------------------------
@@ -260,8 +368,9 @@ def _line(name, walls, images, peaks, dev_card):
             f"GiB ({dev_card})")
 
 
-def walls(n: int, card_name: str) -> dict:
-    """The --walls measurement (module docstring)."""
+def walls(n: int, card_name: str, parts: str = "all") -> dict:
+    """The --walls measurement (module docstring); ``parts``: all, dp (the
+    DP and style-parallel runs) or spatial."""
     from .. import config, core
     from ..ops import cuda_build
     from ..parallel.mesh import spawn
@@ -291,6 +400,8 @@ def walls(n: int, card_name: str) -> dict:
         rec[f"one_card {name}"] = dict(walls=ws, images=images, peak=peak)
         torch.cuda.empty_cache()
 
+    if parts == "spatial":
+        return walls_spatial(n, card_name, rec)
     one_card("batch 1 f32", lambda: core.synthesize(
         config.OptexConfig(**f32), styles[:1], device="cuda")[0], 1)
     one_card("batch 128 bf16", lambda: core.synthesize(
@@ -317,6 +428,63 @@ def walls(n: int, card_name: str) -> dict:
         print(f"  per-rank launches: {r['counts']}", flush=True)
         rec[f"{n} cards {name}"] = dict(walls=r["walls"], images=images,
                                         peaks=r["peaks"])
+    if parts == "all":
+        walls_spatial(n, card_name, rec)
+    return rec
+
+
+def walls_spatial(n: int, card_name: str, rec: dict) -> dict:
+    """The spatial part of --walls (module docstring): one 2048-px image on
+    n cards against one card, and with n = 4 the 2 x 2 grid at 1024 px,
+    batch 2, against one card; every run cold and warm."""
+    from .. import config, core
+    from ..parallel.mesh import spawn
+    from ..utils import imageio
+
+    style = os.path.join(SAMPLES, STYLES_512[0])
+    cases = [("spatial 2048 px", dict(size=2048, seed=0, style=["s"]),
+              dict(spatial_devices=n), imageio.load_image(style, 2048), 1)]
+    if n == 4:
+        cases.append(("grid 2 x 2, batch 2, 1024 px",
+                      dict(size=1024, seed=0, batch=2, style=["s"]),
+                      dict(num_devices=2, spatial_devices=2),
+                      imageio.load_image(style, 1024), 2))
+    for name, kw, layout, sty, images in cases:
+        ws, out = [], None
+        for _ in range(2):
+            del out
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.time()
+            out = core.synthesize(config.OptexConfig(**kw), [sty],
+                                  device="cuda")[0]
+            torch.cuda.synchronize()
+            ws.append(time.time() - t0)
+        one = out.cpu().numpy()
+        del out
+        peak = torch.cuda.max_memory_allocated()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        torch.cuda.empty_cache()
+        print(_line(f"one card, {name}", ws, images, [peak], card_name),
+              flush=True)
+        print(f"  launches: {counts}", flush=True)
+        rec[f"one_card {name}"] = dict(walls=ws, images=images, peak=peak,
+                                       launches=counts)
+        r = spawn(jobs, n, backend="nccl", device="cuda", args=([
+            ("run_rank", ({**kw, **layout}, [sty]))],), deadline_s=1800)[0]
+        out = r.pop("out")
+        err = float(np.abs(out - one).max())
+        if out.shape != one.shape or not np.isfinite(out).all():
+            raise AssertionError(f"{name}: output {out.shape} is not a "
+                                 f"finite {one.shape}")
+        print(_line(f"{n} cards (NCCL), {name}", r["walls"], images,
+                    r["peaks"], card_name), flush=True)
+        print(f"  per-rank launches: "
+              f"{[{k: v for k, v in c.items() if v} for c in r['counts']]}; "
+              f"max |{n} cards - one card| {err:.3e}", flush=True)
+        rec[f"{n} cards {name}"] = dict(walls=r["walls"], images=images,
+                                        peaks=r["peaks"], max_abs_diff=err,
+                                        launches=r["counts"])
     return rec
 
 
@@ -327,7 +495,10 @@ def main(argv=None) -> int:
                          "4, on cuda)")
     ap.add_argument("--device", default="cpu", choices=["cpu", "cuda"])
     ap.add_argument("--walls", action="store_true",
-                    help="time whole 512-px runs on the GPUs (see above)")
+                    help="time whole runs on the GPUs (see above)")
+    ap.add_argument("--parts", default="all", choices=["all", "dp", "spatial"],
+                    help="--walls: the DP and style-parallel runs, the "
+                         "spatial and grid runs, or all")
     args = ap.parse_args(argv)
     from ..parallel.mesh import spawn
 
@@ -341,7 +512,7 @@ def main(argv=None) -> int:
     if args.walls:
         if args.device != "cuda":
             raise SystemExit("--walls times the GPUs: pass --device cuda")
-        print(json.dumps(walls(n, name)))
+        print(json.dumps(walls(n, name, args.parts)))
         return 0
     if args.device == "cuda":
         from ..ops import cuda_build

@@ -11,11 +11,13 @@ and this tree's flags (``ops/cuda_build.NVCC_FLAGS``), one process per
 file, all started together. Kernels are matched by their demangled names
 (``c++filt``, else ``cu++filt``), without the parameter list, after this
 tree's last template argument ``false`` (the WRAP of a reflect
-instantiation) is dropped. Prints one line per kernel and any ptxas
-"Performance Loss" remark (a serialized ``wgmma``: C7518, C7514); exits 1
-if a reflect instantiation differs from its counterpart, is missing there,
-or if a wrap instantiation of ``csrc/conv_wg.cu`` or ``csrc/edge_mma.cu``
-spills.
+instantiation) is dropped, unless the other tree has the instantiation
+itself (a parent with the WRAP parameter: then the wrap instantiations are
+compared too). Prints one line per kernel and any ptxas "Performance
+Loss" remark (a serialized ``wgmma``: C7518, C7514); exits 1 if a compared
+instantiation differs from its counterpart, a reflect one is missing
+there, or a wrap instantiation of ``csrc/conv_wg.cu`` or
+``csrc/edge_mma.cu`` spills.
 """
 
 from __future__ import annotations
@@ -149,19 +151,24 @@ def main() -> int:
         old_by = {base(names[m]): v for m, v in old["kernels"].items()}
         for m, v in sorted(new["kernels"].items(), key=lambda kv: names[kv[0]]):
             name, wrap = key(names[m])
+            # a parent with the WRAP parameter has this very instantiation;
+            # one from before it has the reflect kernel without it
+            was = old_by.get(base(names[m]))
+            if was is None and not wrap:
+                was = old_by.get(name)
+            flag = ""
             if wrap:
                 spills = v.get("spill_st", 0) + v.get("spill_ld", 0)
-                flag = ""
                 if source in NO_SPILL and spills:
                     flag, bad = "  SPILLS", bad + 1
+            if wrap and was is None:
                 print(f"ptxas {source} {name} [wrap]: {_fmt(v)}{flag}", flush=True)
                 continue
-            was = old_by.get(name)
             same = was == v
             bad += not same
-            print(f"ptxas {source} {name} [reflect]: {_fmt(v)}; parent: "
-                  f"{_fmt(was) if was else 'missing'} -> {'equal' if same else 'DIFFERS'}",
-                  flush=True)
+            print(f"ptxas {source} {name} [{'wrap' if wrap else 'reflect'}]: "
+                  f"{_fmt(v)}; parent: {_fmt(was) if was else 'missing'} -> "
+                  f"{'equal' if same else 'DIFFERS'}{flag}", flush=True)
         for tree, p in (("parent", old), ("this", new)):
             for r in p["remarks"]:
                 print(f"ptxas {source} remark ({tree}): {r}", flush=True)

@@ -58,13 +58,14 @@ def style_stats(style_feature: torch.Tensor,
 
 def _moment_step_with_rot(rot: torch.Tensor, feature: torch.Tensor,
                           stats: StyleStats, mode: str,
-                          eps: float = 1.0, mesh=None) -> torch.Tensor:
+                          eps: float = 1.0, mesh=None,
+                          mean_mesh=None) -> torch.Tensor:
     """One moment-matching sliced-OT step with a supplied rotation:
     ``(x - mu_t) @ (R A^T R^T) + mu_s``, A computed in the rotated basis
     from the congruence-rotated covariances (pooled over the ranks of a
-    ``mesh``)."""
+    ``mesh``, the means over a ``mean_mesh``: histmatch.moment_stats)."""
     c = feature.shape[-1]
-    mu_t, cov_t_raw = histmatch.moment_stats(feature, mesh)
+    mu_t, cov_t_raw = histmatch.moment_stats(feature, mesh, mean_mesh)
     a = histmatch.moment_transform(rot.T @ (cov_t_raw @ rot),
                                    rot.T @ (stats.cov_raw @ rot), mode, eps)
     m = rot @ (a.T @ rot.T)
@@ -75,12 +76,13 @@ def _moment_step_with_rot(rot: torch.Tensor, feature: torch.Tensor,
 def _moment_step_with_factor(rot: torch.Tensor, feature: torch.Tensor,
                              mu_s: torch.Tensor, sfactor: torch.Tensor,
                              mode: str, eps: float = 1.0,
-                             mesh=None) -> torch.Tensor:
+                             mesh=None, mean_mesh=None) -> torch.Tensor:
     """:func:`_moment_step_with_rot` with the style side precomputed
     (histmatch.style_factor_batch): the per-iteration loop's body. With a
-    ``mesh`` the covariance pools every rank's shard."""
+    ``mesh`` the covariance pools every rank's shard (the means over a
+    ``mean_mesh``)."""
     c = feature.shape[-1]
-    mu_t, cov_t_raw = histmatch.moment_stats(feature, mesh)
+    mu_t, cov_t_raw = histmatch.moment_stats(feature, mesh, mean_mesh)
     a = histmatch.moment_transform_pre(rot.T @ (cov_t_raw @ rot), sfactor,
                                        mode, eps)
     m = rot @ (a.T @ rot.T)
@@ -108,11 +110,17 @@ def _sampled_step_with_rot(rot: torch.Tensor, feature: torch.Tensor,
     take (``R^T X^T``), and the matched rows go back through one more GEMM,
     so no transposed copy of the samples is made.
 
-    With a ``mesh`` ``feature`` is this rank's batch shard: cdf matches by
-    the global histogram (histmatch.cdf_match_rows), and sort gathers every
+    With a ``mesh`` ``feature`` is this rank's shard: cdf matches by the
+    global histogram (histmatch.cdf_match_rows), and sort gathers every
     rank's rotated samples in rank order, which is the single-device flatten
-    order (rank r holds batch rows r*B/N ..), matches the whole cloud exactly
-    and keeps its own columns."""
+    order (rank r holds batch rows r*B/N .., or under spatial sharding row
+    block r of the one image), matches the whole cloud exactly and keeps its
+    own columns. On the 2-D grid (a parallel.mesh.GridMesh) sort takes the
+    grid's two-step gather (parallel.shard_ot._sort_step_grid)."""
+    if mode == "sort" and mesh is not None and mesh.grid:
+        from .parallel.shard_ot import _sort_step_grid
+
+        return _sort_step_grid(rot, feature, style_samples, mesh)
     c = feature.shape[-1]
     rf = rot.T @ feature.reshape(-1, c).T          # (C, N) rows
     rs = rot.T @ style_samples.T
@@ -266,7 +274,7 @@ def transport_loop(gen: Optional[torch.Generator], feature: torch.Tensor,
                    use_pallas: bool = True,
                    k_mask: Optional[torch.Tensor] = None,
                    cov_prop: Optional[bool] = None,
-                   mesh=None) -> torch.Tensor:
+                   mesh=None, mean_mesh=None) -> torch.Tensor:
     """``n_iters`` sliced-OT steps on NHWC ``feature``, each followed by the
     reference's content pull ``feat += s * (content - feat)`` when a
     content feature is given.
@@ -281,12 +289,15 @@ def transport_loop(gen: Optional[torch.Generator], feature: torch.Tensor,
     feed the JAX package's rotation stacks.
 
     ``mesh`` (parallel.mesh.Mesh): ``feature`` (and ``content_feature``) is
-    this rank's batch shard, and the loop is the batch-data-parallel one of
-    the JAX package's ``sharded_transport_loop``: the per-image means stay
-    local, the Gram matrices and sample counts (the covariance, the content
-    cross-covariance) are summed over the ranks, cdf takes the global range
-    and target histogram, and sort matches the gathered cloud. Every rank
-    draws the same rotations, so every rank builds the same maps."""
+    this rank's shard, and the loop is the JAX package's
+    ``sharded_transport_loop_axes`` with ``mesh`` as its Gram axes and
+    ``mean_mesh`` as its mean axes: the Gram matrices and sample counts (the
+    covariance, the content cross-covariance) are summed over ``mesh``, the
+    per-image means over ``mean_mesh`` (None: local to the shard, the
+    batch-data-parallel loop; the space mesh under spatial sharding and on
+    the grid), cdf takes the global range and target histogram, and sort
+    matches the gathered cloud. Every rank draws the same rotations, so
+    every rank builds the same maps."""
     if n_iters == 0:
         return feature
     if mode not in ("chol", "pca", "sym", "cdf", "sort"):
@@ -316,12 +327,12 @@ def transport_loop(gen: Optional[torch.Generator], feature: torch.Tensor,
             eps)
         for rot, sfac in zip(rotations, sfactors):
             feature = _moment_step_with_factor(rot, feature, stats.mu, sfac,
-                                               mode, eps, mesh)
+                                               mode, eps, mesh, mean_mesh)
             if content_feature is not None:
                 feature = feature + content_strength * (content_feature - feature)
         return feature
 
-    mu0, cov0 = histmatch.moment_stats(feature, mesh)
+    mu0, cov0 = histmatch.moment_stats(feature, mesh, mean_mesh)
     if content_feature is None or content_strength == 0.0:
         A, bias = stage_affine_map(rotations, mu0, cov0, stats, mode, eps)
         out = (feature.reshape(-1, c) @ A).reshape(feature.shape)
@@ -329,7 +340,7 @@ def transport_loop(gen: Optional[torch.Generator], feature: torch.Tensor,
     # composed with the content pull
     cov_s_rots = histmatch.style_congruence_batch(rotations, stats.cov_raw)
     sfactors = histmatch.style_factor_batch(cov_s_rots, mode, eps)
-    mu_cf, cov_cf = histmatch.moment_stats(content_feature, mesh)
+    mu_cf, cov_cf = histmatch.moment_stats(content_feature, mesh, mean_mesh)
     content_feature = content_feature.expand(feature.shape)
     fc = (feature - mu0).reshape(-1, c)
     cc = (content_feature - mu_cf).reshape(-1, c)

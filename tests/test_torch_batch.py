@@ -177,29 +177,24 @@ def test_cli_batch_bf16_writes_one_png_per_image(tmp_path):
                      "graffiti_cholhist_256_cholhist_no_multires_32_2.png"], names
 
 
-# every setting that stays outside the port, one override each (tileable
-# output and batch-parallel num_devices left the table: spatial sharding,
-# alone or in the 2-D grid, trips the one row left)
+# the settings that stayed outside the port until spatial sharding was
+# ported (queue 1 item 15b): the 2-D grid and spatial sharding alone
 UNPORTED = [dict(num_devices=2, spatial_devices=2), dict(spatial_devices=2)]
 
 
 def test_require_ported_still_raises_for_every_remaining_row():
-    """Each row left in config._NOT_PORTED trips on its override and names
-    itself; conv_dtype and batch left the table, and the base config (batch
-    2, bf16) trips none."""
+    """No row is left: config has no _NOT_PORTED table and no
+    require_ported. Each former row's override validates (batch 1 for
+    spatial sharding alone) and builds a Synthesizer that is one rank of a
+    process group: outside one it names the ways to start ranks, as
+    batch-parallel num_devices does."""
+    assert not hasattr(tconfig, "_NOT_PORTED")
+    assert not hasattr(tconfig, "require_ported")
     base = dict(size=64, batch=2, conv_dtype="bfloat16", style=["x.png"])
-    tconfig.require_ported(tconfig.OptexConfig(**base))
-    tconfig.require_ported(tconfig.OptexConfig(tileable=True, **base))
-    tconfig.require_ported(tconfig.OptexConfig(num_devices=2, **base))
-    hit = set()
-    for override in UNPORTED:
-        cfg = tconfig.OptexConfig(**{**base, **override})
-        rows = [what for bad, what, _ in tconfig._NOT_PORTED if bad(cfg)]
-        assert len(rows) == 1, (override, rows)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
-            tconfig.require_ported(cfg)
-        assert rows[0] in str(err.value)
-        hit.add(rows[0])
-    assert hit == {what for _, what, _ in tconfig._NOT_PORTED}
-    assert not any("dtype" in what or "batch >" in what or
-                   "multi-device" in what for _, what, _ in tconfig._NOT_PORTED)
+    for override in UNPORTED + [dict(num_devices=2)]:
+        kw = {**base, **override}
+        if "num_devices" not in override:
+            kw["batch"] = 1
+        cfg = tconfig.OptexConfig(**kw).validate()
+        with pytest.raises(RuntimeError, match="spawn.*torchrun"):
+            tcore.Synthesizer(cfg, device="cpu")

@@ -1314,3 +1314,103 @@ def test_nccl_one_rank_matches_one_process():
     """One NCCL rank on cuda:0: the DP path's collectives through NCCL."""
     _need_gpu()
     _dp_case(1, "nccl", "cuda:0", "chol")
+
+
+# ---------------------------------------------------------------------------
+# spatial sharding: ranks on one card exchange halo rows around the kernels
+
+
+def _spatial_kernel_cases():
+    """The ten codec kernel functions' settings on the stage roundtrip, in
+    both pad modes, at 64 rows (32 a rank) x 48 columns."""
+    rng = np.random.default_rng(12)
+    cases = []
+    for name, cin, kw in (("rgb_to_relu1", 3, {}),
+                          ("conv3x3_p2", 64, dict(relu=True, pool=True)),
+                          ("conv3x3_p2", 128, dict(relu=True)),
+                          ("conv3x3_full", 64, dict(relu=True)),
+                          ("conv3x3_full", 128, dict(relu=True, pool=True)),
+                          ("upconv_p2", 64, {}), ("upconv_p2", 128, {}),
+                          ("final_to_rgb", 64, {})):
+        cout = {"rgb_to_relu1": 64, "final_to_rgb": 3, "upconv_p2": cin,
+                "conv3x3_p2": 64}.get(name, 128)
+        h = 32 if name == "upconv_p2" else 64
+        x = np.maximum(rng.normal(0.2, 1.0, (1, h, 48, cin)), 0).astype(
+            np.float32)
+        w = (rng.normal(size=(cout, cin, 3, 3)) * np.sqrt(2 / (9 * cin))
+             ).astype(np.float32)
+        b = rng.normal(0, 0.1, cout).astype(np.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            for pad in ("reflect", "wrap"):
+                cases.append((name, x, w, b, kw, dtype, pad))
+    return cases
+
+
+@pytest.mark.cuda
+def test_spatial_exchanged_kernels_match_the_whole_image():
+    """Two gloo ranks sharing cuda:0 run each kernel on their 32 rows by
+    exchange and crop: bit-equal to the kernel on the whole image in f32
+    (a pixel's sum does not depend on where its tile lies), within one bf16
+    rounding (2^-7 of the output's scale) in bf16; each launch counted."""
+    _need_gpu()
+    from optimaltextures_tpu_torch.parallel.mesh import spawn
+    from optimaltextures_tpu_torch.tools import dryrun_multichip as dr
+
+    _dp_inputs()
+    cases = _spatial_kernel_cases()
+    got, counts = spawn(dr.exchanged_rank, 2, backend="gloo",
+                        device="cuda:0", args=(cases,), deadline_s=600)
+    assert sum(counts.values()) == len(cases)
+    for (name, x, w, b, kw, dtype, pad), g in zip(cases, got):
+        ref = dr.kernel_call(name, x, w, b, kw, dtype, pad,
+                             device="cuda").cpu().numpy()
+        assert g.shape == ref.shape, (name, g.shape, ref.shape)
+        if dtype == torch.float32:
+            np.testing.assert_array_equal(g, ref, err_msg=f"{name} {kw} {pad}")
+        else:
+            err = float(np.abs(g - ref).max())
+            assert err <= 2.0 ** -7 * float(np.abs(ref).max()), (name, pad,
+                                                                  err)
+
+
+def _spatial_case(n, backend, device, layout, size=128, mode="chol"):
+    from optimaltextures_tpu_torch.parallel.mesh import spawn
+    from optimaltextures_tpu_torch.tools import dryrun_multichip as dr
+
+    style = _dp_inputs()[0]
+    kw = dict(size=size, passes=2, iters=40, depth=3, seed=3, hist_mode=mode,
+              style=["s.png"], batch=layout.get("num_devices", 1))
+    ref = core.synthesize(config.OptexConfig(**kw), [style],
+                          device="cuda")[0].cpu().numpy()
+    got = spawn(dr.run_rank, n, backend=backend, device=device,
+                args=({**kw, **layout}, [style], ("warm",)), deadline_s=600)
+    for counts in got["counts"]:     # every rank ran its rows on the kernels
+        assert min(counts[k] for k in codec.KERNELS) > 0
+        assert (counts["batched_histogram"] > 0) == (mode == "cdf")
+    _dp_hold(got["out"], ref, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["chol", "cdf"])
+def test_spatial_run_on_one_gpu_matches_one_process(mode):
+    """Two gloo ranks sharing cuda:0 split one 128-px image's rows (depth
+    3: the 256-channel convs on the halo stack too), against one process."""
+    _need_gpu()
+    _spatial_case(2, "gloo", "cuda:0", dict(spatial_devices=2), mode=mode)
+
+
+@pytest.mark.cuda
+def test_spatial_grid_on_one_gpu_matches_one_process():
+    """The 2 x 2 grid on four gloo ranks sharing cuda:0, batch 2."""
+    _need_gpu()
+    _spatial_case(4, "gloo", "cuda:0", dict(num_devices=2, spatial_devices=2))
+
+
+@pytest.mark.cuda
+def test_nccl_spatial_across_gpus_matches_one_process():
+    """min(count, 4) NCCL ranks, one a card, split one 128-px image."""
+    _need_gpu()
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("needs two GPUs")
+    _spatial_case(n, "nccl", "cuda", dict(spatial_devices=n))

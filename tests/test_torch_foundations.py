@@ -185,19 +185,15 @@ def test_ported_settings_run(override):
 @pytest.mark.parametrize("override", [dict(num_devices=2),
                                       dict(spatial_devices=2)])
 def test_out_of_slice_settings_raise(override):
-    """Spatial sharding is not ported (ROADMAP.md item 15b); a batch-parallel
-    Synthesizer is one rank of a process group and refuses to start outside
-    one, naming the ways to start ranks."""
+    """A batch-parallel or spatially sharded Synthesizer is one rank of a
+    process group and refuses to start outside one, naming the ways to
+    start ranks (spatial sharding is ported: ROADMAP.md item 15b)."""
     kw = dict(size=64, style=["x.png"], batch=2)
     kw.update(override)
-    if "num_devices" in override:
-        with pytest.raises(RuntimeError, match="spawn.*torchrun"):
-            tcore.Synthesizer(tconfig.OptexConfig(**kw), device="cpu")
-        return
-    kw["batch"] = 1
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
+    if "spatial_devices" in override:
+        kw["batch"] = 1
+    with pytest.raises(RuntimeError, match="spawn.*torchrun"):
         tcore.Synthesizer(tconfig.OptexConfig(**kw), device="cpu")
-    assert "mixing" not in str(err.value) and "15b" in str(err.value)
 
 
 @pytest.mark.parametrize("override", [

@@ -18,8 +18,8 @@ single-process runs.
   size, so whole runs diverge pixel by pixel).
 * Style-parallel on 2 ranks vs ``mesh=None`` and vs JAX's
   ``synthesize_style_batch`` on a 2-device mesh.
-* validate(), _NOT_PORTED, and the CLI's --num_devices and
-  --style_parallel.
+* validate(), the layouts' Synthesizer outside a process group, and the
+  CLI's --num_devices (alone and in the grid) and --style_parallel.
 
 Styles come from docs/samples/; every spawn gets a deadline, so a fault
 costs seconds, not the suite's time limit."""
@@ -477,12 +477,18 @@ def test_validate_mirrors_jax(kw, message):
 
 
 def test_not_ported_is_spatial_only():
+    """Nothing is refused as unported any more: the batch-parallel, spatial
+    and grid layouts all validate, and each Synthesizer is one rank of a
+    process group (outside one it names the ways to start ranks)."""
     base = dict(size=64, style=["x.png"])
-    for ok in (dict(num_devices=2, batch=2), dict(num_devices=4, batch=8)):
-        tconfig.require_ported(tconfig.OptexConfig(**base, **ok))
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        tconfig.require_ported(tconfig.OptexConfig(**base, spatial_devices=2))
-    assert [row[2] for row in tconfig._NOT_PORTED] == ["15b"]
+    assert not hasattr(tconfig, "_NOT_PORTED")
+    assert not hasattr(tconfig, "require_ported")
+    for ok in (dict(num_devices=2, batch=2), dict(num_devices=4, batch=8),
+               dict(spatial_devices=2), dict(spatial_devices=4),
+               dict(num_devices=2, spatial_devices=2, batch=2)):
+        cfg = tconfig.OptexConfig(**base, **ok).validate()
+        with pytest.raises(RuntimeError, match="spawn.*torchrun"):
+            tcore.Synthesizer(cfg, device="cpu")
 
 
 def test_synthesizer_needs_a_group_or_a_mesh():
@@ -509,9 +515,13 @@ def test_cli_num_devices_on_cpu(tmp_path):
     assert sorted(dp) == sorted(one) and len(dp) == 2
     for name in dp:   # within one 8-bit level of the one-process run
         assert np.abs(dp[name] - one[name]).max() <= 1, name
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        cli.main(common[:-5] + ["--spatial_devices", "2", "--device", "cpu",
-                                "--quiet"])
+    # the 2 x 2 grid (item 15b): the same images as the one-process run
+    assert cli.main(common + ["--num_devices", "2", "--spatial_devices", "2",
+                              "--output_dir", str(tmp_path / "grid")]) == 0
+    grid = _png_dir(tmp_path / "grid")
+    assert sorted(grid) == sorted(one)
+    for name in grid:
+        assert np.abs(grid[name] - one[name]).max() <= 1, name
 
 
 def test_cli_style_parallel(tmp_path):

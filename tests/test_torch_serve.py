@@ -182,11 +182,13 @@ def test_healthz(server):
     ({**_payload(), "style_parallel": True, "content_b64": _b64(STYLE)},
      None, None, 400, "synthesis-only"),
     (_payload(tileable=True, size=66, depth=3), None, None, 400, "divisible"),
-    (_payload(num_devices=2, batch=2), None, None, 501, "item 15"),
-    (_payload(spatial_devices=2), None, None, 501, "item 15"),
+    # multi-device requests: their ranks are processes, not the server's
+    # worker threads (item 15c)
+    (_payload(num_devices=2, batch=2), None, None, 501, "item 15c"),
+    (_payload(spatial_devices=2), None, None, 501, "item 15c"),
     # the 2-D grid (style_parallel is served now: its refusals are below)
     (_payload(num_devices=2, spatial_devices=2, batch=2), None, None, 501,
-     "item 15"),
+     "item 15c"),
 ])
 def test_refusals(server, payload, raw, headers, code, message):
     status, _, body = _post(server, payload, raw, headers)
@@ -462,7 +464,7 @@ def test_style_parallel_refusals(payload, code, message):
         assert len(srv.workers._free) == 2
     assert status == code and message in json.loads(body)["error"]
     if code == 501:
-        assert "item 15b" in json.loads(body)["error"]
+        assert "item 15c" in json.loads(body)["error"]
 
 
 def test_checkout_many_takes_a_whole_set():
