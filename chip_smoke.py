@@ -154,7 +154,8 @@ Phases (each raises on failure; none catches its own):
      warm: histogram and remap 246 launches each, path A's); jpeg and npy
      (equal to the png's pixels); a tileable request (200, the wrap
      kernels at the main path's counts, the image decoded); spatial_devices
-     2 -> 501; /healthz (the card's name)
+     2 -> 400 "requested 2 devices, have 1" (one worker), the worker free
+     afterwards; /healthz (the card's name)
      and /metrics (exactly the requests made); a second server with fresh
      pools importing the first one's style pack from OPTEX_PACK_DIR (its
      first seeded request: 0 style preps, the same bytes); on it two
@@ -196,7 +197,22 @@ Phases (each raises on failure; none catches its own):
      A's output; path A's histogram and remap launches); four gloo ranks
      run the 2 x 2 grid at 128 px, batch 2 (within 2e-3 of the same run in
      one process); NCCL across cards with two or more, else a line says
-     that this step was skipped. The phase prints its own clock.
+     that this step was skipped. The phase prints its own clock;
+  12. multi-device requests as the server serves them (serve.py on a
+     persistent parallel.mesh.RankGroup): a gloo group of two ranks sharing
+     this card, requests parsed by serve._parse_request (512 px, the main
+     path's settings, the exemplar as a base64 PNG) run by
+     serve._run_on_group: seeded spatial_devices 2 cold and 3 warm, then
+     seeded num_devices 2 batch 2 cold and 3 warm, each bit-equal to one
+     mesh.spawn of core.synthesize on the same decoded arrays and seed
+     (both references in one spawn), each rank at the main path's
+     launches, no style prep warm, the same rank pids throughout; two
+     unseeded requests (they differ); a cdf spatial request (path A's
+     histogram and remap launches a rank); close() ends every rank; with
+     two or more cards an HTTP server with workers=2 (NCCL) within one
+     uint8 level of the gloo output, else a line says that this step was
+     skipped. The group's start, the cold and warm walls beside phases 10
+     and 11's warm walls, and the phase's own clock are printed.
 
 The last two lines of standard output are the {"kernels": [...]} line (all
 nine kernels, each with its "design": ffma+tma, cluster-dsmem,
@@ -1676,7 +1692,8 @@ def serve_phase(seed: int, card: str):
     ``seed`` sent as a base64 PNG: cold and warm seeded requests byte-equal
     to a direct run, the styles_token cache, a pack restart, coalesced
     cohorts of 8 in f32 and bf16, a cdf request, the response formats,
-    /healthz, /metrics and a 501. Every request's launches are counted."""
+    /healthz, /metrics and a multi-device request's 400 (one worker). Every
+    request's launches are counted."""
     import base64
     import io
 
@@ -1794,9 +1811,10 @@ def serve_phase(seed: int, card: str):
             raise AssertionError(f"serve: jpeg mean error {jerr}, npy {arr.shape}")
         status, _, body, _ = first.post({"config": {**base, "spatial_devices": 2},
                                          "style_b64": [b64]})
-        if status != 501 or "item 15" not in json.loads(body)["error"]:
-            raise AssertionError(f"serve: spatial_devices 2 gave HTTP {status}: "
-                                 f"{body!r}")
+        if (status != 400 or "requested 2 devices, have 1" not in json.loads(body)["error"]
+                or list(first.srv.workers._free) != [0]):
+            raise AssertionError(f"serve: spatial_devices 2 on one worker gave HTTP "
+                                 f"{status}: {body!r}")
         tile, tile_s, _ = request(first, "tileable request",
                                   {"config": {**base, "seed": seed, "tileable": True},
                                    "style_b64": [b64]}, tile_counts)
@@ -1815,8 +1833,8 @@ def serve_phase(seed: int, card: str):
               f"the png; tileable {tile_s:.4f} s cold (a new Synthesizer; the wrap "
               f"kernels at the main path's counts, seam ratio "
               f"{np.round(seam_ratio(pixels(tile)[None] / 255.0), 4).tolist()}); "
-              f"spatial_devices 2 "
-              f"501; /healthz {health}; /metrics "
+              f"spatial_devices 2 on one worker "
+              f"400; /healthz {health}; /metrics "
               f"{ {k: metrics[k] for k in want} } [{card}]", flush=True)
         if health["devices"] != [torch.cuda.get_device_name(0)] or any(
                 metrics[k] != v for k, v in want.items()):
@@ -1882,7 +1900,8 @@ def dp_phase(seed: int, card: str, main_counts, main_out, cdf_counts,
              slice_counts):
     """Phase 10: data parallelism on this card (gloo ranks sharing it, one
     NCCL rank) and, with two or more cards, NCCL across them. Each rank's
-    launch counts are set to 0 just before its run and read just after."""
+    launch counts are set to 0 just before its run and read just after.
+    Returns {run: its warm wall} for phase 12."""
     import torch
 
     from optimaltextures_tpu_torch import core
@@ -1943,6 +1962,7 @@ def dp_phase(seed: int, card: str, main_counts, main_out, cdf_counts,
           f"max |DP - one process| {err:.3e} (bound 2e-3)", flush=True)
     if not (f32["out"].shape == (2, 512, 512, 3) and err <= 2e-3):
         raise AssertionError(f"DP f32: {f32['out'].shape}, error {err}")
+    walls = {"phase 10 DP batch 2 f32 (one-shot spawn)": f32["walls"][1]}
 
     _rank_counts_ok("DP cdf", cdf_run["counts"], {**main_counts, **cdf_counts},
                     codec_f32 + cdf_keys)
@@ -1999,7 +2019,7 @@ def dp_phase(seed: int, card: str, main_counts, main_out, cdf_counts,
     if n < 2:
         print("phase 10, NCCL across cards: skipped, this machine has one "
               "card", flush=True)
-        return
+        return walls
     f32, bf16 = spawn(dr.jobs, n, backend="nccl", device="cuda", args=([
         ("run_rank", ({**main, "batch": n, "num_devices": n}, [style])),
         ("run_rank", ({**main, "batch": 128 * n, "num_devices": n,
@@ -2018,6 +2038,7 @@ def dp_phase(seed: int, card: str, main_counts, main_out, cdf_counts,
               f"s, warm {w[1]:.4f} s; {images / w[0]:.1f} and "
               f"{images / w[1]:.1f} images/s; peak memory "
               f"{[round(p / 2 ** 30, 2) for p in r['peaks']]} GiB", flush=True)
+    return walls
 
 
 def spatial_phase(seed: int, card: str, main_counts, main_out, cdf_counts,
@@ -2034,7 +2055,7 @@ def spatial_phase(seed: int, card: str, main_counts, main_out, cdf_counts,
     cards min(count, 4) NCCL ranks split the main path's image, else a line
     says that this step was skipped. Each rank's counts are set to 0 just
     before its run and read just after. Returns {kernel: (rank 0's launches
-    on the spatial path, the run's name)}."""
+    on the spatial path, the run's name)} and {run: its warm wall}."""
     import torch
 
     from optimaltextures_tpu_torch import core
@@ -2125,7 +2146,161 @@ def spatial_phase(seed: int, card: str, main_counts, main_out, cdf_counts,
                  for k in codec_wrap})
     rows.update({k: (cdf_run["counts"][0][k], "phase 11, spatial cdf")
                  for k in cdf_keys})
-    return rows
+    return rows, {"phase 11 spatial 512 px f32 (one-shot spawn)":
+                  sp["walls"][1]}
+
+
+def served_ranks_phase(seed: int, card: str, main_counts, cdf_counts,
+                       walls: dict):
+    """Phase 12: multi-device requests as the server runs them
+    (optimaltextures_tpu_torch/serve.py on a parallel.mesh.RankGroup), at
+    512 px with the main path's settings, the style exemplar from ``seed``
+    sent as a base64 PNG and parsed by ``serve._parse_request``. A gloo
+    group of two ranks sharing this card (NCCL refuses two ranks on one
+    GPU) runs, through ``serve._run_on_group``: a seeded spatial_devices 2
+    request cold and 3 warm, then a seeded num_devices 2 batch 2 request
+    cold and 3 warm, each bit-equal to one ``mesh.spawn`` of
+    ``core.synthesize`` on the same decoded arrays and seed (both
+    references in one spawn), every rank at the main path's launches (its
+    counts set to 0 just before each request), no style prep on a warm
+    request, the same rank processes throughout; two unseeded spatial
+    requests (they differ); a cdf spatial request (each rank's histogram
+    and remap launches path A's); then ``close()`` ends every rank. With
+    two or more cards an HTTP server with workers=2 (NCCL) answers the
+    seeded spatial request within one uint8 level of the gloo output, else
+    a line says that this step was skipped. Prints the served walls beside
+    ``walls`` (phases 10 and 11) and its own clock."""
+    import base64
+    import dataclasses
+    import io
+
+    import torch
+    from PIL import Image
+
+    from optimaltextures_tpu_torch import core, serve
+    from optimaltextures_tpu_torch.parallel.mesh import RankGroup, spawn
+    from optimaltextures_tpu_torch.tools import dryrun_multichip as dr
+
+    t_phase = time.time()
+    style_u8 = (np.clip(_style_exemplar(seed + 1)[0], 0, 1) * 255 + 0.5).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(style_u8).save(buf, "PNG")
+    b64 = base64.b64encode(buf.getvalue()).decode()
+    codec_f32 = [k for k in main_counts if k in _CODEC]
+    keys = codec_f32 + ["batched_histogram", "pwl_remap"]
+
+    def payload(**cfg):
+        return {"config": {"size": 512, **cfg}, "style_b64": [b64],
+                "format": "npy"}
+
+    sp_req = serve._parse_request(payload(seed=seed, spatial_devices=2))
+    dp_req = serve._parse_request(payload(seed=seed, num_devices=2, batch=2))
+    t0 = time.time()
+    refs = spawn(dr.jobs, 2, backend="gloo", device="cuda:0", args=([
+        ("run_rank", (dataclasses.asdict(r.cfg), r.styles, ("once",)))
+        for r in (sp_req, dp_req)],), deadline_s=600)
+    t_refs = time.time() - t0
+    ref_sp, ref_dp = (core._quant_u8(torch.from_numpy(r["out"])).numpy()
+                      for r in refs)
+
+    t0 = time.time()
+    group = RankGroup(["cuda:0", "cuda:0"], backend="gloo")
+    start_s = time.time() - t0
+    pids = group.pids
+    print(f"phase 12: a gloo rank group of 2 on cuda:0 started in {start_s:.4f} "
+          f"s (pids {pids}); the one-shot references' spawn took {t_refs:.1f} s "
+          f"[{card}]", flush=True)
+
+    def served(name, req, want):
+        t0 = time.time()
+        batch, reports = serve._run_on_group(group, req)
+        wall = time.time() - t0
+        launches = [r["launches"] for r in reports]
+        preps = [r["style_preps"] for r in reports]
+        print(f"served {name}: {wall:.4f} s, style preps per rank {preps}, "
+              f"rank 0's launches "
+              f"{ {k: v for k, v in launches[0].items() if v} }", flush=True)
+        _rank_counts_ok(f"served {name}", launches, want, keys)
+        if group.pids != pids:
+            raise AssertionError(f"served {name}: the ranks are {group.pids}, "
+                                 f"not {pids}")
+        return batch, wall, preps
+
+    def seeded(name, req, ref):
+        labels = ("cold", "warm 1", "warm 2", "warm 3")
+        outs, ws = [], []
+        for label in labels:
+            batch, wall, preps = served(f"{name} ({label})", req, main_counts)
+            if (label == "cold" and not all(preps)) or (label != "cold"
+                                                        and any(preps)):
+                raise AssertionError(f"served {name} ({label}): style preps "
+                                     f"{preps}")
+            outs.append(batch)
+            ws.append(wall)
+        for label, out in zip(labels, outs):
+            if out.shape != ref.shape or not np.array_equal(out, ref):
+                raise AssertionError(
+                    f"served {name} ({label}): {out.shape}, "
+                    f"{int((out != ref).sum()) if out.shape == ref.shape else '-'} "
+                    f"bytes differ from the one-shot spawn's")
+        print(f"served {name}: cold {ws[0]:.4f} s, warm {ws[1]:.4f}, "
+              f"{ws[2]:.4f}, {ws[3]:.4f} s; every output bit-equal to the "
+              f"one-shot spawn of core.synthesize; each rank at the main "
+              f"path's launches; warm requests dispatch no style prep [{card}]",
+              flush=True)
+        return outs[0], ws
+
+    try:
+        sp_out, sp_walls = seeded("spatial_devices 2", sp_req, ref_sp)
+        _, dp_walls = seeded("num_devices 2, batch 2", dp_req, ref_dp)
+        a, _, _ = served("unseeded spatial 1", serve._parse_request(
+            payload(spatial_devices=2)), main_counts)
+        b, _, _ = served("unseeded spatial 2", serve._parse_request(
+            payload(spatial_devices=2)), main_counts)
+        if np.array_equal(a, b):
+            raise AssertionError("served: two unseeded requests are equal")
+        _, cdf_s, _ = served("cdf spatial", serve._parse_request(
+            payload(seed=seed, spatial_devices=2, hist_mode="cdf")),
+            {**main_counts, **cdf_counts})
+    finally:
+        group.close()
+    if any(os.path.exists(f"/proc/{p}") for p in pids):
+        raise AssertionError(f"served: ranks {pids} outlived close()")
+    print(f"served on 2 gloo ranks sharing one card (not scaling), 512 px f32: "
+          f"group start {start_s:.4f} s; spatial cold {sp_walls[0]:.4f} s, warm "
+          f"{min(sp_walls[1:]):.4f}-{max(sp_walls[1:]):.4f} s; DP batch 2 cold "
+          f"{dp_walls[0]:.4f} s, warm {min(dp_walls[1:]):.4f}-"
+          f"{max(dp_walls[1:]):.4f} s; cdf spatial {cdf_s:.4f} s (cold); beside "
+          + "; ".join(f"{k} warm {v:.4f} s" for k, v in walls.items())
+          + f"; close() ended every rank [{card}]", flush=True)
+
+    if torch.cuda.device_count() < 2:
+        print("phase 12, served over HTTP on two cards (NCCL): skipped, this "
+              "machine has one card", flush=True)
+    else:
+        server = _Server(workers=2)
+        try:
+            status, headers, body, seconds = server.post(
+                payload(seed=seed, spatial_devices=2))
+            group_pids = [p for g in server.srv.workers._groups.values()
+                          for p in g.pids]
+        finally:
+            server.close()
+        if status != 200 or headers["X-Optex-Worker"] != "0,1":
+            raise AssertionError(f"served over NCCL: HTTP {status}: {body[:300]!r}")
+        got = np.load(io.BytesIO(body))
+        # 2e-3 (JAX's DP bound) x 255 < 1: a float gap within the bound moves a
+        # pixel by at most one uint8 level
+        err = int(np.abs(got.astype(np.int16) - sp_out.astype(np.int16)).max())
+        print(f"served spatial_devices 2 over HTTP, workers=2 on 2 cards (NCCL): "
+              f"{seconds:.4f} s cold (the group's start included); max |NCCL - "
+              f"gloo| {err} uint8 levels (bound 1) [{card}]", flush=True)
+        if got.shape != sp_out.shape or err > 1:
+            raise AssertionError(f"served over NCCL: {got.shape}, {err} levels")
+        if any(os.path.exists(f"/proc/{p}") for p in group_pids):
+            raise AssertionError("served over NCCL: a rank outlived server_close()")
+    print(f"phase 12: {time.time() - t_phase:.1f} s [{card}]", flush=True)
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2199,10 +2374,13 @@ def main() -> int:
     else:
         print("cli phase not run: Pillow is not installed", flush=True)
     serve_phase(args.seed, card)   # needs Pillow: a request's images are PNGs
-    dp_phase(args.seed, card, main_counts, main_out, cdf_counts, slice_counts)
-    spatial_counts = spatial_phase(args.seed, card, main_counts, main_out,
-                                   cdf_counts, cdf_out, tile_counts["_wrap"],
-                                   t_out)
+    walls = dp_phase(args.seed, card, main_counts, main_out, cdf_counts,
+                     slice_counts)
+    spatial_counts, sp_walls = spatial_phase(
+        args.seed, card, main_counts, main_out, cdf_counts, cdf_out,
+        tile_counts["_wrap"], t_out)
+    served_ranks_phase(args.seed, card, main_counts, cdf_counts,
+                       {**walls, **sp_walls})
 
     kernels = []
     for name, r in rows.items():

@@ -605,20 +605,7 @@ class Synthesizer:
         self.iters_table, self.sizes = schedule.iters_and_sizes(
             cfg.size, cfg.iters, cfg.passes, not cfg.no_multires,
             quirk=cfg.compat_schedule_quirk, num_layers=self.depth)
-        if cfg.tileable:
-            # an odd size reaches ceil-mode pooling's -inf pad row, which
-            # breaks the torus equivariance that makes the output tile
-            stride = 2 ** (self.depth - 1)
-            for size in self.sizes:
-                if size % stride:
-                    raise ValueError(
-                        f"tileable needs every pass size divisible by "
-                        f"{stride} (2^(depth-1)); pass size {size} is not")
-        if self.space is not None:
-            from .parallel.spatial import check_spatial_divisibility
-
-            for size in self.sizes:
-                check_spatial_divisibility(size, n_space, self.depth)
+        check_pass_sizes(self.sizes, self.depth, cfg.tileable, n_space)
         # tileable: circular conv padding and wrap-tap pastiche resizes;
         # style and content prep keep reflect taps (vgg.encode_taps)
         self.pad_mode = "wrap" if cfg.tileable else "reflect"
@@ -634,8 +621,11 @@ class Synthesizer:
         # cross-run style prep cache (LRU), keyed ((styles_token,
         # fingerprint), pass key): see run(styles_token=)
         self._style_prep_cache = OrderedDict()
-        # the realised per-(pass, layer) PCA widths of the last run
+        # the realised per-(pass, layer) PCA widths of the last run, and the
+        # style preps dispatched since it began (none when the styles_token
+        # cache held every pass's)
         self.last_run_ks = None
+        self.last_run_style_preps = 0
         self.reseed(cfg.seed)
 
     def reseed(self, seed: Optional[int]) -> None:
@@ -741,6 +731,7 @@ class Synthesizer:
         """One pass's style resize + multi-tap encode + spectra. Gate-skip
         passes encode the ORIGINAL styles, like the reference."""
         cfg = self.cfg
+        self.last_run_style_preps += 1
         if do_resize:
             style_tens = []
             for s in styles:
@@ -914,6 +905,7 @@ class Synthesizer:
         collectives)."""
         cfg = self.cfg
         dev = self.device
+        self.last_run_style_preps = 0
         run_key = key if key is not None else self.next_run_key()
         if styles_token is not None:
             styles_token = (styles_token, _styles_fingerprint(styles))
@@ -1238,6 +1230,27 @@ def draw_noise(device, run_key: int, shape) -> torch.Tensor:
     on ``device`` from the generator (run_key, 999)."""
     return torch.rand(shape, generator=generator(device, run_key, 999),
                       device=device, dtype=torch.float32)
+
+
+def check_pass_sizes(sizes, depth: int, tileable: bool, n_space: int = 1
+                     ) -> None:
+    """A Synthesizer's refusals of its pass ``sizes`` at ``depth``: a
+    tileable run needs each divisible by 2^(depth-1) (an odd size reaches
+    ceil-mode pooling's -inf pad row, which breaks the torus equivariance
+    that makes the output tile), spatial sharding over ``n_space`` ranks by
+    n_space x 2^(depth-1)."""
+    if tileable:
+        stride = 2 ** (depth - 1)
+        for size in sizes:
+            if size % stride:
+                raise ValueError(
+                    f"tileable needs every pass size divisible by "
+                    f"{stride} (2^(depth-1)); pass size {size} is not")
+    if n_space > 1:
+        from .parallel.spatial import check_spatial_divisibility
+
+        for size in sizes:
+            check_spatial_divisibility(size, n_space, depth)
 
 
 def synthesize(cfg: OptexConfig, styles, content=None, pastiche=None,

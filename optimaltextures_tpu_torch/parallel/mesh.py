@@ -18,18 +18,22 @@ so gloo is how two ranks share one card). The backend is the caller's
 choice; nothing falls back from one to the other.
 
 Ranks come from :func:`spawn` (``spawn`` start method, a ``file://``
-rendezvous in a fresh temporary directory, a group timeout and a deadline)
-or from ``torchrun``, under which :func:`make_mesh` takes the group that is
-already there."""
+rendezvous in a fresh temporary directory, a group timeout and a deadline),
+from a :class:`RankGroup` (the same start, but the ranks stay and run job
+after job: the server's multi-device requests) or from ``torchrun``, under
+which :func:`make_mesh` takes the group that is already there."""
 
 from __future__ import annotations
 
 import datetime
+import io
 import os
 import shutil
 import tempfile
+import threading
 import time
-from typing import Callable, Optional
+import traceback
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -229,9 +233,10 @@ def _rank_device(device, rank: int) -> torch.device:
     return device
 
 
-def _rank_main(rank: int, n: int, target: Callable, args: tuple, backend: str,
-               device, store: str, result: str, timeout_s: float,
-               threads: int, build_dir: str) -> None:
+def _rank_setup(rank: int, n: int, backend: str, device, store: str,
+                timeout_s: float, threads: int, build_dir: str) -> Mesh:
+    """A new rank process's start: the parent's thread count and kernel
+    build directory, its device, the process group; its mesh."""
     from ..ops import cuda_build
 
     torch.set_num_threads(threads)
@@ -243,9 +248,17 @@ def _rank_main(rank: int, n: int, target: Callable, args: tuple, backend: str,
                             world_size=n,
                             timeout=datetime.timedelta(seconds=timeout_s),
                             device_id=dev if backend == "nccl" else None)
+    return make_mesh(n, device=dev)
+
+
+def _rank_main(rank: int, n: int, target: Callable, args: tuple, backend: str,
+               device, store: str, result: str, timeout_s: float,
+               threads: int, build_dir: str) -> None:
+    mesh = _rank_setup(rank, n, backend, device, store, timeout_s, threads,
+                       build_dir)
     # a rank that raises leaves the group as it is: the others are ended by
     # spawn (their collectives would wait for it)
-    out = target(make_mesh(n, device=dev), *args)
+    out = target(mesh, *args)
     if rank == 0:
         torch.save(out, result + ".tmp")
         os.replace(result + ".tmp", result)
@@ -302,3 +315,193 @@ def spawn(target: Callable, n: int, *, backend: str = "nccl", device=None,
         for p in ctx.processes:
             p.join(10)
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _send(conn, obj) -> None:
+    """``obj`` through a pipe, pickled by ``torch.save`` (tensors by value)."""
+    buf = io.BytesIO()
+    torch.save(obj, buf)
+    conn.send_bytes(buf.getvalue())
+
+
+def _recv(conn):
+    return torch.load(io.BytesIO(conn.recv_bytes()), map_location="cpu",
+                      weights_only=False)
+
+
+def _group_rank_main(rank: int, n: int, backend: str, device, store: str,
+                     timeout_s: float, threads: int, build_dir: str,
+                     conn) -> None:
+    """A :class:`RankGroup` rank: set up once, then run every job that comes
+    through ``conn`` until ``None`` or the pipe's end."""
+    mesh = _rank_setup(rank, n, backend, device, store, timeout_s, threads,
+                       build_dir)
+    _send(conn, ("ready", os.getpid()))
+    while True:
+        try:
+            job = _recv(conn)
+        except EOFError:      # the parent is gone
+            break
+        if job is None:
+            break
+        target, args = job
+        try:
+            reply = ("ok", target(mesh, *args))
+        except Exception as e:
+            # the parent ends every rank: the others may wait in a
+            # collective for this one
+            reply = ("error", type(e).__name__, str(e),
+                     traceback.format_exc())
+        _send(conn, reply)
+    dist.destroy_process_group()
+
+
+class RankFailed(RuntimeError):
+    """A rank of a :class:`RankGroup` raised (``type_name`` is its
+    exception's type, ``message`` its text, ``trace`` its traceback) or its
+    process ended (``type_name`` "ProcessExited")."""
+
+    def __init__(self, rank: int, type_name: str, message: str,
+                 trace: str = ""):
+        super().__init__(f"rank {rank}: {type_name}: {message}")
+        self.rank, self.type_name, self.message = rank, type_name, message
+        self.trace = trace
+
+
+class RankGroup:
+    """The persistent counterpart of :func:`spawn`: ``len(devices)``
+    processes, rank r on ``devices[r]``, joined in one process group once
+    and then running job after job (:meth:`run`), each keeping what it
+    built (a server's warm pools) from one job to the next.
+
+    The ranks start as :func:`spawn`'s do (the ``spawn`` method, this
+    process's torch thread count and kernel build directory, a ``file://``
+    store in a fresh temporary directory, :data:`GROUP_TIMEOUT_S`); the
+    constructor returns when every rank has joined the group. The backend
+    is the caller's choice: nothing falls back from NCCL to gloo or from
+    the card to the CPU. Jobs and results pass by ``torch.save`` (tensors
+    come back on the host).
+
+    A rank that raises, a rank process that ends and a missed deadline
+    each kill EVERY process of the group (the others may sit in a
+    collective) and raise here: :class:`RankFailed`, or TimeoutError. A
+    group that has failed is never used again (:attr:`alive` is False). A
+    rank whose pipe ends (this process died) leaves the group and exits."""
+
+    def __init__(self, devices: Sequence, backend: str = "nccl"):
+        import multiprocessing as mp
+
+        from ..ops import cuda_build
+
+        if not devices:
+            raise ValueError("a rank group needs at least one device")
+        if backend not in ("nccl", "gloo"):
+            raise ValueError(f"backend must be nccl|gloo, got {backend!r}")
+        self._lock = threading.Lock()
+        self._tmp = tempfile.mkdtemp(prefix="optex_group_")
+        ctx = mp.get_context("spawn")
+        n = len(devices)
+        self._conns, self._procs = [], []
+        for rank, dev in enumerate(devices):
+            ours, theirs = ctx.Pipe()
+            # daemonic: ended at this interpreter's exit
+            p = ctx.Process(target=_group_rank_main, daemon=True, args=(
+                rank, n, backend, str(dev), os.path.join(self._tmp, "store"),
+                GROUP_TIMEOUT_S, torch.get_num_threads(), cuda_build.BUILD_DIR,
+                theirs))
+            p.start()
+            theirs.close()
+            self._conns.append(ours)
+            self._procs.append(p)
+        self._ok = True
+        self._collect(GROUP_TIMEOUT_S, "start")
+
+    @property
+    def pids(self) -> list:
+        return [p.pid for p in self._procs]
+
+    @property
+    def alive(self) -> bool:
+        """True until the group fails or closes, while every rank runs."""
+        return self._ok and all(p.is_alive() for p in self._procs)
+
+    def run(self, target: Callable, *args, deadline_s: float = 900.0) -> list:
+        """``target(mesh, *args)`` on every rank (``target`` a module-level
+        function, pickled by name); the list of every rank's result, in rank
+        order. One job at a time: a second caller waits."""
+        with self._lock:
+            if not self.alive:
+                raise RuntimeError("this rank group has failed or closed")
+            for rank, conn in enumerate(self._conns):
+                try:
+                    _send(conn, (target, args))
+                except OSError as e:   # the rank's end of the pipe is gone
+                    self._kill()
+                    raise RankFailed(rank, "ProcessExited",
+                                     f"could not send the job: {e}") from e
+            return self._collect(deadline_s, "job")
+
+    def _collect(self, deadline_s: float, what: str) -> list:
+        """Every rank's reply, or the group killed and an exception."""
+        from multiprocessing.connection import wait
+
+        deadline = time.monotonic() + deadline_s
+        results = [None] * len(self._conns)
+        pending = {c: r for r, c in enumerate(self._conns)}
+        while pending:
+            left = deadline - time.monotonic()
+            ready = wait(list(pending), timeout=max(0.0, left))
+            if not ready and left <= 0:
+                self._kill()
+                raise TimeoutError(f"{len(pending)} of {len(self._conns)} "
+                                   f"ranks did not finish the {what} within "
+                                   f"{deadline_s} s")
+            for conn in ready:
+                rank = pending.pop(conn)
+                try:
+                    reply = _recv(conn)
+                except (EOFError, OSError):   # the rank's end is gone
+                    self._kill()
+                    code = self._procs[rank].exitcode
+                    raise RankFailed(rank, "ProcessExited",
+                                     f"rank {rank}'s process (pid "
+                                     f"{self._procs[rank].pid}) ended, exit "
+                                     f"code {code}") from None
+                if reply[0] == "error":
+                    self._kill()
+                    raise RankFailed(rank, *reply[1:])
+                results[rank] = reply[1]
+        return results
+
+    def _kill(self) -> None:
+        self._ok = False
+        for p in self._procs:
+            if p.is_alive():
+                p.kill()
+        self._reap()
+
+    def _reap(self) -> None:
+        for p in self._procs:
+            p.join(10)
+        for c in self._conns:
+            c.close()
+        shutil.rmtree(self._tmp, ignore_errors=True)
+
+    def close(self) -> None:
+        """End the ranks: ``None`` to each (they leave the group and exit),
+        a short wait, then kill whatever is left. Safe to call twice."""
+        with self._lock:
+            if self._ok:
+                self._ok = False
+                for c in self._conns:
+                    try:
+                        _send(c, None)
+                    except OSError:
+                        pass
+                deadline = time.monotonic() + 10.0
+                for p in self._procs:
+                    p.join(max(0.0, deadline - time.monotonic()))
+            for p in self._procs:
+                if p.is_alive():
+                    p.kill()
+            self._reap()

@@ -13,6 +13,19 @@ worker coalesce into ONE batched run (``--coalesce``, RequestCoalescer).
 Every run goes through ``Synthesizer.run`` and the CUDA kernels; the server
 runs on the GPU unless it is given ``device="cpu"`` (tests).
 
+A multi-device request (``num_devices`` N > 1 batch-parallel,
+``spatial_devices`` S > 1, or both: the 2-D grid) takes an aligned block of
+n = N * S workers, ``[k n, (k + 1) n)``, checked out together
+(:meth:`WorkerSet.checkout_block`), and runs on the block's rank group: n
+processes, one a card, joined once by NCCL (gloo for CPU workers) and kept
+for later requests (``parallel.mesh.RankGroup``), each rank with a warm
+pool of its own on its card. Every rank runs the request through the same
+``Synthesizer.run`` as a one-worker request; rank 0's output is the
+response. A request that ``api.run_files`` refuses is refused here with
+400 before any rank is touched; a rank that fails ends its group (the next
+request starts a new one) and the request gets 400 (a ValueError, TypeError
+or KeyError) or 500.
+
     python -m optimaltextures_tpu_torch.serve --port 8700
 
     POST /v1/synthesize
@@ -24,6 +37,9 @@ runs on the GPU unless it is given ``device="cpu"`` (tests).
                                                  # style, not a mix; with
                                                  # config.num_devices = N,
                                                  # style i on worker i
+                                                 # (else num_devices /
+                                                 # spatial_devices: a block
+                                                 # of workers' ranks)
        "format": "png"}                          # png (default) | jpeg
                                                  # (quality 92) | npy (the
                                                  # raw uint8 batch)
@@ -31,11 +47,10 @@ runs on the GPU unless it is given ``device="cpu"`` (tests).
        base64-encoded when config.batch > 1, or application/octet-stream
        (.npy, the whole (N, H, W, 3) uint8 batch) for format=npy
     -> 400 for a bad request (a tileable one whose pass sizes do not
-       divide by 2^(depth-1) among them; style_parallel with num_devices
-       above the worker count or other than the style count); 501 for a
-       multi-device request the server does not serve yet (spatial_devices
-       > 1, and batch-parallel num_devices > 1: their ranks run one process
-       per GPU, and a worker here is a thread; ROADMAP.md, queue 1 item 15c)
+       divide by 2^(depth-1) among them; a spatial one whose pass sizes do
+       not divide by spatial_devices x 2^(depth-1); batch not divisible by
+       num_devices; more devices than workers; style_parallel with
+       num_devices other than the style count); 500 for a server fault
 
     GET /healthz -> {"status": "ok", "devices": [...], "cached": N,
                      "workers": W}
@@ -203,19 +218,33 @@ class _Request:
 
 def handle_synthesize(pool: SynthesizerPool, payload: dict,
                       config_defaults: dict | None = None):
-    """Run one request; returns (content_type, body bytes).
+    """Run one single-device request; returns (content_type, body bytes).
 
     ``config_defaults``: operator-set config values for the fields a request
     omits (e.g. ``{"conv_dtype": "bfloat16"}``). Raises ValueError on bad
-    input, NotImplementedError on a multi-device request (not served yet)."""
+    input."""
     return _execute(pool, _parse_request(payload, config_defaults))
+
+
+def _check_pass_sizes(cfg: OptexConfig) -> None:
+    """``core.check_pass_sizes`` of the pass sizes a Synthesizer of ``cfg``
+    would run, on the host (no VGG bank is loaded)."""
+    from .core import check_pass_sizes
+    from .models import weights
+    from .utils import schedule
+
+    depth = cfg.depth or max(weights.available_depths())
+    _, sizes = schedule.iters_and_sizes(
+        cfg.size, cfg.iters, cfg.passes, not cfg.no_multires,
+        quirk=cfg.compat_schedule_quirk, num_layers=depth)
+    check_pass_sizes(sizes, depth, cfg.tileable, cfg.spatial_devices)
 
 
 def _parse_request(payload: dict,
                    config_defaults: dict | None = None) -> _Request:
     """Decode and validate one request body (host work only: PIL decodes,
-    config validation, the style token). Raises ValueError, or
-    NotImplementedError for a multi-device request (ROADMAP.md item 15c)."""
+    config validation, the style token, a multi-device request's pass
+    sizes). Raises ValueError."""
     cfg_args = dict(config_defaults or {})
     cfg_args.update({k: v for k, v in payload.get("config", {}).items()
                      if k in _CONFIG_FIELDS})
@@ -273,12 +302,13 @@ def _parse_request(payload: dict,
         if cfg.num_devices > 1 and len(styles) != cfg.num_devices:
             raise ValueError(f"{len(styles)} styles for num_devices="
                              f"{cfg.num_devices}: pass one style per device")
-    if (cfg.num_devices > 1 and not style_parallel) or cfg.spatial_devices > 1:
-        raise NotImplementedError(
-            "multi-device requests (batch-parallel num_devices > 1, "
-            "spatial_devices > 1) are not served by the torch package yet: "
-            "their ranks run one process per GPU (run them through the CLI "
-            "or api.run_files; ROADMAP.md, queue 1 item 15c)")
+    elif cfg.num_devices * cfg.spatial_devices > 1:
+        # api.run_files' and Synthesizer's refusals before their first
+        # collective (the worker count is checked at checkout)
+        if cfg.batch % cfg.num_devices:
+            raise ValueError(f"batch {cfg.batch} not divisible by "
+                             f"num_devices {cfg.num_devices}")
+        _check_pass_sizes(cfg)
 
     # stable (process-independent) style identity: the key of the in-memory
     # prep cache and part of the style pack's file name
@@ -295,31 +325,40 @@ def _device_cm(pool):
     return contextlib.nullcontext()
 
 
-def _run(pool: SynthesizerPool, req: _Request) -> np.ndarray:
-    """The device-touching half of a request: its (N, H, W, 3) uint8 batch."""
+def _pool_run(pool: SynthesizerPool, req: _Request, write_pack: bool = True):
+    """The device-touching half of a request, on ``pool`` (which the caller
+    has to itself): (its (N, H, W, 3) uint8 batch, the Synthesizer that ran
+    it). For a multi-device request every rank calls it with the same
+    request and gets the whole batch."""
     from .core import draw_noise
 
     cfg = req.cfg
-    with pool.lock, _device_cm(pool):
-        synth = pool.get(cfg)
-        _maybe_import_pack(synth, req.token)
-        # per-request key: fresh entropy per request when no seed is given
-        # (repeated identical requests differ), the same for a fixed seed
-        # (identical bytes); the noise and the rotations derive from it
-        run_key = synth.next_run_key()
-        if req.init is not None:   # batch > 1 with init was refused
-            noise = torch.as_tensor(req.init, dtype=torch.float32)
-        else:
-            shape = (req.content.shape if req.content is not None else
-                     (cfg.batch, cfg.size, cfg.out_width or cfg.size, 3))
-            noise = draw_noise(synth.device, run_key, shape)
-        # the styles stay host numpy arrays: run() fingerprints them for
-        # the styles_token key, a hash of host bytes
-        out = synth.run(noise, req.styles, req.content, key=run_key,
-                        styles_token=req.token, quantize_uint8=True)
-        batch = out.cpu().numpy()   # uint8, quantized on the device
+    synth = pool.get(cfg)
+    _maybe_import_pack(synth, req.token)
+    # per-request key: fresh entropy per request when no seed is given
+    # (repeated identical requests differ), the same for a fixed seed
+    # (identical bytes); the noise and the rotations derive from it
+    run_key = synth.next_run_key()
+    if req.init is not None:   # batch > 1 with init was refused
+        noise = torch.as_tensor(req.init, dtype=torch.float32)
+    else:
+        shape = (req.content.shape if req.content is not None else
+                 (cfg.batch, cfg.size, cfg.out_width or cfg.size, 3))
+        noise = draw_noise(synth.device, run_key, shape)
+    # the styles stay host numpy arrays: run() fingerprints them for the
+    # styles_token key, a hash of host bytes
+    out = synth.run(noise, req.styles, req.content, key=run_key,
+                    styles_token=req.token, quantize_uint8=True)
+    batch = out.cpu().numpy()   # uint8, quantized on the device
+    if write_pack:
         _maybe_export_pack(synth, req.token, n_styles=len(req.styles))
-    return batch
+    return batch, synth
+
+
+def _run(pool: SynthesizerPool, req: _Request) -> np.ndarray:
+    """A single-device request on one worker: its (N, H, W, 3) uint8 batch."""
+    with pool.lock, _device_cm(pool):
+        return _pool_run(pool, req)[0]
 
 
 def _execute(pool: SynthesizerPool, req: _Request):
@@ -407,6 +446,72 @@ def _execute_style_parallel(workers: "WorkerSet", req: _Request):
             ",".join(map(str, idxs)))
 
 
+# a multi-device request's deadline on its ranks (parallel.mesh.spawn's
+# default): past it the group is killed and the request fails
+_RANK_DEADLINE_S = 900.0
+
+# a rank's own pool (process-global: it lives as long as the rank)
+_RANK_POOL = None
+
+
+def _serve_rank(mesh, req: _Request, pack_dir):
+    """One multi-device request on this rank of a RankGroup: the rank's
+    pool (on ``mesh.device``; ``pool.get`` builds the Synthesizer from the
+    rank's process group) through :func:`_pool_run`, the launch counts set
+    to 0 just before the run. ``pack_dir``: the server's $OPTEX_PACK_DIR
+    (every rank imports a pack, rank 0 writes one). Returns (the uint8
+    batch on rank 0, else None; {"launches": this rank's kernel launches,
+    "style_preps": the style preps it dispatched})."""
+    from .ops import cdf, codec
+
+    global _RANK_POOL
+    if _RANK_POOL is None:
+        _RANK_POOL = SynthesizerPool(device=mesh.device)
+    if pack_dir:
+        os.environ["OPTEX_PACK_DIR"] = pack_dir
+    else:
+        os.environ.pop("OPTEX_PACK_DIR", None)
+    codec.reset_launches()
+    cdf.reset_launches()
+    batch, synth = _pool_run(_RANK_POOL, req, write_pack=mesh.rank == 0)
+    report = {"launches": {**codec.LAUNCHES, **cdf.LAUNCHES},
+              "style_preps": synth.last_run_style_preps}
+    return (batch if mesh.rank == 0 else None), report
+
+
+def _run_on_group(group, req: _Request, deadline_s: float = _RANK_DEADLINE_S):
+    """``req`` on every rank of ``group`` (a ``parallel.mesh.RankGroup`` of
+    num_devices x spatial_devices ranks): (rank 0's uint8 batch, every
+    rank's report, in rank order). A rank's ValueError, TypeError or
+    KeyError is raised as a ValueError (a bad request); any other failure
+    as it came. Either way the group is gone."""
+    from .parallel.mesh import RankFailed
+
+    try:
+        got = group.run(_serve_rank, req, os.environ.get("OPTEX_PACK_DIR"),
+                        deadline_s=deadline_s)
+    except RankFailed as e:
+        if e.type_name in ("ValueError", "TypeError", "KeyError"):
+            raise ValueError(str(e)) from e
+        raise
+    return got[0][0], [report for _, report in got]
+
+
+def _execute_on_ranks(workers: "WorkerSet", req: _Request):
+    """A multi-device request: (content_type, body, worker indices). The
+    block of n = num_devices x spatial_devices workers is checked out until
+    the ranks answer, so no single-device request shares its cards
+    meanwhile."""
+    idxs = workers.checkout_block(req.cfg.num_devices
+                                  * req.cfg.spatial_devices)
+    try:
+        batch, _ = _run_on_group(workers.group(idxs), req)
+    finally:
+        for i in idxs:
+            workers.checkin(i)
+    return (*_encode_batch(batch, req.fmt), ",".join(map(str, idxs)))
+
+
 def _encode_batch(batch, fmt="png"):
     """(N, H, W, 3) uint8 -> response (content_type, body).
 
@@ -437,13 +542,15 @@ def _encode_batch(batch, fmt="png"):
 
 def _batchable(req: _Request) -> bool:
     """Can this request join a coalesced cohort? Only unseeded single-image
-    synthesis from ONE style: a seeded request promises identical reruns
-    (a cohort's pooled moments would break that), content or init define a
-    pastiche of their own, and mixing draws one mask per RUN (members would
-    share a region layout)."""
+    synthesis from ONE style on one device: a seeded request promises
+    identical reruns (a cohort's pooled moments would break that), content
+    or init define a pastiche of their own, mixing draws one mask per RUN
+    (members would share a region layout), and a multi-device request runs
+    on its block's ranks."""
     return (not req.style_parallel and req.content is None
             and req.init is None and req.cfg.seed is None
-            and req.cfg.batch == 1 and len(req.styles) == 1)
+            and req.cfg.batch == 1 and len(req.styles) == 1
+            and req.cfg.num_devices == 1 and req.cfg.spatial_devices == 1)
 
 
 def _pad_cohort(n: int) -> int:
@@ -597,7 +704,13 @@ class WorkerSet:
     concurrently on N devices while each worker's lock keeps its device
     single-stream; sequential requests rotate across the workers. A
     style-parallel request takes several workers in one step
-    (:meth:`checkout_many`)."""
+    (:meth:`checkout_many`). A multi-device request of n ranks takes an
+    aligned block of n workers, ``[k n, (k + 1) n)`` (:meth:`checkout_block`),
+    and runs on that block's rank group (:meth:`group`): n processes that
+    stay between requests, each with pools of its own on its card (NCCL; gloo
+    for CPU workers). One group a block, so no more groups than workers (4
+    workers: blocks of 2, 3 and 4, at most 4 groups); :meth:`close` ends
+    them."""
 
     def __init__(self, n_workers: int = 1, device=None):
         from collections import deque
@@ -617,6 +730,10 @@ class WorkerSet:
         self.pools = [SynthesizerPool(device=d) for d in devices]
         self._free = deque(range(n_workers))
         self._free_cv = threading.Condition()
+        # (first worker, block size) -> parallel.mesh.RankGroup
+        self._groups = {}
+        self._groups_lock = threading.Lock()
+        self._closed = False
         # request metrics (served at /metrics, Prometheus text format)
         self.metrics_lock = threading.Lock()
         self.requests_total = {"ok": 0, "client_error": 0, "server_error": 0}
@@ -671,6 +788,66 @@ class WorkerSet:
         with self._free_cv:
             self._free_cv.wait_for(lambda: len(self._free) >= n)
             return [self._free.popleft() for _ in range(n)]
+
+    def checkout_block(self, n: int) -> list:
+        """Wait until some aligned block of ``n`` workers, ``[k n, (k + 1)
+        n)``, is wholly free and take it in one step (the lowest such k).
+        More workers than there are raises ValueError."""
+        if n > len(self.pools):
+            raise ValueError(f"requested {n} devices, have {len(self.pools)}")
+
+        def free_block():
+            for k in range(len(self.pools) // n):
+                block = list(range(k * n, (k + 1) * n))
+                if all(i in self._free for i in block):
+                    return block
+            return None
+
+        with self._free_cv:
+            self._free_cv.wait_for(lambda: free_block() is not None)
+            block = free_block()
+            for i in block:
+                self._free.remove(i)
+            return block
+
+    def group(self, block: list):
+        """The rank group of a checked-out block (its caller holds it),
+        started at its first request and again whenever it has failed.
+        Before the first group on the GPUs the kernel libraries are built
+        here, so that the ranks only load them."""
+        from .parallel.mesh import RankGroup
+
+        key = (block[0], len(block))
+        with self._groups_lock:
+            if self._closed:
+                raise RuntimeError("the worker set is closed")
+            old = self._groups.get(key)
+            if old is not None and old.alive:
+                return old
+        if old is not None:
+            old.close()
+        devices = [self.pools[i].device for i in block]
+        backend = "gloo" if devices[0].type == "cpu" else "nccl"
+        if backend == "nccl":
+            from . import api
+            from .ops import cuda_build
+
+            cuda_build.build(*api._RUN_LIBRARIES)
+        group = RankGroup(devices, backend=backend)
+        with self._groups_lock:
+            if self._closed:
+                group.close()
+                raise RuntimeError("the worker set is closed")
+            self._groups[key] = group
+        return group
+
+    def close(self) -> None:
+        """End every rank group (the server's ``server_close``)."""
+        with self._groups_lock:
+            self._closed = True
+            groups, self._groups = list(self._groups.values()), {}
+        for g in groups:
+            g.close()
 
     def checkin(self, idx: int) -> None:
         with self._free_cv:
@@ -760,6 +937,8 @@ def make_handler(workers: WorkerSet, config_defaults: dict | None = None,
                 req = _parse_request(payload, config_defaults)
                 if req.style_parallel:
                     ctype, body, idx = _execute_style_parallel(workers, req)
+                elif req.cfg.num_devices * req.cfg.spatial_devices > 1:
+                    ctype, body, idx = _execute_on_ranks(workers, req)
                 elif coalescer is not None and _batchable(req):
                     ctype, body, idx, cohort_n = coalescer.submit(req)
                 else:
@@ -768,9 +947,6 @@ def make_handler(workers: WorkerSet, config_defaults: dict | None = None,
                         ctype, body = _execute(workers.pools[idx], req)
                     finally:
                         workers.checkin(idx)
-            except NotImplementedError as e:
-                self._refuse(501, e)
-                return
             except (ValueError, TypeError, KeyError) as e:
                 self._refuse(400, e)
                 return
@@ -808,10 +984,18 @@ def serve(port: int = 8700, host: str = "127.0.0.1", workers: int = 1,
     worker_set = WorkerSet(workers, device)
     coalescer = (RequestCoalescer(worker_set, coalesce) if coalesce > 1
                  else None)
-    server = ThreadingHTTPServer(
+    server = _HTTPServer(
         (host, port), make_handler(worker_set, config_defaults, coalescer))
     server.workers, server.coalescer = worker_set, coalescer
     return server
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    """The server; closing it ends its workers' rank groups."""
+
+    def server_close(self):
+        super().server_close()
+        self.workers.close()
 
 
 def main() -> None:
@@ -822,7 +1006,10 @@ def main() -> None:
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--workers", type=int, default=1,
                    help="serving workers, one per GPU: N requests run "
-                        "concurrently on N devices")
+                        "concurrently on N devices; a multi-device request "
+                        "(num_devices x spatial_devices = n) takes an "
+                        "aligned block of n workers and runs on that "
+                        "block's rank processes")
     p.add_argument("--coalesce", type=int, default=8,
                    help="max cohort size for queue-time request batching: "
                         "unseeded single-image synthesis requests for the "

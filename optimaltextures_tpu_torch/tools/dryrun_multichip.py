@@ -4,7 +4,7 @@ and the walls of whole runs (the counterpart of the JAX package's
 
     python -m optimaltextures_tpu_torch.tools.dryrun_multichip [--n 2]
     python -m optimaltextures_tpu_torch.tools.dryrun_multichip --device cuda --n 4
-    python -m optimaltextures_tpu_torch.tools.dryrun_multichip --device cuda --n 4 --walls [--parts dp|spatial]
+    python -m optimaltextures_tpu_torch.tools.dryrun_multichip --device cuda --n 4 --walls [--parts dp|spatial|serve]
 
 The dry run starts ``--n`` ranks (gloo on the CPU by default, NCCL on
 ``cuda:0 .. cuda:N-1`` with ``--device cuda``) and runs, each through
@@ -30,12 +30,21 @@ runs it alone) times one 2048-px image at the main path's settings on N
 cards (spatial_devices N) against the same image on one card, and, with N
 = 4, a 2 x 2 grid (batch 2 at 1024 px) against batch 2 on one card: walls
 cold and warm, each rank's launches and peak memory, and the output's
-max |diff| from the one-card run.
+max |diff| from the one-card run. Its serve part (``--parts serve``)
+starts an HTTP server in this process (``serve.serve``, ``workers`` N on
+the N cards) and sends it seeded multi-device requests, which run on the
+server's persistent rank group: DP batch N at 512 px, one 2048-px image on
+N cards (spatial_devices N) and, with N = 4, the 2 x 2 grid at 1024 px,
+batch 2; each once cold (with the first, the group's start), then 5 warm
+in npy and 5 in png, beside ``api.run_files`` of the same config (which
+starts its ranks every call), and the served output's max |diff| in uint8
+levels from it.
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import os
 import subprocess
@@ -370,7 +379,7 @@ def _line(name, walls, images, peaks, dev_card):
 
 def walls(n: int, card_name: str, parts: str = "all") -> dict:
     """The --walls measurement (module docstring); ``parts``: all, dp (the
-    DP and style-parallel runs) or spatial."""
+    DP and style-parallel runs), spatial or serve."""
     from .. import config, core
     from ..ops import cuda_build
     from ..parallel.mesh import spawn
@@ -402,6 +411,8 @@ def walls(n: int, card_name: str, parts: str = "all") -> dict:
 
     if parts == "spatial":
         return walls_spatial(n, card_name, rec)
+    if parts == "serve":
+        return walls_serve(n, card_name, rec)
     one_card("batch 1 f32", lambda: core.synthesize(
         config.OptexConfig(**f32), styles[:1], device="cuda")[0], 1)
     one_card("batch 128 bf16", lambda: core.synthesize(
@@ -430,6 +441,7 @@ def walls(n: int, card_name: str, parts: str = "all") -> dict:
                                         peaks=r["peaks"])
     if parts == "all":
         walls_spatial(n, card_name, rec)
+        walls_serve(n, card_name, rec)
     return rec
 
 
@@ -488,6 +500,83 @@ def walls_spatial(n: int, card_name: str, rec: dict) -> dict:
     return rec
 
 
+def walls_serve(n: int, card_name: str, rec: dict) -> dict:
+    """The serve part of --walls (module docstring)."""
+    import base64
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    from .. import api, config, core, serve
+
+    style = os.path.join(SAMPLES, STYLES_512[0])
+    with open(style, "rb") as f:
+        b64 = base64.b64encode(f.read()).decode()
+    cases = [(f"DP batch {n} f32, 512 px",
+              dict(size=512, seed=0, num_devices=n, batch=n), n),
+             (f"spatial {n}, one 2048-px image",
+              dict(size=2048, seed=0, spatial_devices=n), 1)]
+    if n == 4:
+        cases.append(("grid 2 x 2, batch 2, 1024 px",
+                      dict(size=1024, seed=0, num_devices=2,
+                           spatial_devices=2, batch=2), 2))
+    srv = serve.serve(port=0, workers=n, coalesce=1)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}/v1/synthesize"
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="dryrun_serve_",
+                               dir=os.path.join(REPO, "build"))
+
+    def post(cfg, fmt):
+        req = urllib.request.Request(url, data=json.dumps({
+            "config": cfg, "style_b64": [b64], "format": fmt}).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.time()
+        with urllib.request.urlopen(req, timeout=1800) as r:
+            body = r.read()
+            if r.headers["X-Optex-Worker"] != ",".join(map(str, range(n))):
+                raise AssertionError(f"served on workers "
+                                     f"{r.headers['X-Optex-Worker']}")
+        return body, time.time() - t0
+
+    try:
+        for name, cfg, images in cases:
+            body, cold = post(cfg, "npy")
+            served = np.load(io.BytesIO(body))
+            warm = {fmt: [post(cfg, fmt)[1] for _ in range(5)]
+                    for fmt in ("npy", "png")}
+            t0 = time.time()
+            out, _, _ = api.run_files(config.OptexConfig(
+                style=[style], output_dir=out_dir, **cfg), device="cuda")
+            one_shot = time.time() - t0
+            want = core._quant_u8(torch.from_numpy(out)).numpy()
+            if served.shape != want.shape:
+                raise AssertionError(f"served {name}: {served.shape}, "
+                                     f"api.run_files {want.shape}")
+            err = int(np.abs(served.astype(np.int16)
+                             - want.astype(np.int16)).max())
+            print(f"served {name} on {n} cards ({card_name}): cold "
+                  f"{cold:.4f} s; warm npy {min(warm['npy']):.4f}-"
+                  f"{max(warm['npy']):.4f} s (median "
+                  f"{float(np.median(warm['npy'])):.4f}), png "
+                  f"{min(warm['png']):.4f}-{max(warm['png']):.4f} s (median "
+                  f"{float(np.median(warm['png'])):.4f}); api.run_files "
+                  f"(its own ranks) {one_shot:.4f} s; max |served - "
+                  f"run_files| {err} uint8 levels", flush=True)
+            rec[f"served {name}"] = dict(cold=cold, warm_npy=warm["npy"],
+                                         warm_png=warm["png"],
+                                         run_files=one_shot, images=images,
+                                         max_level_diff=err)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=None,
@@ -496,9 +585,11 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cpu", choices=["cpu", "cuda"])
     ap.add_argument("--walls", action="store_true",
                     help="time whole runs on the GPUs (see above)")
-    ap.add_argument("--parts", default="all", choices=["all", "dp", "spatial"],
+    ap.add_argument("--parts", default="all",
+                    choices=["all", "dp", "spatial", "serve"],
                     help="--walls: the DP and style-parallel runs, the "
-                         "spatial and grid runs, or all")
+                         "spatial and grid runs, the served requests, or "
+                         "all")
     args = ap.parse_args(argv)
     from ..parallel.mesh import spawn
 

@@ -1414,3 +1414,108 @@ def test_nccl_spatial_across_gpus_matches_one_process():
     if n < 2:
         pytest.skip("needs two GPUs")
     _spatial_case(n, "nccl", "cuda", dict(spatial_devices=n))
+
+
+# ---------------------------------------------------------------------------
+# multi-device requests as the server runs them: a persistent rank group
+# (parallel.mesh.RankGroup) through serve._run_on_group, against one-shot
+# ranks (mesh.spawn of core.synthesize, what api.run_files runs)
+
+
+def _served_request(**cfg):
+    import base64
+    import os
+
+    from optimaltextures_tpu_torch import serve
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "docs", "samples", "graffiti_cholhist_256.png")
+    with open(path, "rb") as f:
+        b64 = base64.b64encode(f.read()).decode()
+    return {"config": dict(size=128, passes=2, iters=40, depth=3, seed=3,
+                           **cfg), "style_b64": [b64], "format": "npy"}
+
+
+def _one_shot_u8(req, n, backend, device):
+    import dataclasses
+
+    from optimaltextures_tpu_torch.parallel.mesh import spawn
+    from optimaltextures_tpu_torch.tools import dryrun_multichip as dr
+
+    got = spawn(dr.run_rank, n, backend=backend, device=device, args=(
+        dataclasses.asdict(req.cfg), req.styles, ("once",)), deadline_s=600)
+    return core._quant_u8(torch.from_numpy(got["out"])).numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,layout", [
+    (2, dict(spatial_devices=2)),
+    (4, dict(num_devices=2, spatial_devices=2, batch=2))])
+def test_served_ranks_on_one_gpu_equal_one_shot_ranks(n, layout):
+    """n gloo ranks of one RankGroup sharing cuda:0 serve a 128-px request
+    twice (depth 3: the 256-channel convs on the halo stack too): both
+    bit-equal to one-shot ranks on the same decoded arrays and seed, every
+    rank on the kernels, the second with no style prep."""
+    _need_gpu()
+    _dp_inputs()
+    from optimaltextures_tpu_torch import serve
+    from optimaltextures_tpu_torch.parallel.mesh import RankGroup
+
+    req = serve._parse_request(_served_request(**layout))
+    want = _one_shot_u8(req, n, "gloo", "cuda:0")
+    group = RankGroup(["cuda:0"] * n, backend="gloo")
+    try:
+        runs = [serve._run_on_group(group, req) for _ in range(2)]
+    finally:
+        group.close()
+    for i, (batch, reports) in enumerate(runs):
+        np.testing.assert_array_equal(batch, want)
+        assert len(reports) == n
+        for r in reports:
+            assert min(r["launches"][k] for k in codec.KERNELS) > 0
+            assert (r["style_preps"] > 0) == (i == 0)
+
+
+@pytest.mark.cuda
+def test_served_over_nccl_on_two_gpus_equals_one_shot_ranks():
+    """An HTTP server with workers=2 serves a spatial and a batch-parallel
+    request on its NCCL rank group (X-Optex-Worker 0,1), each equal to
+    one-shot NCCL ranks on the same cards; server_close ends the ranks."""
+    _need_gpu()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    import io
+    import json
+    import os
+    import threading
+    import urllib.request
+
+    from optimaltextures_tpu_torch import serve
+
+    _dp_inputs()
+    srv = serve.serve(port=0, workers=2, coalesce=1)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    got = {}
+    try:
+        for name, layout in (("spatial", dict(spatial_devices=2)),
+                             ("dp", dict(num_devices=2, batch=2))):
+            payload = _served_request(**layout)
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{srv.server_address[1]}/v1/synthesize",
+                data=json.dumps(payload).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as r:
+                assert r.headers["X-Optex-Worker"] == "0,1"
+                got[name] = (np.load(io.BytesIO(r.read())),
+                             serve._parse_request(payload))
+        pids = [p for g in srv.workers._groups.values() for p in g.pids]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join()
+    assert len(pids) == 2
+    assert not any(os.path.exists(f"/proc/{p}") for p in pids)
+    for name, (out, req) in got.items():
+        np.testing.assert_array_equal(out, _one_shot_u8(req, 2, "nccl",
+                                                        "cuda"), err_msg=name)

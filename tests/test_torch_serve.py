@@ -71,9 +71,14 @@ def _serving(**kw):
 
 
 @pytest.fixture(scope="module")
-def server():
-    with _serving() as (_, url):
-        yield url
+def served():
+    with _serving() as (srv, url):
+        yield srv, url
+
+
+@pytest.fixture(scope="module")
+def server(served):
+    return served[1]
 
 
 def _post(url, payload, raw=None, headers=None):
@@ -134,21 +139,40 @@ def test_config_fields_match_jax_and_the_dataclass():
     assert not serve._CONFIG_FIELDS & serve._IO_FIELDS
 
 
-def test_parse_request_matches_jax():
-    payload = {"config": {**CFG, "seed": 3, "style_scale": 0.5,
+_PARSE_CASES = {
+    "single": {"config": {**CFG, "seed": 3, "style_scale": 0.5,
                           "hist_mode": "sym", "content_strength": 0.2,
                           "not_a_field": 1},
                "style_b64": [_b64(STYLE)], "content_b64": _b64(STYLE_B),
-               "init_b64": _b64(STYLE_C), "format": "jpeg"}
-    got = serve._parse_request(payload)
-    ref = jserve._parse_request(payload)
-    assert dataclasses.asdict(got.cfg) == dataclasses.asdict(ref.cfg)
-    assert got.token == ref.token and got.fmt == ref.fmt == "jpeg"
-    for a, b in zip(got.styles + [got.content, got.init],
-                    ref.styles + [ref.content, ref.init]):
-        assert a.dtype == b.dtype == np.float32
-        np.testing.assert_array_equal(a, b)
-    assert got.styles[0].shape == (1, 32, 32, 3)   # style_scale at load
+               "init_b64": _b64(STYLE_C), "format": "jpeg"},
+    # the multi-device layouts: batch-parallel, spatial, the 2-D grid
+    "dp": {"config": {**CFG, "seed": 3, "num_devices": 2, "batch": 4,
+                      "style_scale": 0.5},
+           "style_b64": [_b64(STYLE)], "format": "jpeg"},
+    "spatial": {"config": {**CFG, "seed": 3, "spatial_devices": 2,
+                           "style_scale": 0.5},
+                "style_b64": [_b64(STYLE)], "content_b64": _b64(STYLE_B),
+                "format": "jpeg"},
+    "grid": {"config": {**CFG, "num_devices": 2, "spatial_devices": 2,
+                        "batch": 2, "style_scale": 0.5},
+             "style_b64": [_b64(STYLE), _b64(STYLE_B)], "format": "jpeg"},
+}
+
+
+def test_parse_request_matches_jax():
+    for case, payload in _PARSE_CASES.items():
+        got = serve._parse_request(payload)
+        ref = jserve._parse_request(payload)
+        assert dataclasses.asdict(got.cfg) == dataclasses.asdict(ref.cfg), case
+        assert got.token == ref.token and got.fmt == ref.fmt == "jpeg"
+        for a, b in zip(got.styles + [got.content, got.init],
+                        ref.styles + [ref.content, ref.init]):
+            if b is None:
+                assert a is None, case
+                continue
+            assert a.dtype == b.dtype == np.float32
+            np.testing.assert_array_equal(a, b, err_msg=case)
+        assert got.styles[0].shape == (1, 32, 32, 3)   # style_scale at load
 
 
 def test_pack_path_matches_jax(tmp_path, monkeypatch):
@@ -182,18 +206,20 @@ def test_healthz(server):
     ({**_payload(), "style_parallel": True, "content_b64": _b64(STYLE)},
      None, None, 400, "synthesis-only"),
     (_payload(tileable=True, size=66, depth=3), None, None, 400, "divisible"),
-    # multi-device requests: their ranks are processes, not the server's
-    # worker threads (item 15c)
-    (_payload(num_devices=2, batch=2), None, None, 501, "item 15c"),
-    (_payload(spatial_devices=2), None, None, 501, "item 15c"),
-    # the 2-D grid (style_parallel is served now: its refusals are below)
-    (_payload(num_devices=2, spatial_devices=2, batch=2), None, None, 501,
-     "item 15c"),
+    # multi-device requests: more devices than workers, a batch that does
+    # not split, a pass size that does not (refused before a rank starts)
+    (_payload(num_devices=3, batch=3), None, None, 400,
+     "requested 3 devices, have 1"),
+    (_payload(num_devices=2, batch=3), None, None, 400,
+     "batch 3 not divisible by num_devices 2"),
+    (_payload(spatial_devices=2, size=66), None, None, 400, "divisible"),
 ])
-def test_refusals(server, payload, raw, headers, code, message):
-    status, _, body = _post(server, payload, raw, headers)
+def test_refusals(served, payload, raw, headers, code, message):
+    srv, url = served
+    status, _, body = _post(url, payload, raw, headers)
     assert status == code
     assert message in json.loads(body)["error"]
+    assert not srv.workers._groups and list(srv.workers._free) == [0]
 
 
 def test_unknown_routes(server):
@@ -209,7 +235,7 @@ def test_metrics_count_every_request():
     with _serving() as (_, url):
         assert _post(url, _payload(seed=0))[0] == 200
         assert _post(url, {"config": {}})[0] == 400
-        assert _post(url, _payload(num_devices=2, batch=2))[0] == 501
+        assert _post(url, _payload(num_devices=2, batch=2))[0] == 400
         text = _get(url, "/metrics").decode()
     assert _metric(text, 'optex_requests_total{outcome="ok"}') == 1
     assert _metric(text, 'optex_requests_total{outcome="client_error"}') == 2
@@ -456,15 +482,14 @@ def test_style_parallel_request_equals_a_direct_run(num_devices):
     (_sp_payload(1, spatial_devices=2), 400,
      "does not support: spatial_devices"),
     (_sp_payload(1, mixing_alpha=0.3), 400, "does not support: mixing_alpha"),
-    (_payload(num_devices=2, batch=2), 501, "one process per GPU"),
+    # not style-parallel: the multi-device route's refusal, in the same words
+    (_payload(num_devices=3, batch=3), 400, "requested 3 devices, have 2"),
 ])
 def test_style_parallel_refusals(payload, code, message):
     with _serving(workers=2) as (srv, url):
         status, _, body = _post(url, payload)
         assert len(srv.workers._free) == 2
     assert status == code and message in json.loads(body)["error"]
-    if code == 501:
-        assert "item 15c" in json.loads(body)["error"]
 
 
 def test_checkout_many_takes_a_whole_set():
@@ -493,7 +518,8 @@ def test_pad_cohort_and_batchable():
     assert [serve._pad_cohort(n) for n in (1, 2, 3, 4, 5, 7, 8)] == \
         [1, 2, 4, 4, 8, 8, 8]
     assert serve._batchable(serve._parse_request(_payload()))
-    for bad in ({"seed": 3}, {"batch": 2}):
+    for bad in ({"seed": 3}, {"batch": 2}, {"num_devices": 2, "batch": 2},
+                {"spatial_devices": 2}):
         assert not serve._batchable(serve._parse_request(_payload(**bad)))
     two = {**_payload(), "style_b64": [_b64(STYLE), _b64(STYLE_B)]}
     assert not serve._batchable(serve._parse_request(two))
@@ -624,6 +650,9 @@ def test_bake_packs_tool(tmp_path, monkeypatch):
     pool's first request for the baked style runs no style prep."""
     from optimaltextures_tpu_torch.tools import bake_packs
 
+    # the tool sets $OPTEX_PACK_DIR for its process: unset now, it is unset
+    # again after the test
+    monkeypatch.delenv("OPTEX_PACK_DIR", raising=False)
     monkeypatch.setattr("sys.argv", [
         "bake_packs.py", "--styles", STYLE, "--pack_dir", str(tmp_path),
         "--size", "64", "--device", "cpu", "--config", "passes=1",

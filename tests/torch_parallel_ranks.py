@@ -1,7 +1,8 @@
-"""Rank bodies for tests/test_torch_parallel.py and
-tests/test_torch_spatial.py. The ranks are processes started by
-``parallel.mesh.spawn``, which import this module by name: it imports torch
-and the port only (no jax, no test module)."""
+"""Rank bodies for tests/test_torch_parallel.py, tests/test_torch_spatial.py
+and tests/test_torch_serve_ranks.py. The ranks are processes started by
+``parallel.mesh.spawn`` or ``parallel.mesh.RankGroup``, which import this
+module by name: it imports torch and the port only (no jax, no test
+module)."""
 
 import sys
 import time
@@ -139,6 +140,14 @@ def style_runs(mesh, cases, styles):
         _force_widths=force,
         rotations=Stacks(stacks) if stacks else None).numpy()
         for kw, pastiche, stacks, force in cases]
+
+
+def one_shot_u8(mesh, cfg_kw, styles):
+    """``core.synthesize`` of ``cfg_kw`` on the mesh, quantized as a served
+    response is (``core._quant_u8``): what ``api.run_files`` runs on its
+    ranks, the reference of a served multi-device request."""
+    out, _ = core.synthesize(config.OptexConfig(**cfg_kw), styles, mesh=mesh)
+    return core._quant_u8(out).numpy()
 
 
 def hangs(mesh):
