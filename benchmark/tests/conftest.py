@@ -1,0 +1,10 @@
+"""The benchmark's own tests: CPU tests of the harness at tiny sizes; the
+tests marked ``cuda`` decide inside themselves whether there is a card."""
+
+import os
+import sys
+
+BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+for p in (BENCH, os.path.dirname(BENCH)):
+    if p not in sys.path:
+        sys.path.insert(0, p)
