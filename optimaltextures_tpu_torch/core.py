@@ -62,12 +62,13 @@ import torch
 from . import config as config_mod
 from . import transport
 from .config import OptexConfig
-from .models import fastcodec
+from .models import arch, fastcodec
 from .models.vgg import VGGBank, decode, encode, encode_taps
 from .ops import colors, histmatch
 from .ops.resize import apply_resample, resample_pair, resize_nearest_nhwc
 from .ops.rotation import derive_seed, generator
 from .utils import schedule
+from .utils.trace import fetch, span
 
 # (pass index, stage index, n_iters, C) -> (n_iters, C, C) rotation stack
 RotationSource = Callable[[int, int, int, int], object]
@@ -207,7 +208,7 @@ def _styles_fingerprint(styles) -> str:
         h.update(repr((shape, dtype)).encode())
         sample = s[:, ::max(1, shape[1] // 16), ::max(1, shape[2] // 16), :]
         if isinstance(sample, torch.Tensor):
-            sample = sample.cpu().numpy()
+            sample = fetch(sample).numpy()
         h.update(np.ascontiguousarray(sample).tobytes())
     return h.hexdigest()
 
@@ -216,6 +217,14 @@ def _quant_u8(x: torch.Tensor) -> torch.Tensor:
     """PNG-ready uint8 on the device, the IEEE float32 ops of
     imageio.save_images' host formula: clamp, * 255 + 0.5, truncate."""
     return (torch.clamp(x, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+
+
+def _quantized(x: torch.Tensor, quantize_uint8: bool) -> torch.Tensor:
+    """``x``, or with ``quantize_uint8`` its :func:`_quant_u8`."""
+    if not quantize_uint8:
+        return x
+    with span("optex.quantize"):
+        return _quant_u8(x)
 
 
 # ---------------------------------------------------------------------------
@@ -308,6 +317,32 @@ def _stage_rotations(rotations: Optional[RotationSource], pass_idx: int,
         generator(device, run_key, pass_idx, i), n_iters, c, device, k_mask)
 
 
+def _stage_span(depth: int, tgt: LayerTargets, n_iters: int):
+    """The ``optex.stage`` span of a stage at VGG ``depth``."""
+    def args():
+        c = arch.FEATURE_CHANNELS[depth]
+        k = c if tgt.eigvecs is None else tgt.eigvecs.shape[1]
+        return f"depth={depth} C={c} k={k} iters={n_iters}"
+    return span("optex.stage", args)
+
+
+def _ot_span(n_iters: int, feats):
+    """The ``optex.ot_steps`` span of a stage's transport on ``feats`` (the
+    stage's feature tensors, the batch or its chunks)."""
+    def args():
+        c = feats[0].shape[-1]
+        n = sum(f.numel() for f in feats) // c
+        return f"steps={n_iters} C={c} N={n}"
+    return span("optex.ot_steps", args)
+
+
+def _pass_span(p: int, hw, pastiche):
+    """The ``optex.pass`` span of pass ``p``: its size is the resize target
+    ``hw``, or the pastiche's own."""
+    return span("optex.pass", lambda: (
+        f"p={p} size={tuple(hw) if hw else tuple(pastiche.shape[1:3])}"))
+
+
 def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
                       iters, mode: str, strengths, pca_flags,
                       resize_mats=None, stage_codecs=None, run_key: int = 0,
@@ -339,37 +374,10 @@ def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
     ``space`` (models/fastcodec.exchanged, parallel/spatial.py's halo
     stack) and the per-image means reduce over it; ``resize_mats`` must
     then be None (the caller resizes the gathered image)."""
-    if resize_mats is not None:
-        pastiche = apply_resample(pastiche, *resize_mats)
-    pastiche = pastiche.to(enc_params[0][0][0].dtype)
-
-    def ot_stage(i, feat):
-        feat = feat.float()
-        tgt = targets[i]
-        if pca_flags[i]:
-            feat = feat @ tgt.eigvecs
-        rot = (_stage_rotations(rotations, pass_idx, i, iters[i],
-                                feat.shape[-1], feat.device, run_key,
-                                tgt.k_mask) if iters[i] else None)
-        feat = transport.transport_loop(
-            None, feat, tgt.stats, iters[i], mode, content_feature=tgt.content,
-            content_strength=strengths[i], rotations=rot,
-            use_pallas=use_pallas, k_mask=tgt.k_mask, cov_prop=cov_prop,
-            mesh=mesh, mean_mesh=space)
-        if pca_flags[i]:
-            feat = feat @ tgt.eigvecs.T
-        return feat
-
-    if stage_codecs is not None:
-        # relu1/relu2-scale codec on the CUDA kernels; the image lives as
-        # post-renorm RGB between stages (models/fastcodec.py)
-        rgb = fastcodec.pixels_to_rgb(enc_params[0][0], pastiche)
-        for i, sc in enumerate(stage_codecs):
-            rgb = fastcodec.decode_tail(
-                sc, ot_stage(i, fastcodec.encode_head(sc, rgb, pad_mode,
-                                                      space)),
-                pad_mode, space)
-        return rgb
+    with span("optex.resize"):
+        if resize_mats is not None:
+            pastiche = apply_resample(pastiche, *resize_mats)
+        pastiche = pastiche.to(enc_params[0][0][0].dtype)
 
     enc, dec = encode, decode
     if space is not None:   # the F.conv2d halo stack on this rank's rows
@@ -380,10 +388,54 @@ def _pass_stages_impl(enc_params, dec_params, pastiche, targets, *, depths,
 
         def dec(p, d, x, pad):
             return decode_spatial(p, d, x, space, pad)
+    # with stage_codecs the relu1/relu2-scale codec runs on the CUDA
+    # kernels, and the image lives as post-renorm RGB between stages
+    # (models/fastcodec.py). ``feat`` is rebound at every step and dropped
+    # after the decode, so no stage keeps a feature map of another step
+    # alive (relu1 of batch 128 at 512 px is 8.6 GB in float32).
+    rgb = None
     for i, d in enumerate(depths):
-        feat = ot_stage(i, enc(enc_params[i], d, pastiche, pad_mode))
-        pastiche = dec(dec_params[i], d, feat.to(pastiche.dtype), pad_mode)
-    return pastiche.float()
+        tgt = targets[i]
+        with _stage_span(d, tgt, iters[i]):
+            with span("optex.encode"):
+                if stage_codecs is not None:
+                    if rgb is None:
+                        rgb = fastcodec.pixels_to_rgb(enc_params[0][0],
+                                                      pastiche)
+                    feat = fastcodec.encode_head(stage_codecs[i], rgb,
+                                                 pad_mode, space)
+                else:
+                    feat = enc(enc_params[i], d, pastiche, pad_mode)
+                feat = feat.float()
+            if pca_flags[i]:
+                with span("optex.project"):
+                    feat = feat @ tgt.eigvecs
+            if iters[i]:
+                with span("optex.rotations"):
+                    rot = _stage_rotations(rotations, pass_idx, i, iters[i],
+                                           feat.shape[-1], feat.device,
+                                           run_key, tgt.k_mask)
+                with _ot_span(iters[i], [feat]):
+                    feat = transport.transport_loop(
+                        None, feat, tgt.stats, iters[i], mode,
+                        content_feature=tgt.content,
+                        content_strength=strengths[i], rotations=rot,
+                        use_pallas=use_pallas, k_mask=tgt.k_mask,
+                        cov_prop=cov_prop, mesh=mesh, mean_mesh=space)
+            if pca_flags[i]:
+                with span("optex.unproject"):
+                    feat = feat @ tgt.eigvecs.T
+            with span("optex.decode"):
+                if stage_codecs is not None:
+                    rgb = fastcodec.decode_tail(stage_codecs[i], feat,
+                                                pad_mode, space)
+                else:
+                    pastiche = dec(dec_params[i], d, feat.to(pastiche.dtype),
+                                   pad_mode)
+                    if i == len(depths) - 1:
+                        pastiche = pastiche.float()
+            del feat
+    return rgb if stage_codecs is not None else pastiche
 
 
 def _pass_stages_chunked_impl(enc_params, dec_params, pastiche, targets, *,
@@ -413,51 +465,68 @@ def _pass_stages_chunked_impl(enc_params, dec_params, pastiche, targets, *,
     the chunks' images living as post-renorm RGB between stages. With a
     ``mesh`` the batch is this rank's shard, chunked, and the stage's Gram
     and sample count are summed over the ranks once (batch_chunk x DP)."""
-    if resize_mats is not None:
-        pastiche = apply_resample(pastiche, *resize_mats)
-    conv_dtype = enc_params[0][0][0].dtype
-    imgs = list(pastiche.to(conv_dtype).chunk(n_chunks))
+    with span("optex.resize"):
+        if resize_mats is not None:
+            pastiche = apply_resample(pastiche, *resize_mats)
+        conv_dtype = enc_params[0][0][0].dtype
+        imgs = list(pastiche.to(conv_dtype).chunk(n_chunks))
     del pastiche
-    if stage_codecs is not None:
-        imgs = [fastcodec.pixels_to_rgb(enc_params[0][0], x) for x in imgs]
     for i, d in enumerate(depths):
         tgt = targets[i]
-        feats = []
-        for j, x in enumerate(imgs):
-            f = (fastcodec.encode_head(stage_codecs[i], x, pad_mode)
-                 if stage_codecs is not None
-                 else encode(enc_params[i], d, x, pad_mode))
-            f = f.float()
-            imgs[j] = None
-            feats.append(f @ tgt.eigvecs if pca_flags[i] else f)
-        c = feats[0].shape[-1]
-        affine = None
-        if iters[i]:
-            mus, gram, n = [], 0.0, 0
-            for f in feats:
-                mu = f.mean(dim=(1, 2), keepdim=True)
-                xc = (f - mu).reshape(-1, c)
-                mus.append(mu)
-                gram = gram + xc.T @ xc
-                n += xc.shape[0]
-            if mesh is not None:
-                gram, n = mesh.psum(gram), n * mesh.size
-            rot = _stage_rotations(rotations, pass_idx, i, iters[i], c,
-                                   feats[0].device, run_key, tgt.k_mask)
-            A, bias = transport.stage_affine_map(
-                rot, torch.cat(mus), gram / n, tgt.stats, mode)
-            affine = (A, bias.chunk(n_chunks))
-        for j in range(n_chunks):
-            f, feats[j] = feats[j], None
-            if affine is not None:
-                f = (f.reshape(-1, c) @ affine[0]).reshape(f.shape) + affine[1][j]
-            if pca_flags[i]:
-                f = f @ tgt.eigvecs.T
-            imgs[j] = (fastcodec.decode_tail(stage_codecs[i], f, pad_mode)
-                       if stage_codecs is not None
-                       else decode(dec_params[i], d, f.to(conv_dtype),
-                                   pad_mode))
-    return torch.cat(imgs).float()
+        with _stage_span(d, tgt, iters[i]):
+            feats = []
+            for j, x in enumerate(imgs):
+                with span("optex.encode"):
+                    if stage_codecs is None:
+                        f = encode(enc_params[i], d, x, pad_mode)
+                    else:
+                        if i == 0:
+                            x = fastcodec.pixels_to_rgb(enc_params[0][0], x)
+                        f = fastcodec.encode_head(stage_codecs[i], x,
+                                                  pad_mode)
+                    f = f.float()
+                imgs[j] = None
+                if pca_flags[i]:
+                    with span("optex.project"):
+                        f = f @ tgt.eigvecs
+                feats.append(f)
+            c = feats[0].shape[-1]
+            affine = None
+            if iters[i]:
+                with span("optex.rotations"):
+                    rot = _stage_rotations(rotations, pass_idx, i, iters[i],
+                                           c, feats[0].device, run_key,
+                                           tgt.k_mask)
+                with _ot_span(iters[i], feats):
+                    mus, gram, n = [], 0.0, 0
+                    for f in feats:
+                        mu = f.mean(dim=(1, 2), keepdim=True)
+                        xc = (f - mu).reshape(-1, c)
+                        mus.append(mu)
+                        gram = gram + xc.T @ xc
+                        n += xc.shape[0]
+                    if mesh is not None:
+                        gram, n = mesh.psum(gram), n * mesh.size
+                    A, bias = transport.stage_affine_map(
+                        rot, torch.cat(mus), gram / n, tgt.stats, mode)
+                    affine = (A, bias.chunk(n_chunks))
+            for j in range(n_chunks):
+                f, feats[j] = feats[j], None
+                if affine is not None:
+                    with span("optex.ot_steps"):
+                        f = ((f.reshape(-1, c) @ affine[0]).reshape(f.shape)
+                             + affine[1][j])
+                if pca_flags[i]:
+                    with span("optex.unproject"):
+                        f = f @ tgt.eigvecs.T
+                with span("optex.decode"):
+                    imgs[j] = (fastcodec.decode_tail(stage_codecs[i], f,
+                                                     pad_mode)
+                               if stage_codecs is not None
+                               else decode(dec_params[i], d, f.to(conv_dtype),
+                                           pad_mode))
+    with span("optex.gather"):
+        return torch.cat(imgs).float()
 
 
 def _run_stages_chunked_impl(enc_params, dec_params, pastiche, targets_all,
@@ -468,13 +537,15 @@ def _run_stages_chunked_impl(enc_params, dec_params, pastiche, targets_all,
                              pad_mode: str = "reflect"):
     """The whole run's pass chain, batch-chunked (see
     :func:`_pass_stages_chunked_impl`)."""
-    for p, (_, iters) in enumerate(plans):
-        pastiche = _pass_stages_chunked_impl(
-            enc_params, dec_params, pastiche, targets_all[p], depths=depths,
-            iters=iters, mode=mode, pca_flags=pca_flags_all[p],
-            n_chunks=n_chunks, resize_mats=resize_mats_all[p],
-            stage_codecs=stage_codecs, run_key=run_key, pass_idx=p,
-            rotations=rotations, pad_mode=pad_mode)
+    for p, (hw, iters) in enumerate(plans):
+        with _pass_span(p, hw, pastiche):
+            pastiche = _pass_stages_chunked_impl(
+                enc_params, dec_params, pastiche, targets_all[p],
+                depths=depths, iters=iters, mode=mode,
+                pca_flags=pca_flags_all[p], n_chunks=n_chunks,
+                resize_mats=resize_mats_all[p], stage_codecs=stage_codecs,
+                run_key=run_key, pass_idx=p, rotations=rotations,
+                pad_mode=pad_mode)
     return pastiche
 
 
@@ -495,14 +566,15 @@ def _run_stages_impl(enc_params, dec_params, pastiche, targets_all, run_key,
     matches the pastiche to that target by COLOR_STEPS pixel-space cdf
     steps, step i rotated by a 3x3 QR rotation drawn from (run_key,
     COLOR_KEY, i), or by ``color_rotations[i]`` when given (tests)."""
-    for p, (_, iters) in enumerate(plans):
-        pastiche = _pass_stages_impl(
-            enc_params, dec_params, pastiche, targets_all[p], depths=depths,
-            iters=iters, mode=mode, strengths=strengths_all[p],
-            pca_flags=pca_flags_all[p], resize_mats=resize_mats_all[p],
-            stage_codecs=stage_codecs, run_key=run_key, pass_idx=p,
-            use_pallas=use_pallas, rotations=rotations, cov_prop=cov_prop,
-            pad_mode=pad_mode)
+    for p, (hw, iters) in enumerate(plans):
+        with _pass_span(p, hw, pastiche):
+            pastiche = _pass_stages_impl(
+                enc_params, dec_params, pastiche, targets_all[p],
+                depths=depths, iters=iters, mode=mode,
+                strengths=strengths_all[p], pca_flags=pca_flags_all[p],
+                resize_mats=resize_mats_all[p], stage_codecs=stage_codecs,
+                run_key=run_key, pass_idx=p, use_pallas=use_pallas,
+                rotations=rotations, cov_prop=cov_prop, pad_mode=pad_mode)
     return _color_tail(pastiche, content_px, color_mode, run_key, use_pallas,
                        color_rotations)
 
@@ -513,19 +585,21 @@ def _color_tail(pastiche, content_px, color_mode: Optional[str], run_key: int,
     output (``color_mode`` None: the pastiche as it is)."""
     if color_mode is None:
         return pastiche
-    target = colors.swap_lightness(content_px, pastiche)
-    if color_mode == "lum":
-        return target
-    samples = target.reshape(-1, target.shape[-1])
-    for i in range(COLOR_STEPS):
-        rot = gen = None
-        if color_rotations is not None:
-            rot = torch.as_tensor(np.asarray(color_rotations[i], np.float32))
-        else:
-            gen = generator(pastiche.device, run_key, COLOR_KEY, i)
-        pastiche = transport.ot_step_cdf(gen, pastiche, samples, use_pallas,
-                                         rotation=rot)
-    return pastiche
+    with span("optex.color_tail"):
+        target = colors.swap_lightness(content_px, pastiche)
+        if color_mode == "lum":
+            return target
+        samples = target.reshape(-1, target.shape[-1])
+        for i in range(COLOR_STEPS):
+            rot = gen = None
+            if color_rotations is not None:
+                rot = torch.as_tensor(np.asarray(color_rotations[i],
+                                                 np.float32))
+            else:
+                gen = generator(pastiche.device, run_key, COLOR_KEY, i)
+            pastiche = transport.ot_step_cdf(gen, pastiche, samples,
+                                             use_pallas, rotation=rot)
+        return pastiche
 
 
 # ---------------------------------------------------------------------------
@@ -732,16 +806,20 @@ class Synthesizer:
         passes encode the ORIGINAL styles, like the reference."""
         cfg = self.cfg
         self.last_run_style_preps += 1
-        if do_resize:
-            style_tens = []
-            for s in styles:
-                hw = schedule.get_size(size, cfg.style_scale, s.shape[1], s.shape[2])
-                style_tens.append(s if tuple(s.shape[1:3]) == hw else
-                                  apply_resample(s, *self._resample_mats(s.shape[1:3], hw)))
-        else:
-            style_tens = list(styles)
-        return _style_spectra_pass(self.bank.enc_params[self.depth], style_tens,
-                                   depth=self.depth, use_pca=not cfg.no_pca)
+        with span("optex.style_encode"):
+            if do_resize:
+                style_tens = []
+                for s in styles:
+                    hw = schedule.get_size(size, cfg.style_scale, s.shape[1],
+                                           s.shape[2])
+                    style_tens.append(s if tuple(s.shape[1:3]) == hw else
+                                      apply_resample(s, *self._resample_mats(
+                                          s.shape[1:3], hw)))
+            else:
+                style_tens = list(styles)
+            return _style_spectra_pass(self.bank.enc_params[self.depth],
+                                       style_tens, depth=self.depth,
+                                       use_pca=not cfg.no_pca)
 
     def _choose_widths(self, spectra, svals_np=None):
         """One pass's PCA widths: (widths, true-rank masks), one per depth.
@@ -758,7 +836,7 @@ class Synthesizer:
             return (tuple(sf.shape[-1] for (sf, _, _) in spectra),
                     _traced_ks([sv for (_, sv, _) in spectra]))
         if svals_np is None:
-            svals_np = [sv.cpu().numpy() for (_, sv, _) in spectra]
+            svals_np = [fetch(sv).numpy() for (_, sv, _) in spectra]
         true = [transport.choose_k(sv) for sv in svals_np]
         if cfg.pca_bucket:
             widths = tuple(min(-(-t // cfg.pca_bucket) * cfg.pca_bucket,
@@ -903,13 +981,24 @@ class Synthesizer:
         broadcast, so that no rank runs with another PCA width or
         eigenvector sign (a width that differed would pair mismatched
         collectives)."""
-        cfg = self.cfg
-        dev = self.device
         self.last_run_style_preps = 0
         run_key = key if key is not None else self.next_run_key()
+        with span("optex.run", lambda: (
+                f"key={run_key} batch={pastiche.shape[0]} "
+                f"size={tuple(pastiche.shape[1:3])} "
+                f"hist_mode={self.cfg.hist_mode}")):
+            return self._run(pastiche, styles, content, verbose, run_key,
+                             rotations, color_rotations, mix_draws,
+                             styles_token, quantize_uint8)
+
+    def _run(self, pastiche, styles, content, verbose: bool, run_key: int,
+             rotations, color_rotations, mix_draws, styles_token,
+             quantize_uint8: bool) -> torch.Tensor:
+        """The body of :meth:`run`, inside its ``optex.run`` span."""
+        cfg = self.cfg
+        dev = self.device
         if styles_token is not None:
             styles_token = (styles_token, _styles_fingerprint(styles))
-        pastiche = torch.as_tensor(pastiche, dtype=torch.float32)
         # spatial sharding alone runs content runs too; DP and the grid are
         # synthesis-only
         mesh = (self.mesh if content is None or (self.space is not None
@@ -918,34 +1007,31 @@ class Synthesizer:
         space = self.space if mesh is not None else None
         data = None if mesh is None else (
             mesh.data if mesh.grid else None if space is not None else mesh)
-        if data is not None:
-            if pastiche.shape[0] % data.size:
-                raise ValueError(f"batch {pastiche.shape[0]} not divisible "
-                                 f"by num_devices {data.size}")
-            b = pastiche.shape[0] // data.size
-            pastiche = pastiche[data.rank * b:(data.rank + 1) * b]
-        pastiche = pastiche.to(dev, copy=True)
-        styles = [torch.as_tensor(s, dtype=torch.float32).to(dev) for s in styles]
-        if any(s.shape != styles[0].shape for s in styles[1:]):
-            # mixing blends the styles' feature maps position by position
-            raise ValueError("style images must have the same shape; got "
-                             f"{[tuple(s.shape) for s in styles]}")
-        if content is not None:
-            content = torch.as_tensor(content, dtype=torch.float32).to(dev)
-        elif cfg.color_transfer is not None:
+        with span("optex.inputs"):
+            pastiche = torch.as_tensor(pastiche, dtype=torch.float32)
+            if data is not None:
+                if pastiche.shape[0] % data.size:
+                    raise ValueError(f"batch {pastiche.shape[0]} not "
+                                     f"divisible by num_devices {data.size}")
+                b = pastiche.shape[0] // data.size
+                pastiche = pastiche[data.rank * b:(data.rank + 1) * b]
+            pastiche = pastiche.to(dev, copy=True)
+            styles = [torch.as_tensor(s, dtype=torch.float32).to(dev)
+                      for s in styles]
+            if any(s.shape != styles[0].shape for s in styles[1:]):
+                # mixing blends the styles' feature maps position by position
+                raise ValueError("style images must have the same shape; got "
+                                 f"{[tuple(s.shape) for s in styles]}")
+            if content is not None:
+                content = torch.as_tensor(content, dtype=torch.float32).to(dev)
+        if content is None and cfg.color_transfer is not None:
             raise ValueError("Color transfer requires content image")
         if content is not None and pastiche.shape[0] != 1:
             # the reference ignores --batch with a content image
             raise ValueError("style transfer runs one image; got a pastiche "
                              f"batch of {pastiche.shape[0]}")
         n_chunks = self._chunks(pastiche.shape[0], content is not None)
-        n_styles = len(styles)
 
-        # phase A: every distinct pass's style prep, ahead of the stages
-        # (gate-skip passes encode the ORIGINAL styles, so they share one),
-        # or found in the styles_token cache. Above the prefetch budget
-        # (low-memory prep) each prep is dispatched in phase C instead, and
-        # its spectra are freed after their last use.
         plan = self._plan_passes(
             pastiche.shape[1:3],
             tuple(content.shape[1:3]) if content is not None else None)
@@ -959,6 +1045,64 @@ class Synthesizer:
                 if rs:
                     cur_h = hw[0]
                 check_spatial_divisibility(cur_h, space.size, self.depth)
+        with span("optex.style_prep"):
+            targets_all, strengths_all, pca_flags_all, plans, mats_all = \
+                self._style_prep(plan, pastiche, styles, content, run_key,
+                                 mix_draws, styles_token, mesh, space,
+                                 verbose)
+
+        # phase D: the pass chain
+        enc_all = [self.bank.enc_params[d] for d in self.layer_depths]
+        dec_all = [self.bank.dec_params[d] for d in self.layer_depths]
+        if mesh is not None and space is not None:
+            out = self._run_rows(enc_all, dec_all, pastiche, targets_all,
+                                 run_key, plans, strengths_all, pca_flags_all,
+                                 mats_all, rotations)
+            if mesh.grid:
+                with span("optex.gather"):
+                    out = mesh.data.all_gather(out)
+            out = _color_tail(out, content, cfg.color_transfer, run_key,
+                              cfg.use_pallas, color_rotations)
+            return _quantized(out, quantize_uint8)
+        if mesh is not None:
+            out = _quantized(self._run_dp(
+                enc_all, dec_all, pastiche, targets_all, run_key, plans,
+                strengths_all, pca_flags_all, mats_all, n_chunks, rotations),
+                quantize_uint8)
+            with span("optex.gather"):
+                return mesh.all_gather(out)
+        if n_chunks > 1:
+            out = _run_stages_chunked_impl(
+                enc_all, dec_all, pastiche, targets_all, run_key,
+                depths=tuple(self.layer_depths), plans=plans,
+                mode=cfg.hist_mode, pca_flags_all=pca_flags_all,
+                n_chunks=n_chunks, resize_mats_all=mats_all,
+                stage_codecs=self.stage_codecs, rotations=rotations,
+                pad_mode=self.pad_mode)
+        else:
+            out = _run_stages_impl(
+                enc_all, dec_all, pastiche, targets_all, run_key,
+                depths=tuple(self.layer_depths), plans=plans,
+                mode=cfg.hist_mode, strengths_all=strengths_all,
+                pca_flags_all=pca_flags_all, resize_mats_all=mats_all,
+                stage_codecs=self.stage_codecs, use_pallas=cfg.use_pallas,
+                content_px=content, color_mode=cfg.color_transfer,
+                rotations=rotations, color_rotations=color_rotations,
+                cov_prop=cfg.cov_propagation, pad_mode=self.pad_mode)
+        return _quantized(out, quantize_uint8)
+
+    def _style_prep(self, plan, pastiche, styles, content, run_key: int,
+                    mix_draws, styles_token, mesh, space, verbose: bool):
+        """Phases A-C of :meth:`run`: every pass's targets, strengths, PCA
+        flags, (resize target, iterations) plan and resize weights."""
+        cfg = self.cfg
+        dev = self.device
+        n_styles = len(styles)
+        # phase A: every distinct pass's style prep, ahead of the stages
+        # (gate-skip passes encode the ORIGINAL styles, so they share one),
+        # or found in the styles_token cache. Above the prefetch budget
+        # (low-memory prep) each prep is dispatched in phase C instead, and
+        # its spectra are freed after their last use.
         low_mem = (self._prep_prefetch_bytes(plan, styles)
                    > self._prep_budget_bytes())
         entries, pending, local = [], [], {}
@@ -980,43 +1124,46 @@ class Synthesizer:
             entries.append(entry)
         last_use = {id(e): p for p, e in enumerate(entries)}
 
-        # phase B: ONE host fetch of every new prep's eigenvalues for the
-        # k-decisions (none with pca_traced_k)
-        svals = [None] * len(pending)
-        if pending and not cfg.no_pca and not cfg.pca_traced_k:
-            flat = torch.cat([sv for e in pending for (_, sv, _) in e.spectra]
-                             ).cpu().numpy()
-            off = 0
-            for j, e in enumerate(pending):
-                svals[j] = []
-                for (_, sv, _) in e.spectra:
-                    svals[j].append(flat[off:off + sv.shape[0]])
-                    off += sv.shape[0]
-        for e, sv in zip(pending, svals):
-            e.widths, e.masks = self._choose_widths(e.spectra, sv)
-            if mesh is not None:
-                e.widths, e.masks = self._agree_widths(e.widths, e.masks)
-            if styles_token is not None:
-                self._style_prep_cache[e.key] = e
-        self._evict_style_preps()
+        with span("optex.targets"):
+            # phase B: ONE host fetch of every new prep's eigenvalues for
+            # the k-decisions (none with pca_traced_k)
+            svals = [None] * len(pending)
+            if pending and not cfg.no_pca and not cfg.pca_traced_k:
+                flat = fetch(torch.cat([sv for e in pending
+                                        for (_, sv, _) in e.spectra])).numpy()
+                off = 0
+                for j, e in enumerate(pending):
+                    svals[j] = []
+                    for (_, sv, _) in e.spectra:
+                        svals[j].append(flat[off:off + sv.shape[0]])
+                        off += sv.shape[0]
+            for e, sv in zip(pending, svals):
+                e.widths, e.masks = self._choose_widths(e.spectra, sv)
+                if mesh is not None:
+                    e.widths, e.masks = self._agree_widths(e.widths, e.masks)
+                if styles_token is not None:
+                    self._style_prep_cache[e.key] = e
+            self._evict_style_preps()
 
-        # per-pass content, resized from the ORIGINAL (as the reference does)
-        conts, resized = [], {}
-        for (_, rs, hw) in plan:
-            if content is None or not rs or tuple(content.shape[1:3]) == hw:
-                conts.append(content)
-                continue
-            if hw not in resized:
-                resized[hw] = apply_resample(
-                    content, *self._resample_mats(content.shape[1:3], hw))
-            conts.append(resized[hw])
+            # per-pass content, resized from the ORIGINAL (as the reference
+            # does)
+            conts, resized = [], {}
+            for (_, rs, hw) in plan:
+                if content is None or not rs or \
+                        tuple(content.shape[1:3]) == hw:
+                    conts.append(content)
+                    continue
+                if hw not in resized:
+                    resized[hw] = apply_resample(
+                        content, *self._resample_mats(content.shape[1:3], hw))
+                conts.append(resized[hw])
+            weights = self._mix_weights(n_styles) if n_styles > 1 else None
 
         # phase C: every pass's targets. One style's finished targets are
         # shared by the passes of an entry (and, tokened, across runs);
         # mixing draws its mask per pass, so its finish runs once a pass.
         # The mask is drawn at the second-deepest depth's size and
         # nearest-resized to every depth.
-        weights = self._mix_weights(n_styles) if n_styles > 1 else None
         targets_all, strengths_all, pca_flags_all = [], [], []
         plans, mats_all = [], []
         cur_hw = tuple(pastiche.shape[1:3])
@@ -1031,42 +1178,48 @@ class Synthesizer:
                 # its k-decision fetched alone
                 if e.spectra is None:
                     e.spectra = self._dispatch_style_prep(styles, size, rs)
-                e.widths, e.masks = self._choose_widths(e.spectra)
-                if mesh is not None:
-                    e.widths, e.masks = self._agree_widths(e.widths, e.masks)
+                with span("optex.targets"):
+                    e.widths, e.masks = self._choose_widths(e.spectra)
+                    if mesh is not None:
+                        e.widths, e.masks = self._agree_widths(e.widths,
+                                                               e.masks)
                 if styles_token is not None and n_styles == 1:
                     # mixing entries are not kept: their targets depend on
                     # the pass's mask, so the cache could only pin the very
                     # spectra this prep sheds
                     self._style_prep_cache[e.key] = e
-            if e.slim is not None:
-                slim = e.slim
-            elif n_styles == 1:
-                slim = self._finish_style_prep(e.spectra, e.widths, e.masks)
-                e.slim = slim = (self._agree_targets(slim) if mesh is not None
-                                 else slim)
-            else:
-                mask_hw = tuple(e.spectra[1 if len(e.spectra) > 1 else 0][0]
-                                .shape[1:3])
-                if mix_draws is not None:
-                    regions = torch.as_tensor(
-                        np.array(mix_draws(p, mask_hw, n_styles)),
-                        device=dev).long()
+            with span("optex.targets"):
+                if e.slim is not None:
+                    slim = e.slim
+                elif n_styles == 1:
+                    slim = self._finish_style_prep(e.spectra, e.widths,
+                                                   e.masks)
+                    e.slim = slim = (self._agree_targets(slim)
+                                     if mesh is not None else slim)
                 else:
-                    regions = self._mix_draw(run_key, p, mask_hw, weights)
-                slim = self._finish_style_prep(e.spectra, e.widths, e.masks,
-                                               regions, weights)
-                if mesh is not None:
-                    slim = self._agree_targets(slim)
-            targets, strengths = self._stage_strengths(
-                self._assemble_targets(slim, conts[p], e.masks))
-            if space is not None:
-                # each rank pulls its rows toward the content's rows
-                from .parallel.spatial import own_rows
+                    mask_hw = tuple(e.spectra[1 if len(e.spectra) > 1 else 0]
+                                    [0].shape[1:3])
+                    if mix_draws is not None:
+                        regions = torch.as_tensor(
+                            np.array(mix_draws(p, mask_hw, n_styles)),
+                            device=dev).long()
+                    else:
+                        regions = self._mix_draw(run_key, p, mask_hw, weights)
+                    slim = self._finish_style_prep(e.spectra, e.widths,
+                                                   e.masks, regions, weights)
+                    if mesh is not None:
+                        slim = self._agree_targets(slim)
+                targets, strengths = self._stage_strengths(
+                    self._assemble_targets(slim, conts[p], e.masks))
+                if space is not None:
+                    # each rank pulls its rows toward the content's rows
+                    from .parallel.spatial import own_rows
 
-                targets = [t if t.content is None else
-                           t._replace(content=own_rows(t.content, space))
-                           for t in targets]
+                    targets = [t if t.content is None else
+                               t._replace(content=own_rows(t.content, space))
+                               for t in targets]
+                mats_all.append(self._resample_mats(cur_hw, hw, cfg.tileable)
+                                if rs else None)
             cached = (styles_token is not None
                       and self._style_prep_cache.get(e.key) is e)
             if (low_mem and last_use[id(e)] == p
@@ -1077,8 +1230,6 @@ class Synthesizer:
             pca_flags_all.append(tuple(t.eigvecs is not None for t in targets))
             plans.append((hw if rs else None,
                           tuple(int(i) for i in self.iters_table[p])))
-            mats_all.append(self._resample_mats(cur_hw, hw, cfg.tileable)
-                            if rs else None)
             if rs:
                 cur_hw = tuple(hw)
         self.last_run_ks = [e.widths for e in entries]
@@ -1088,52 +1239,17 @@ class Synthesizer:
             for e in entries:
                 if e.slim is not None:
                     e.spectra = None
-
-        # phase D: the pass chain
-        enc_all = [self.bank.enc_params[d] for d in self.layer_depths]
-        dec_all = [self.bank.dec_params[d] for d in self.layer_depths]
-        if mesh is not None and space is not None:
-            out = self._run_rows(enc_all, dec_all, pastiche, targets_all,
-                                 run_key, plans, strengths_all, pca_flags_all,
-                                 mats_all, rotations)
-            if mesh.grid:
-                out = mesh.data.all_gather(out)
-            out = _color_tail(out, content, cfg.color_transfer, run_key,
-                              cfg.use_pallas, color_rotations)
-            return _quant_u8(out) if quantize_uint8 else out
-        if mesh is not None:
-            out = self._run_dp(enc_all, dec_all, pastiche, targets_all,
-                               run_key, plans, strengths_all, pca_flags_all,
-                               mats_all, n_chunks, rotations)
-            return mesh.all_gather(_quant_u8(out) if quantize_uint8 else out)
-        if n_chunks > 1:
-            out = _run_stages_chunked_impl(
-                enc_all, dec_all, pastiche, targets_all, run_key,
-                depths=tuple(self.layer_depths), plans=plans,
-                mode=cfg.hist_mode, pca_flags_all=pca_flags_all,
-                n_chunks=n_chunks, resize_mats_all=mats_all,
-                stage_codecs=self.stage_codecs, rotations=rotations,
-                pad_mode=self.pad_mode)
-        else:
-            out = _run_stages_impl(
-                enc_all, dec_all, pastiche, targets_all, run_key,
-                depths=tuple(self.layer_depths), plans=plans,
-                mode=cfg.hist_mode, strengths_all=strengths_all,
-                pca_flags_all=pca_flags_all, resize_mats_all=mats_all,
-                stage_codecs=self.stage_codecs, use_pallas=cfg.use_pallas,
-                content_px=content, color_mode=cfg.color_transfer,
-                rotations=rotations, color_rotations=color_rotations,
-                cov_prop=cfg.cov_propagation, pad_mode=self.pad_mode)
-        return _quant_u8(out) if quantize_uint8 else out
+        return targets_all, strengths_all, pca_flags_all, plans, mats_all
 
     def _agree_widths(self, widths, masks):
         """Rank 0's PCA widths and true-rank masks on every rank (one
         broadcast): the widths fix the shapes of every later collective."""
         mesh = self.mesh
-        vals = list(widths) + [-1 if m is None else int(m) for m in masks]
+        vals = list(widths) + [-1 if m is None else int(fetch(m))
+                               for m in masks]
         dev = mesh.device if mesh.backend == "nccl" else "cpu"
-        got = mesh.broadcast(torch.tensor(vals, dtype=torch.int64,
-                                          device=dev)).tolist()
+        got = fetch(mesh.broadcast(torch.tensor(vals, dtype=torch.int64,
+                                                device=dev))).tolist()
         d = len(widths)
         return (tuple(got[:d]),
                 tuple(None if m is None else torch.tensor(
@@ -1163,7 +1279,7 @@ class Synthesizer:
         from .parallel.shard_ot import make_sharded_pass
 
         cfg = self.cfg
-        for p, (_, iters) in enumerate(plans):
+        for p, (hw, iters) in enumerate(plans):
             tg = targets_all[p]
             stage = make_sharded_pass(
                 self.mesh, depths=tuple(self.layer_depths), iters=iters,
@@ -1171,14 +1287,15 @@ class Synthesizer:
                 pca_flags=pca_flags_all[p], pad_mode=self.pad_mode,
                 cov_prop=cfg.cov_propagation, n_chunks=n_chunks,
                 fast_codec=self.stage_codecs is not None)
-            pastiche = stage(
-                enc_all, dec_all, pastiche, tuple(t.stats.mu for t in tg),
-                tuple(t.stats.cov_raw for t in tg),
-                tuple(t.stats.samples for t in tg),
-                tuple(t.eigvecs for t in tg), tuple(t.content for t in tg),
-                run_key, tuple(t.k_mask for t in tg), pass_idx=p,
-                stage_codecs=self.stage_codecs, resize_mats=mats_all[p],
-                rotations=rotations, use_pallas=cfg.use_pallas)
+            with _pass_span(p, hw, pastiche):
+                pastiche = stage(
+                    enc_all, dec_all, pastiche, tuple(t.stats.mu for t in tg),
+                    tuple(t.stats.cov_raw for t in tg),
+                    tuple(t.stats.samples for t in tg),
+                    tuple(t.eigvecs for t in tg), tuple(t.content for t in tg),
+                    run_key, tuple(t.k_mask for t in tg), pass_idx=p,
+                    stage_codecs=self.stage_codecs, resize_mats=mats_all[p],
+                    rotations=rotations, use_pallas=cfg.use_pallas)
         return pastiche
 
     def _run_rows(self, enc_all, dec_all, pastiche, targets_all, run_key,
@@ -1195,13 +1312,7 @@ class Synthesizer:
         from .parallel.spatial import make_spatial_pass, own_rows
 
         cfg, mesh, space = self.cfg, self.mesh, self.space
-        for p, (_, iters) in enumerate(plans):
-            if p == 0 or mats_all[p] is not None:
-                if p > 0:
-                    pastiche = space.all_gather(pastiche, dim=1)
-                if mats_all[p] is not None:
-                    pastiche = apply_resample(pastiche, *mats_all[p])
-                pastiche = own_rows(pastiche, space)
+        for p, (hw, iters) in enumerate(plans):
             tg = targets_all[p]
             kw = dict(depths=tuple(self.layer_depths), iters=iters,
                       mode=cfg.hist_mode, strengths=strengths_all[p],
@@ -1210,15 +1321,26 @@ class Synthesizer:
                       fast_codec=self.stage_codecs is not None)
             stage = (make_grid_pass(mesh, **kw) if mesh.grid
                      else make_spatial_pass(mesh, **kw))
-            pastiche = stage(
-                enc_all, dec_all, pastiche, tuple(t.stats.mu for t in tg),
-                tuple(t.stats.cov_raw for t in tg),
-                tuple(t.stats.samples for t in tg),
-                tuple(t.eigvecs for t in tg), tuple(t.content for t in tg),
-                run_key, tuple(t.k_mask for t in tg), pass_idx=p,
-                stage_codecs=self.stage_codecs, rotations=rotations,
-                use_pallas=cfg.use_pallas)
-        return space.all_gather(pastiche, dim=1)
+            with _pass_span(p, hw, pastiche):
+                if p == 0 or mats_all[p] is not None:
+                    # the whole image gathered, resized, and this rank's
+                    # rows kept
+                    with span("optex.resize"):
+                        if p > 0:
+                            pastiche = space.all_gather(pastiche, dim=1)
+                        if mats_all[p] is not None:
+                            pastiche = apply_resample(pastiche, *mats_all[p])
+                        pastiche = own_rows(pastiche, space)
+                pastiche = stage(
+                    enc_all, dec_all, pastiche, tuple(t.stats.mu for t in tg),
+                    tuple(t.stats.cov_raw for t in tg),
+                    tuple(t.stats.samples for t in tg),
+                    tuple(t.eigvecs for t in tg), tuple(t.content for t in tg),
+                    run_key, tuple(t.k_mask for t in tg), pass_idx=p,
+                    stage_codecs=self.stage_codecs, rotations=rotations,
+                    use_pallas=cfg.use_pallas)
+        with span("optex.gather"):
+            return space.all_gather(pastiche, dim=1)
 
     def _evict_style_preps(self) -> None:
         while len(self._style_prep_cache) > 6 * max(self.cfg.passes, 1):

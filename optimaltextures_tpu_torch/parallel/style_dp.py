@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import core, transport
+from ..utils.trace import fetch
 
 
 def per_style_stats(style_feats: torch.Tensor, need_samples: bool):
@@ -106,8 +107,8 @@ class _StyleSet:
                     # every style's ranks, in rank order (one style a rank)
                     dev = (self.mesh.device if self.mesh.backend == "nccl"
                            else "cpu")
-                    ranks = self.mesh.all_gather(torch.tensor(
-                        ranks, dtype=torch.int64, device=dev)).tolist()
+                    ranks = fetch(self.mesh.all_gather(torch.tensor(
+                        ranks, dtype=torch.int64, device=dev))).tolist()
                 widths = _bucket_widths(cfg, spectra[0], ranks)
             if self.force is not None:
                 widths = tuple(self.force[ck] if isinstance(self.force, dict)

@@ -29,6 +29,7 @@ from . import config
 from .ops import histmatch
 from .ops.rotation import (random_rotation, stage_rotations,
                            stage_rotations_masked)
+from .utils.trace import fetch
 
 
 def cov_propagation_enabled() -> bool:
@@ -186,7 +187,7 @@ def choose_k(singular_values) -> int:
     cumsum(s / sum(s)) > 0.9 (exclusive of the crossing component), clamped
     to >= 1."""
     if isinstance(singular_values, torch.Tensor):
-        singular_values = singular_values.detach().cpu().numpy()
+        singular_values = fetch(singular_values.detach()).numpy()
     s = np.asarray(singular_values, dtype=np.float64)
     frac = np.cumsum(s / s.sum())
     return max(int(np.argmax(frac > 0.9)), 1)
