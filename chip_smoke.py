@@ -69,6 +69,17 @@ Phases (each raises on failure; none catches its own):
      (optimaltextures_tpu_torch/tools/cdf_kernels.py); prints the k of
      every depth at every pass size and the bytes path A's cdf kernels
      must move in a run;
+  4r. the cdf step's rotation products (rotate_rows with each row's range,
+     unrotate_rows; csrc/rotgemm.cu, TF32 HGMMA in the SASS of phase 2) at
+     the last pass's shapes of a batch-128 512-px cdf run (relu1, relu2,
+     relu3 at the cell's traced PCA widths 25, 75, 177, and relu3 at 174,
+     each tiling of the kernel's plan): each within 4x of torch.matmul's
+     float32 error against a float64 product, the ranges equal to
+     torch.aminmax of the rows, timed by the device's own record beside the
+     event-timed loop, torch.matmul and the former expression
+     (optimaltextures_tpu_torch/tools/rot_gemm.py); every run's launch
+     counts include two rotate_rows and one unrotate_rows a cdf or sort step
+     and a step of the opt color tail;
   5. the conv64 prototype kernel against its plain version at the tool's
      check shape (64 px, B = 128, the TMA path) and a ragged one (37 x 45,
      B = 5, the masked path), within
@@ -268,6 +279,9 @@ REPLACES = {
     "pwl_remap": "optimaltextures_tpu/ops/pallas/pwl_remap.py:74",
     "cdf_remap": "optimaltextures_tpu/ops/pallas/cdf_remap.py:97",
     "conv64": "tools/pallas_conv_proto.py:109",
+    # no Pallas kernel: the JAX package leaves the step's products to XLA
+    "rotate_rows": "none (XLA at HIGHEST: optimaltextures_tpu/transport.py:125-126)",
+    "unrotate_rows": "none (XLA at HIGHEST: optimaltextures_tpu/transport.py:134)",
 }
 REPLACES.update({k + "_bf16": REPLACES[k] for k in (
     "rgb_to_relu1", "conv3x3_p2", "conv3x3_full", "upconv_p2", "final_to_rgb")})
@@ -282,9 +296,9 @@ REPLACES.update({k + "_wrap": REPLACES[k] for k in list(REPLACES)
 SOURCES = {"batched_histogram": "cdf", "pwl_remap": "cdf", "cdf_remap": "cdf",
            "conv64": "conv64", "conv3x3_p2_bf16": "conv_wg",
            "conv3x3_full_bf16": "conv_wg", "upconv_p2_bf16": "conv_wg",
-           "final_to_rgb_bf16": "edge_mma", "rgb_to_relu1_bf16": "edge_mma"}   # else codec
+           "final_to_rgb_bf16": "edge_mma", "rgb_to_relu1_bf16": "edge_mma",
+           "rotate_rows": "rotgemm", "unrotate_rows": "rotgemm"}   # else codec
 SOURCES.update({k + "_wrap": v for k, v in list(SOURCES.items()) if k.endswith("_bf16")})
-LIBRARIES = ("codec", "cdf", "conv64", "conv_wg", "edge_mma")
 
 # how each kernel computes: FFMA convs on the FP32 cores with their
 # 64-channel side moved by TMA, wgmma fed by TMA, three TF32 mma.sync
@@ -304,7 +318,8 @@ DESIGNS = {"conv64": "wgmma+tma", **{k: "3xtf32-mma" for k in TENSOR_CORE_CODEC}
            **{k + "_bf16": "wgmma-resident" for k in TENSOR_CORE_CODEC},
            **{k + "_bf16": "mma+tma" for k in EDGE_CODEC},
            "batched_histogram": "cluster-dsmem", "pwl_remap": "smem-tables",
-           "cdf_remap": "smem-segments"}
+           "cdf_remap": "smem-segments", "rotate_rows": "3xtf32-wgmma-resident",
+           "unrotate_rows": "3xtf32-wgmma-resident"}
 DESIGNS.update({k + "_wrap": DESIGNS[k] for k in list(DESIGNS)
                 if k.split("_bf16")[0] in _CODEC})
 # JAX's own max|bf16 - f32| gap on tests/test_torch_batch.py's inputs (64
@@ -347,7 +362,9 @@ SASS_CHECKS = (("conv64", r"conv64_wgmma", (("HGMMA", "HGMMA"),)),
                ("pwl_remap", r"pwl_tables", (("LDG", "LDG.E.128"),
                                              ("STG", "STG.E.128"))),
                ("cdf_remap", r"cdf_segments", (("LDG", "LDG.E.128"),
-                                               ("STG", "STG.E.128"))))
+                                               ("STG", "STG.E.128"))),
+               ("rotate_rows", r"rot_gemm_fwd", (("HGMMA", "TF32"),)),
+               ("unrotate_rows", r"rot_gemm_back", (("HGMMA", "TF32"),)))
 # kernels a redesign replaced: no instantiation may be left in the libraries
 SASS_GONE = (("conv3x3_full_bf16 on mma.sync", r"conv3x3_bf16ILi\d+ELi128E"),
              ("conv3x3_p2_bf16 on mma.sync", r"conv3x3_bf16ILi\d+ELi64E"),
@@ -695,6 +712,37 @@ def check_cdf_kernels(seed: int, reps: int, card: str):
     return rows
 
 
+def check_rot_gemm(reps: int, card: str):
+    """Phase 4r: the cdf step's rotation products (rotate_rows, with each
+    row's range, and unrotate_rows) at the last pass's shapes of a batch-128
+    512-px cdf run against a float64 product and torch.matmul in float32
+    (optimaltextures_tpu_torch/tools/rot_gemm.py: the ranges equal
+    torch.aminmax of the rows, or it raises). Each kernel's relative RMS
+    error may be at most 4x torch.matmul's at every shape of the tool's
+    default: the cell's traced widths (relu1 25, relu2 75, relu3 177: odd,
+    the staged back store, the 96-channel slices) and relu3 at 174. Returns
+    the two rows summed over the cell's three shapes, each shape's device
+    time apart."""
+    from optimaltextures_tpu_torch.tools import rot_gemm
+
+    timed = rot_gemm.time_rot_gemm(rot_gemm.SHAPES, reps, card)
+    rows, by_shape = {}, {}
+    for (name, label), r in timed.items():
+        if r["rel_rms"] > 4 * r["lib_rel_rms"]:
+            raise AssertionError(f"{name} [{label}]: relative RMS error "
+                                 f"{r['rel_rms']:.3e} > 4 x torch.matmul's "
+                                 f"{r['lib_rel_rms']:.3e}")
+        by_shape.setdefault(name, {})[label.split(" N=")[0]] = r["device_ms"]
+        if r["shape"] in rot_gemm.CELL_SHAPES:
+            _add_row(rows, name, r["err"], r["ms"], r["plain_ms"], r["lib_ms"],
+                     r["t_flops"], r["t_bytes"])
+            rows[name]["device_ms"] = (rows[name].get("device_ms", 0.0)
+                                       + r["device_ms"])
+    for name, shapes in by_shape.items():
+        rows[name]["device_ms_by_shape"] = shapes
+    return rows
+
+
 def check_conv64(reps: int, card: str):
     """Phase 5: the conv64 prototype kernel vs its plain version at the
     tool's check shape, a ragged one and the tool's 512 px x 128 (more than
@@ -781,17 +829,19 @@ def check_conv64(reps: int, card: str):
 
 
 def _counts():
-    from optimaltextures_tpu_torch.ops import cdf, codec, conv64
+    from optimaltextures_tpu_torch.ops import cdf, codec, conv64, rotgemm
 
-    return {**codec.LAUNCHES, **cdf.LAUNCHES, **conv64.LAUNCHES}
+    return {**codec.LAUNCHES, **cdf.LAUNCHES, **conv64.LAUNCHES,
+            **rotgemm.LAUNCHES}
 
 
 def _reset_counts():
-    from optimaltextures_tpu_torch.ops import cdf, codec, conv64
+    from optimaltextures_tpu_torch.ops import cdf, codec, conv64, rotgemm
 
     codec.reset_launches()
     cdf.reset_launches()
     conv64.reset_launches()
+    rotgemm.reset_launches()
 
 
 def mixing_matches(cfg) -> int:
@@ -811,19 +861,25 @@ def expected_counts(cfg) -> dict:
     wrap mode's in a tileable run; the other dtype's and the other pad
     mode's none), one histogram launch (both clouds) and one remap
     per cdf step (each sliced-OT iteration of hist_mode "cdf", each step of
-    the opt color tail, and each cross-matching of cdf-mode mixing);
-    cdf_remap and conv64 are on no path."""
+    the opt color tail, and each cross-matching of cdf-mode mixing), two
+    rotate_rows (pastiche and style) and one unrotate_rows per rotated step
+    (each iteration of "cdf" or "sort", each step of the opt color tail;
+    the mixing's cross-matching rotates nothing); cdf_remap and conv64 are
+    on no path."""
     from optimaltextures_tpu_torch import core
     from optimaltextures_tpu_torch.utils import schedule
 
     depths = [3 - l for l in range(3)]
     table, _ = schedule.iters_and_sizes(cfg.size, cfg.iters, cfg.passes,
                                         not cfg.no_multires, num_layers=3)
-    steps = 0
+    steps = rotated = 0
+    if cfg.hist_mode in ("cdf", "sort"):
+        rotated = sum(map(sum, table))
     if cfg.hist_mode == "cdf":
-        steps = sum(map(sum, table)) + mixing_matches(cfg)
+        steps = rotated + mixing_matches(cfg)
     if cfg.color_transfer == "opt":
         steps += core.COLOR_STEPS
+        rotated += core.COLOR_STEPS
     # a batch_chunk run launches every codec kernel once per chunk
     chunks = (cfg.batch // cfg.batch_chunk
               if cfg.batch_chunk and cfg.batch > cfg.batch_chunk else 1)
@@ -835,7 +891,8 @@ def expected_counts(cfg) -> dict:
                for pd in ("", "_wrap")},
             **{k + suffix: v for k, v in codec_counts.items()},
             "batched_histogram": steps, "pwl_remap": steps,
-            "cdf_remap": 0, "conv64": 0}
+            "cdf_remap": 0, "conv64": 0,
+            "rotate_rows": 2 * rotated, "unrotate_rows": rotated}
 
 
 def drive_path(name: str, cfg, styles, content=None, labels=("cold", "warm"),
@@ -1917,7 +1974,7 @@ def dp_phase(seed: int, card: str, main_counts, main_out, cdf_counts,
     sp = dict(main, style=["smoke_style", "smoke_style_b"])
     codec_f32 = [k for k in main_counts if k in _CODEC]
     codec_bf16 = [k + "_bf16" for k in _CODEC]
-    cdf_keys = ["batched_histogram", "pwl_remap"]
+    cdf_keys = ["batched_histogram", "pwl_remap", "rotate_rows", "unrotate_rows"]
 
     # the same runs in this process, before the ranks take the card
     def here(**kw):
@@ -2068,7 +2125,7 @@ def spatial_phase(seed: int, card: str, main_counts, main_out, cdf_counts,
     main = dict(size=512, seed=seed, style=["smoke_style"], spatial_devices=2)
     codec_f32 = [k for k in main_counts if k in _CODEC]
     codec_wrap = [k + "_wrap" for k in _CODEC]
-    cdf_keys = ["batched_histogram", "pwl_remap"]
+    cdf_keys = ["batched_histogram", "pwl_remap", "rotate_rows", "unrotate_rows"]
     grid = dict(size=128, seed=seed, style=["smoke_style"], batch=2)
     ref_grid = core.synthesize(OptexConfig(**grid), [style],
                                device="cuda")[0].cpu().numpy()
@@ -2187,7 +2244,8 @@ def served_ranks_phase(seed: int, card: str, main_counts, cdf_counts,
     Image.fromarray(style_u8).save(buf, "PNG")
     b64 = base64.b64encode(buf.getvalue()).decode()
     codec_f32 = [k for k in main_counts if k in _CODEC]
-    keys = codec_f32 + ["batched_histogram", "pwl_remap"]
+    keys = codec_f32 + ["batched_histogram", "pwl_remap", "rotate_rows",
+                        "unrotate_rows"]
 
     def payload(**cfg):
         return {"config": {"size": 512, **cfg}, "style_b64": [b64],
@@ -2329,10 +2387,11 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.time()
-    libs = cuda_build.build(*LIBRARIES)
-    print(f"built {', '.join(f'csrc/{n}.cu' for n in LIBRARIES)} in "
+    libraries = (*cuda_build.RUN_LIBRARIES, "conv64")
+    libs = cuda_build.build(*libraries)
+    print(f"built {', '.join(f'csrc/{n}.cu' for n in libraries)} in "
           f"{time.time() - t0:.1f} s (sm_90a, in parallel)", flush=True)
-    for name, lib in zip(LIBRARIES, libs):
+    for name, lib in zip(libraries, libs):
         with open(lib + ".log") as f:
             for line in f:
                 if ("registers" in line or "spill" in line or "Compiling" in line
@@ -2341,7 +2400,7 @@ def main() -> int:
                 spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
                 if name in NO_SPILL and spills and spills.groups() != ("0", "0"):
                     raise AssertionError(f"csrc/{name}.cu spills: {line.strip()}")
-    wg = ctypes.CDLL(libs[LIBRARIES.index("conv_wg")])
+    wg = ctypes.CDLL(libs[libraries.index("conv_wg")])
     print("conv_wg dynamic shared memory: "
           + ", ".join(f"{mode} Cin {c} {wg.optex_conv_wg_smem(up, c)} B"
                       for up, mode in ((0, "conv3x3_wg"), (1, "upconv_wg"))
@@ -2350,6 +2409,7 @@ def main() -> int:
 
     rows = check_kernels(args.seed, args.reps, card)
     rows.update(check_cdf_kernels(args.seed, args.reps * 10, card))
+    rows.update(check_rot_gemm(args.reps // 2, card))
     rows.update(check_conv64(args.reps, card))
     rows.update(check_bf16_kernels(args.seed, args.reps, card))
     rows.update(check_kernels(args.seed, args.reps, card, pad="wrap"))

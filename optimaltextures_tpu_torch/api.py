@@ -22,10 +22,6 @@ from . import core
 from .config import OptexConfig
 from .utils import imageio
 
-# the kernel libraries of a run, built before ranks are started so that the
-# ranks only load them
-_RUN_LIBRARIES = ("codec", "cdf", "conv_wg", "edge_mma")
-
 
 def _on_ranks(n: int, device, target, args):
     """``target(mesh, *args)`` on n ranks: this process's rank of the current
@@ -48,7 +44,7 @@ def _on_ranks(n: int, device, target, args):
                          f"{torch.cuda.device_count()}")
     from .ops import cuda_build
 
-    cuda_build.build(*_RUN_LIBRARIES)
+    cuda_build.build(*cuda_build.RUN_LIBRARIES)
     return mesh_mod.spawn(target, n, backend="nccl", device="cuda",
                           args=args)
 

@@ -348,8 +348,7 @@ def _lib(name: str) -> ctypes.CDLL:
 
 def build() -> None:
     """Build and load the kernels now (they otherwise build at first use),
-    the libraries in parallel."""
-    cuda_build.build("codec", *set(_SOURCES.values()))
+    the libraries in parallel (:func:`cuda_build.load`)."""
     for name in ("conv3x3_p2", *_SOURCES):
         _lib(name)
 

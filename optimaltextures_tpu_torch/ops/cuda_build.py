@@ -5,8 +5,10 @@ library with a plain C interface, loaded with ``ctypes`` (no PyTorch headers,
 so a build takes seconds). Libraries go to ``<repo>/build/torch_kernels/``
 (or the directory given to :func:`set_build_dir`, the CLI's ``--cache_dir``),
 named by a hash of the source and flags, and are built at first use in the
-process that needs them (or all at once, in parallel, by :func:`build`). A
-failed build raises; nothing falls back.
+process that needs them (or all at once, in parallel, by :func:`build`); the
+first load of any of a run's libraries (:data:`RUN_LIBRARIES`) builds all of
+them together, so a checkout's first run waits for the slowest nvcc, not for
+the sum. A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -26,6 +28,10 @@ BUILD_DIR = DEFAULT_BUILD_DIR
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# the kernel libraries a synthesis run loads (codec, transport), built
+# together; also built before ranks are started so that the ranks only load
+RUN_LIBRARIES = ("codec", "cdf", "conv_wg", "edge_mma", "rotgemm")
 
 _LIBS = {}
 _LOCK = threading.Lock()
@@ -92,8 +98,10 @@ def build(*names: str) -> List[str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu``, built on first use (with
+    the rest of :data:`RUN_LIBRARIES` when it is one of them)."""
     with _LOCK:
         if name not in _LIBS:
-            _LIBS[name] = ctypes.CDLL(build(name)[0])
+            names = RUN_LIBRARIES if name in RUN_LIBRARIES else (name,)
+            _LIBS[name] = ctypes.CDLL(build(*names)[names.index(name)])
         return _LIBS[name]

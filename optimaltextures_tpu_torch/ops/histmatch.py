@@ -269,8 +269,14 @@ def cdf_apply_rows(t: torch.Tensor, t_hist: torch.Tensor, s_hist: torch.Tensor,
 
 
 def cdf_match_rows(t: torch.Tensor, s: torch.Tensor, bins: int = BINS,
-                   use_pallas: bool = True, mesh=None) -> torch.Tensor:
+                   use_pallas: bool = True, mesh=None, t_range=None,
+                   s_range=None) -> torch.Tensor:
     """Row-major cdf matching core: t (C, Nt) matched to s (C, Ns).
+
+    ``t_range`` / ``s_range``: each cloud's (min, max) per row, (C,) each,
+    where the caller has them (the rotation kernel reduces them as it
+    writes the rows, ``ops/rotgemm.py``); without them they are taken here
+    (``torch.aminmax``).
 
     With a ``mesh`` ``t`` is this rank's shard of the target cloud and ``s``
     the (replicated) source: the range is the global one (one MIN reduction
@@ -278,11 +284,11 @@ def cdf_match_rows(t: torch.Tensor, s: torch.Tensor, bins: int = BINS,
     source's) and the target counts are summed over the ranks (exact: integer
     counts in float32), so every rank maps its samples by the global cdf.
     The source's counts are this rank's own, which every rank has."""
-    t_lo, t_hi = torch.aminmax(t, dim=1)
+    t_lo, t_hi = torch.aminmax(t, dim=1) if t_range is None else t_range
     if mesh is not None:
         ext = mesh.pmin(torch.cat([t_lo, -t_hi]))
         t_lo, t_hi = ext[:t.shape[0]], -ext[t.shape[0]:]
-    s_lo, s_hi = torch.aminmax(s, dim=1)
+    s_lo, s_hi = torch.aminmax(s, dim=1) if s_range is None else s_range
     lo, hi = torch.minimum(t_lo, s_lo), torch.maximum(t_hi, s_hi)
     if _on_kernels(use_pallas, bins, t.device):
         t_hist, s_hist = cdf.histogram_pair(t, s, lo, hi)   # one launch

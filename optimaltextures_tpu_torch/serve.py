@@ -462,7 +462,7 @@ def _serve_rank(mesh, req: _Request, pack_dir):
     (every rank imports a pack, rank 0 writes one). Returns (the uint8
     batch on rank 0, else None; {"launches": this rank's kernel launches,
     "style_preps": the style preps it dispatched})."""
-    from .ops import cdf, codec
+    from .ops import cdf, codec, rotgemm
 
     global _RANK_POOL
     if _RANK_POOL is None:
@@ -473,8 +473,9 @@ def _serve_rank(mesh, req: _Request, pack_dir):
         os.environ.pop("OPTEX_PACK_DIR", None)
     codec.reset_launches()
     cdf.reset_launches()
+    rotgemm.reset_launches()
     batch, synth = _pool_run(_RANK_POOL, req, write_pack=mesh.rank == 0)
-    report = {"launches": {**codec.LAUNCHES, **cdf.LAUNCHES},
+    report = {"launches": {**codec.LAUNCHES, **cdf.LAUNCHES, **rotgemm.LAUNCHES},
               "style_preps": synth.last_run_style_preps}
     return (batch if mesh.rank == 0 else None), report
 
@@ -829,10 +830,9 @@ class WorkerSet:
         devices = [self.pools[i].device for i in block]
         backend = "gloo" if devices[0].type == "cpu" else "nccl"
         if backend == "nccl":
-            from . import api
             from .ops import cuda_build
 
-            cuda_build.build(*api._RUN_LIBRARIES)
+            cuda_build.build(*cuda_build.RUN_LIBRARIES)
         group = RankGroup(devices, backend=backend)
         with self._groups_lock:
             if self._closed:

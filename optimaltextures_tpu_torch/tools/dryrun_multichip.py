@@ -75,16 +75,17 @@ def card(device) -> str:
 
 
 def launch_counts() -> dict:
-    from ..ops import cdf, codec
+    from ..ops import cdf, codec, rotgemm
 
-    return {**codec.LAUNCHES, **cdf.LAUNCHES}
+    return {**codec.LAUNCHES, **cdf.LAUNCHES, **rotgemm.LAUNCHES}
 
 
 def reset_counts() -> None:
-    from ..ops import cdf, codec
+    from ..ops import cdf, codec, rotgemm
 
     codec.reset_launches()
     cdf.reset_launches()
+    rotgemm.reset_launches()
 
 
 def gather_counts(mesh, counts: dict) -> list:
@@ -387,7 +388,7 @@ def walls(n: int, card_name: str, parts: str = "all") -> dict:
     from ..utils import imageio
 
     core.full_f32_precision()
-    cuda_build.build("codec", "cdf", "conv_wg", "edge_mma")
+    cuda_build.build(*cuda_build.RUN_LIBRARIES)
     styles = [imageio.load_image(os.path.join(SAMPLES, s), 512)
               for s in STYLES_512[:n]]
     f32 = dict(size=512, seed=0, style=["s"])
@@ -608,7 +609,7 @@ def main(argv=None) -> int:
     if args.device == "cuda":
         from ..ops import cuda_build
 
-        cuda_build.build("codec", "cdf", "conv_wg", "edge_mma")
+        cuda_build.build(*cuda_build.RUN_LIBRARIES)
     t0 = time.time()
     spawn(dryrun_rank, n, backend="gloo" if args.device == "cpu" else "nccl",
           device=args.device, deadline_s=1200)

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from . import config
-from .ops import histmatch
+from .ops import histmatch, rotgemm
 from .ops.rotation import (random_rotation, stage_rotations,
                            stage_rotations_masked)
 from .utils.trace import fetch
@@ -108,8 +108,10 @@ def _sampled_step_with_rot(rot: torch.Tensor, feature: torch.Tensor,
                            mesh=None) -> torch.Tensor:
     """One cdf/sort sliced-OT step with a supplied rotation. The rotated
     clouds come out of their GEMMs directly as the (C, N) rows the matchers
-    take (``R^T X^T``), and the matched rows go back through one more GEMM,
-    so no transposed copy of the samples is made.
+    take (``R^T X^T``, with each row's range: ``ops/rotgemm.py``, on the
+    card one tensor-core kernel that the cdf matcher's range reads), and
+    the matched rows go back through one more GEMM, so no transposed copy
+    of the samples is made.
 
     With a ``mesh`` ``feature`` is this rank's shard: cdf matches by the
     global histogram (histmatch.cdf_match_rows), and sort gathers every
@@ -123,8 +125,8 @@ def _sampled_step_with_rot(rot: torch.Tensor, feature: torch.Tensor,
 
         return _sort_step_grid(rot, feature, style_samples, mesh)
     c = feature.shape[-1]
-    rf = rot.T @ feature.reshape(-1, c).T          # (C, N) rows
-    rs = rot.T @ style_samples.T
+    rf, *rf_range = rotgemm.rotate_rows(feature.reshape(-1, c), rot)
+    rs, *rs_range = rotgemm.rotate_rows(style_samples, rot)
     if mode == "sort" and mesh is not None:
         n = rf.shape[1]
         matched = histmatch.sort_match_rows(mesh.all_gather(rf, dim=1), rs)
@@ -133,8 +135,9 @@ def _sampled_step_with_rot(rot: torch.Tensor, feature: torch.Tensor,
         matched = histmatch.sort_match_rows(rf, rs)
     else:
         matched = histmatch.cdf_match_rows(rf, rs, use_pallas=use_pallas,
-                                           mesh=mesh)
-    return (matched.T @ rot.T).reshape(feature.shape)
+                                           mesh=mesh, t_range=rf_range,
+                                           s_range=rs_range)
+    return rotgemm.unrotate_rows(matched, rot).reshape(feature.shape)
 
 
 def ot_step_sampled(gen: Optional[torch.Generator], feature: torch.Tensor,

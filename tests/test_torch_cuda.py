@@ -1232,7 +1232,7 @@ def test_tileable_run_on_gpu_matches_cpu(conv_dtype, bound):
 def _dp_inputs():
     from optimaltextures_tpu_torch.ops import cuda_build
 
-    cuda_build.build("codec", "cdf", "conv_wg", "edge_mma")   # ranks only load
+    cuda_build.build(*cuda_build.RUN_LIBRARIES)   # ranks only load
     rng = np.random.default_rng(4)
     return [rng.uniform(size=(1, 64, 64, 3)).astype(np.float32)
             for _ in range(4)]
